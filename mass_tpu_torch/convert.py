@@ -1,0 +1,71 @@
+"""Carry state across from the JAX package.
+
+``mass_tpu``'s ``VoxelMap`` stores its features either channel-major
+``[8 * ceil(F / 8), V]`` (the TPU layout, with zero pad rows) or
+voxel-major ``[V, F]``; the port always stores ``[V, F]``.  The
+functions here take and give plain numpy arrays, so neither package
+imports the other.  (This slice has no learned weights; the
+search-policy parameter import arrives with slice 2.)
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from mass_tpu_torch.config import MapGeometry
+from mass_tpu_torch.core.voxelmap import VoxelMap
+
+
+def voxelmap_from_jax(data, bins_x, bins_y, bins_z,
+                      geometry: MapGeometry, device=None) -> VoxelMap:
+    """The port's ``VoxelMap`` holding a JAX map's state.
+
+    ``data`` is the JAX map's storage as numpy, in either layout: the
+    voxel-major ``[V, F]`` form is taken as is, the channel-major form
+    ``[Fpad, V]`` (``Fpad`` = F rounded up to 8) is transposed with its
+    pad rows dropped.  The arrays are copied: the port updates its map
+    in place.
+    """
+    g = geometry
+    data = np.asarray(data, np.float32)
+    fpad = (g.feature_size + 7) // 8 * 8
+    if data.shape == (g.num_voxels, g.feature_size):
+        vmajor = data
+    elif data.shape == (fpad, g.num_voxels):
+        vmajor = data[:g.feature_size].T
+    else:
+        raise ValueError(
+            f"map data of shape {data.shape} fits neither [V, F] = "
+            f"{(g.num_voxels, g.feature_size)} nor [Fpad, V] = "
+            f"{(fpad, g.num_voxels)}")
+    vm = VoxelMap.create(g, device=device)
+    vm.data.copy_(torch.from_numpy(np.array(vmajor, np.float32)))
+    for name, bins in (("bins_x", bins_x), ("bins_y", bins_y),
+                       ("bins_z", bins_z)):
+        getattr(vm, name).copy_(torch.from_numpy(
+            np.array(bins, np.float32)))
+    return vm
+
+
+def voxelmap_to_numpy(vm: VoxelMap, layout: str = "vmajor"
+                      ) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`voxelmap_from_jax`: the map's ``data`` in the
+    JAX ``layout`` ("vmajor" ``[V, F]`` or "cmajor" ``[Fpad, V]`` with
+    zero pad rows) and its ``bins_x/y/z``, as numpy."""
+    g = vm.geometry
+    data = vm.data.detach().cpu().numpy()
+    if layout == "cmajor":
+        fpad = (g.feature_size + 7) // 8 * 8
+        cmajor = np.zeros((fpad, g.num_voxels), np.float32)
+        cmajor[:g.feature_size] = data.T
+        data = cmajor
+    elif layout != "vmajor":
+        raise ValueError(f"layout must be 'vmajor' or 'cmajor', got "
+                         f"{layout!r}")
+    return dict(data=data,
+                bins_x=vm.bins_x.detach().cpu().numpy(),
+                bins_y=vm.bins_y.detach().cpu().numpy(),
+                bins_z=vm.bins_z.detach().cpu().numpy())

@@ -1,0 +1,2 @@
+from mass_tpu_torch.maps.layers import (  # noqa: F401
+    MapSet, OccupancyMap, SemanticMap)

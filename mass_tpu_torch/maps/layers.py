@@ -1,0 +1,127 @@
+"""Voxel-map layers: occupancy and semantic (port of
+``mass_tpu.maps.layers``; the dense-feature and CLIP layers arrive with
+slice 3).
+
+Each layer pairs a per-layer class encoder with a ``VoxelMap`` on the
+layer's device.  ``MapSet.update_group`` folds one observation into
+several layers: the orient/bin/corner pass runs once per camera and
+grid, and each group of one-hot maps splats from the shared records.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from mass_tpu_torch import resolve_device
+from mass_tpu_torch.config import CameraConfig, MapGeometry
+from mass_tpu_torch.core import geometry as G
+from mass_tpu_torch.core.voxelmap import VoxelMap, apply_onehot_group
+
+
+def _pose_args(observation: Dict, device):
+    """(position [3], yaw, elevation, depth [h, w, 1]) of an observation;
+    the pose stays host scalars (the rotation is built on the host)."""
+    position = torch.as_tensor(
+        np.asarray(observation["position"], np.float32), device=device)
+    depth = torch.as_tensor(np.asarray(observation["depth"], np.float32),
+                            device=device)
+    return (position, float(np.float32(observation["yaw"])),
+            float(np.float32(observation["elevation"])), depth)
+
+
+class _BaseMap:
+    """Shared construction and reset of a one-hot layer."""
+
+    def __init__(self, camera: CameraConfig, geometry: MapGeometry,
+                 origin=(0.0, 0.0, 0.0), device=None):
+        self.camera = camera
+        self.geometry = geometry
+        self.device = resolve_device(device)
+        self.rays = G.camera_rays(camera.height, camera.width,
+                                  camera.focal_length, camera.focal_length,
+                                  device=self.device)
+        self.voxel_map = VoxelMap.create(geometry, origin, self.device)
+        # host-side reset generation: bins change only here, so host
+        # midpoint caches (core/voxelmap.HostMapToWorld) key on it
+        self.bins_epoch = 0
+
+    def reset(self, origin) -> None:
+        self.voxel_map.reset(origin)
+        self.bins_epoch += 1
+
+
+class OccupancyMap(_BaseMap):
+    """Single-channel density map: every valid depth pixel deposits
+    occupancy mass (class 0)."""
+
+    def __init__(self, camera: CameraConfig,
+                 config_geometry: MapGeometry = None,
+                 origin=(0.0, 0.0, 0.0), device=None, **geo_kwargs):
+        geometry = config_geometry or MapGeometry(feature_size=1,
+                                                  **geo_kwargs)
+        super().__init__(camera, geometry, origin, device)
+
+    def classes_for(self, aux, depth):
+        return torch.zeros(depth.shape[:2], dtype=torch.int32,
+                           device=self.device)
+
+    def aux_from_observation(self, observation: Dict):
+        return None
+
+
+class SemanticMap(_BaseMap):
+    """Per-voxel class-probability map fed by segmentation images."""
+
+    def __init__(self, camera: CameraConfig, num_classes: int = 54,
+                 config_geometry: MapGeometry = None,
+                 origin=(0.0, 0.0, 0.0), device=None, **geo_kwargs):
+        geometry = config_geometry or MapGeometry(feature_size=num_classes,
+                                                  **geo_kwargs)
+        super().__init__(camera, geometry, origin, device)
+
+    def classes_for(self, aux, depth):
+        h, w = self.rays.shape[0], self.rays.shape[1]
+        return G.upsample_features(aux[..., None], h, w)[..., 0]
+
+    def aux_from_observation(self, observation: Dict):
+        semantic = np.asarray(observation["semantic"])
+        if semantic.ndim == 3:
+            semantic = semantic[..., 0]
+        return torch.as_tensor(semantic.astype(np.int32),
+                               device=self.device)
+
+
+class MapSet(dict):
+    """Named map collection with broadcast reset and grouped updates."""
+
+    def reset_all(self, origin) -> None:
+        for layer in self.values():
+            layer.reset(origin)
+
+    def update_group(self, names, observation: Dict) -> None:
+        """Fold one observation into the named layers (names not in the
+        set are skipped): one orient/bin/corner pass per camera+grid
+        signature, shared by every layer of that signature (layers reset
+        together share bins)."""
+        layers = [self[n] for n in names if n in self]
+        shared = {}      # signature -> (ids, weights)
+        grouped = {}     # signature -> [(layer, classes)]
+        for layer in layers:
+            vm, g = layer.voxel_map, layer.geometry
+            position, yaw, elevation, depth = _pose_args(observation,
+                                                         layer.device)
+            sig = (tuple(layer.rays.shape), g.map_height, g.map_width,
+                   g.map_depth, g.grid_resolution, layer.device)
+            if sig not in shared:
+                shared[sig] = vm.contributions(layer.rays, position, yaw,
+                                               elevation, depth)
+            grouped.setdefault(sig, []).append(
+                (layer, layer.classes_for(
+                    layer.aux_from_observation(observation), depth)))
+        for sig, members in grouped.items():
+            ids, weights = shared[sig]
+            apply_onehot_group([layer.voxel_map for layer, _ in members],
+                               ids, weights, [cls for _, cls in members])
