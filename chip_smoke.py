@@ -2,13 +2,17 @@
 
     python3 chip_smoke.py
 
-Builds every kernel of the port's main path from the sources in this
-checkout, holds each against its plain PyTorch version at the shapes
-the main path gives it, runs a two-phase rearrangement episode on the
-card at a small geometry (and the same episode on the CPU, which must
-give equal results), then a full-width episode (384x384x96 voxels x 54
-classes, 224x224 camera) through ``python -m mass_tpu_torch.agent.cli``'s
-entry point, with the kernels' launch counts read around it.
+Builds the port's three splat kernels from the sources in this
+checkout (one nvcc each, started together), holds each against its plain
+PyTorch version at the shapes its path gives it (the single-map and
+multi-map kernels on one full 224x224 frame into 384x384x96 maps, the
+frames kernel on bench.py's 128-frame stream in groups of 8), runs the
+default and the ``--reference-compat`` two-phase episodes on the card
+at a small geometry (and on the CPU, which must give equal results),
+then both episodes at full width (384x384x96 voxels x 54 classes,
+224x224 camera) through ``python -m mass_tpu_torch.agent.cli``'s entry
+point, with the kernels' launch counts set to 0 before each path and
+read after it.
 
 Exits non-zero when there is no CUDA card, when a kernel fails to build,
 launch or agree, or when any phase fails.  The line before the last is
@@ -32,6 +36,11 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOPS = 67e12              # H100 SXM float32 outside tensor cores
 SPLAT_TOL = 1e-5
 
+# full width: the port's default map (config.MapGeometry) and camera
+FULL_MAP = dict(map_height=384, map_width=384, map_depth=96,
+                feature_size=54, grid_resolution=0.05)
+CAMERA = 224
+
 # full width: the CLI's default geometry and budgets (no depth cut)
 FULL_ARGS = [
     "--backend", "gridworld", "--camera-size", "224",
@@ -44,6 +53,8 @@ FULL_ARGS = [
 FULL_BUDGETS = ["--exploration-budget-one", "5",
                 "--exploration-budget-two", "5", "--max-goal-steps", "80",
                 "--max-steps", "250"]
+# bench.py's frame stream: 128 frames folded in groups of 8
+BENCH_FRAMES, BENCH_GROUP = 128, 8
 
 
 def check(cond, message: str) -> None:
@@ -73,6 +84,16 @@ def cuda_ms(fn, iters: int, flush: torch.Tensor) -> float:
     return total / iters
 
 
+def bound(bytes_moved: int, flops: int) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    float32 operations over the peak rate, whichever is larger."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S
+    by_ops = flops / FP32_FLOPS
+    return dict(bound_ms=1e3 * max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bytes=bytes_moved, flops=flops)
+
+
 def room_frame(camera: int, rng: np.random.RandomState):
     """Depth of a 6 m x 6 m walled room with a floor 1.5 m below the
     camera, seen from its centre looking down 30 degrees, plus random
@@ -100,15 +121,14 @@ def phase_kernel_full_geometry(dev) -> dict:
     from mass_tpu_torch.core.voxelmap import VoxelMap
     from mass_tpu_torch.ops import splat as SP
 
-    geo = MapGeometry(map_height=384, map_width=384, map_depth=96,
-                      feature_size=54, grid_resolution=0.05)
+    geo = MapGeometry(**FULL_MAP)
     rng = np.random.RandomState(0)
-    yaw, elevation, depth, classes = room_frame(224, rng)
+    yaw, elevation, depth, classes = room_frame(CAMERA, rng)
     vm = VoxelMap.create(geo, (0.0, 0.0, 0.0), device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     vm.data.copy_(torch.rand(vm.data.shape, generator=gen, device=dev))
     from mass_tpu_torch.core import geometry as G
-    rays = G.camera_rays(224, 224, 112.0, 112.0, device=dev)
+    rays = G.camera_rays(CAMERA, CAMERA, CAMERA / 2, CAMERA / 2, device=dev)
     ids, weights = vm.contributions(
         rays, torch.zeros(3, device=dev), yaw, elevation,
         torch.as_tensor(depth, device=dev))
@@ -153,41 +173,274 @@ def phase_kernel_full_geometry(dev) -> dict:
     # start), and each touched row read and written once
     row_bytes = 4 * geo.feature_size
     n_runs = int(runs.ids.shape[0])
-    bytes_moved = (8 * valid_records + 8 * (2 * n_runs + 1)
-                   + 2 * row_bytes * valid_runs)
     # per record: w*w and three adds; per row element: 2 mul + 1 add
-    flops = 4 * valid_records + 3 * geo.feature_size * valid_runs
-    bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS)
+    limit = bound(8 * valid_records + 8 * (2 * n_runs + 1)
+                  + 2 * row_bytes * valid_runs,
+                  4 * valid_records + 3 * geo.feature_size * valid_runs)
     del scratch, flush, vm
     torch.cuda.empty_cache()
     return dict(records=int(ids.shape[0]), valid_records=valid_records,
                 touched_voxels=valid_runs, runs=n_runs, max_abs_err=max_err,
                 tolerance=SPLAT_TOL, bit_identical_runs=identical,
                 bitwise_equal_cpu_plain=cpu_equal, ms=kernel_ms,
-                plain_ms=plain_ms, prep_ms=prep_ms, bound_ms=bound_ms,
-                bound_by="bytes" if bytes_moved / HBM_BYTES_PER_S
-                >= flops / FP32_FLOPS else "operations",
-                bytes=bytes_moved, flops=flops, library_ms=None)
+                plain_ms=plain_ms, prep_ms=prep_ms, library_ms=None,
+                **limit)
 
 
-def small_episode(device: str):
+def phase_multi_full_geometry(dev) -> dict:
+    """The multi-map kernel against its plain version at full geometry:
+    occupancy [V, 1] and semantic [V, 54] maps of random values, one
+    room frame with random classes, EMA weights 0.5 and 0.25."""
+    from mass_tpu_torch.config import MapGeometry
+    from mass_tpu_torch.core import geometry as G
+    from mass_tpu_torch.core.voxelmap import VoxelMap
+    from mass_tpu_torch.ops import splat as SP
+
+    geo = MapGeometry(**FULL_MAP)
+    rng = np.random.RandomState(1)
+    yaw, elevation, depth, classes = room_frame(CAMERA, rng)
+    sem = VoxelMap.create(geo, (0.0, 0.0, 0.0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sem.data.copy_(torch.rand(sem.data.shape, generator=gen, device=dev))
+    occ = torch.rand((geo.num_voxels, 1), generator=gen, device=dev)
+    rays = G.camera_rays(CAMERA, CAMERA, CAMERA / 2, CAMERA / 2, device=dev)
+    ids, weights = sem.contributions(
+        rays, torch.zeros(3, device=dev), yaw, elevation,
+        torch.as_tensor(depth, device=dev))
+    group = [torch.zeros(CAMERA * CAMERA, dtype=torch.int32, device=dev),
+             torch.as_tensor(classes, device=dev).reshape(-1)]
+    iws = (0.5, 0.25)
+    runs = SP.sorted_runs_multi(ids, weights, group)
+    num_voxels = geo.num_voxels
+    valid_runs = int((runs.ids < num_voxels).sum())
+    valid_records = int((ids < num_voxels).sum())
+    datas = [occ, sem.data]
+
+    out1 = SP.apply_runs_multi([d.clone() for d in datas], runs, iws)
+    out2 = SP.apply_runs_multi([d.clone() for d in datas], runs, iws)
+    torch.cuda.synchronize()
+    identical = all(torch.equal(a, b) for a, b in zip(out1, out2))
+    del out2
+    ref = SP.splat_onehot_multi_reference([d.clone() for d in datas], runs,
+                                          iws)
+    torch.cuda.synchronize()
+    max_err = max(float((a - b).abs().max()) for a, b in zip(out1, ref))
+    del ref
+    single_equal, cpu_equal, changed = True, True, 0.0
+    cpu_runs = SP.Runs(*(t.cpu() for t in runs))
+    for m, data in enumerate(datas):
+        single = SP.apply_runs(data.clone(), runs._replace(
+            classes=runs.classes[m].contiguous()), iws[m])
+        single_equal &= bool(torch.equal(out1[m], single))
+        changed = max(changed, float((out1[m] - data).abs().max()))
+        del single
+        cpu = SP.splat_onehot_reference(data.cpu(), cpu_runs._replace(
+            classes=cpu_runs.classes[m].contiguous()), iws[m])
+        cpu_equal &= bool(torch.equal(out1[m].cpu(), cpu))
+        del cpu
+    check(changed > 0, "the multi-map kernel changed nothing")
+    check(max_err <= SPLAT_TOL,
+          f"multi kernel vs plain max abs diff {max_err} > {SPLAT_TOL}")
+    check(identical, "two multi-map kernel runs differ")
+    check(single_equal,
+          "multi-map kernel differs bitwise from the single-map kernel")
+    check(cpu_equal,
+          "multi-map kernel differs bitwise from the plain CPU version")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    scratch = out1
+    for _ in range(3):
+        SP.apply_runs_multi(scratch, runs, iws)
+        SP.splat_onehot_multi_reference(scratch, runs, iws)
+    kernel_ms = cuda_ms(lambda: SP.apply_runs_multi(scratch, runs, iws), 20,
+                        flush)
+    plain_ms = cuda_ms(
+        lambda: SP.splat_onehot_multi_reference(scratch, runs, iws), 20,
+        flush)
+    prep_ms = cuda_ms(lambda: SP.sorted_runs_multi(ids, weights, group), 20,
+                      flush)
+    n_runs = int(runs.ids.shape[0])
+    features = [d.shape[1] for d in datas]
+    # weight + map-0 class per valid record, 4 B of class per further
+    # map, int64 id and start per run, every map's row read and written
+    # once; per record w*w and 2 + M adds, per row element 2 mul + 1 add
+    limit = bound(8 * valid_records + 4 * (len(datas) - 1) * valid_records
+                  + 8 * (2 * n_runs + 1)
+                  + sum(2 * 4 * f for f in features) * valid_runs,
+                  (3 + len(datas)) * valid_records
+                  + 3 * sum(features) * valid_runs)
+    del scratch, flush, sem, occ, datas, out1
+    torch.cuda.empty_cache()
+    return dict(maps=features, interpolation_weights=iws,
+                records=int(ids.shape[0]), valid_records=valid_records,
+                touched_voxels=valid_runs, runs=n_runs, max_abs_err=max_err,
+                tolerance=SPLAT_TOL, bit_identical_runs=identical,
+                bitwise_equal_single_kernel=single_equal,
+                bitwise_equal_cpu_plain=cpu_equal, ms=kernel_ms,
+                plain_ms=plain_ms, prep_ms=prep_ms, library_ms=None,
+                **limit)
+
+
+def bench_frames(dev, rng: np.random.RandomState, k: int, camera: int,
+                 num_classes: int = 54):
+    """``k`` frames drawn as bench.py draws them (positions, yaws,
+    elevations, per-pixel depths, per-pixel classes), on the card."""
+    def put(a):
+        return torch.as_tensor(a, device=dev)
+    return (put(rng.uniform(-1, 1, (k, 3)).astype(np.float32)),
+            put(rng.uniform(-np.pi, np.pi, k).astype(np.float32)),
+            put(rng.uniform(-0.6, 0.0, k).astype(np.float32)),
+            put(rng.uniform(0.3, 4.0, (k, camera, camera, 1)).astype(
+                np.float32)),
+            put(rng.randint(0, num_classes, (k, camera, camera)).astype(
+                np.int32)))
+
+
+def phase_frames(dev) -> dict:
+    """The frames path: bench.py's 128 frames (seed 0) folded into a
+    384x384x96x54 map through VoxelMap.update_classes_frames in groups
+    of 8 (its main path, counted), held bit for bit against 128
+    update_classes calls on the single-map kernel; then the kernel on one
+    group's runs against its plain version, timed."""
+    from mass_tpu_torch.config import MapGeometry
+    from mass_tpu_torch.core import geometry as G
+    from mass_tpu_torch.core.voxelmap import VoxelMap
+    from mass_tpu_torch.ops import splat as SP
+
+    geo = MapGeometry(**FULL_MAP)
+    frames = bench_frames(dev, np.random.RandomState(0), BENCH_FRAMES,
+                          CAMERA)
+    rays = G.camera_rays(CAMERA, CAMERA, CAMERA / 2, CAMERA / 2, device=dev)
+
+    def fold_frames(vm):
+        for g in range(0, BENCH_FRAMES, BENCH_GROUP):
+            vm.update_classes_frames(rays, *(x[g:g + BENCH_GROUP]
+                                             for x in frames))
+
+    def fold_sequential(vm):
+        positions, yaws, elevations, depths, classes = frames
+        for t in range(BENCH_FRAMES):
+            vm.update_classes(rays, positions[t], float(yaws[t]),
+                              float(elevations[t]), depths[t], classes[t])
+
+    # warm both routes (allocator, first launches) on a throwaway map
+    warm = VoxelMap.create(geo, (0.0, 0.0, 0.0), device=dev)
+    warm.update_classes_frames(rays, *(x[:BENCH_GROUP] for x in frames))
+    warm.update_classes(rays, frames[0][0], float(frames[1][0]),
+                        float(frames[2][0]), frames[3][0], frames[4][0])
+    del warm
+    batched = VoxelMap.create(geo, (0.0, 0.0, 0.0), device=dev)
+    seq = VoxelMap.create(geo, (0.0, 0.0, 0.0), device=dev)
+    torch.cuda.synchronize()
+    SP.FRAMES_LAUNCHES = 0                  # frames path starts here
+    t0 = time.perf_counter()
+    fold_frames(batched)
+    torch.cuda.synchronize()
+    frames_s = time.perf_counter() - t0
+    launches = SP.FRAMES_LAUNCHES           # frames path ends here
+    t0 = time.perf_counter()
+    fold_sequential(seq)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    equal = bool(torch.equal(batched.data, seq.data))
+    check(launches == BENCH_FRAMES // BENCH_GROUP,
+          f"{launches} frames-kernel launches for "
+          f"{BENCH_FRAMES // BENCH_GROUP} groups")
+    check(float(batched.data.abs().max()) > 0, "the frames path changed "
+          "nothing")
+    check(equal, "the frames route differs bitwise from sequential "
+          "single-map updates")
+    del seq
+
+    # one group's runs, folded onto the filled map
+    positions, yaws, elevations, depths, classes = (x[:BENCH_GROUP]
+                                                    for x in frames)
+    records = [batched.contributions(rays, positions[t], float(yaws[t]),
+                                     float(elevations[t]), depths[t])
+               for t in range(BENCH_GROUP)]
+    ids = torch.stack([i for i, _ in records])
+    weights = torch.stack([w for _, w in records])
+    cls = classes.reshape(BENCH_GROUP, -1)
+    runs = SP.frame_runs(ids, weights, cls)
+    num_voxels = geo.num_voxels
+    out = SP.apply_frame_runs(batched.data.clone(), runs, 0.5)
+    ref = SP.splat_onehot_frames_reference(batched.data.clone(), runs, 0.5)
+    torch.cuda.synchronize()
+    max_err = float((out - ref).abs().max())
+    del ref
+    check(max_err <= SPLAT_TOL,
+          f"frames kernel vs plain max abs diff {max_err} > {SPLAT_TOL}")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    for _ in range(3):
+        SP.apply_frame_runs(out, runs, 0.5)
+    kernel_ms = cuda_ms(lambda: SP.apply_frame_runs(out, runs, 0.5), 10,
+                        flush)
+    plain_ms = cuda_ms(
+        lambda: SP.splat_onehot_frames_reference(out, runs, 0.5), 3, flush)
+    prep_ms = cuda_ms(lambda: SP.frame_runs(ids, weights, cls), 10, flush)
+    valid_records = int((ids < num_voxels).sum())
+    run_valid = runs.ids < num_voxels
+    valid_runs = int(run_valid.sum())
+    sub_valid = torch.repeat_interleave(
+        run_valid, runs.sub_starts[1:] - runs.sub_starts[:-1])
+    valid_subs = int(sub_valid.sum())
+    n_runs, n_subs = int(runs.ids.shape[0]), int(runs.frames.shape[0])
+    # weight + class per valid record; int64 id and sub-run start per
+    # run, record start per sub-run; each touched row read and written
+    # once for the whole group.  Per record w*w and three adds, per
+    # (voxel, frame) blend 2 mul + 1 add per class
+    limit = bound(8 * valid_records + 8 * (2 * n_runs + 1)
+                  + 8 * (n_subs + 1) + 2 * 4 * geo.feature_size * valid_runs,
+                  4 * valid_records + 3 * geo.feature_size * valid_subs)
+    del out, flush, batched
+    torch.cuda.empty_cache()
+    return dict(frames=BENCH_FRAMES, group=BENCH_GROUP, launches=launches,
+                bitwise_equal_sequential=equal,
+                frames_route_s=frames_s, sequential_route_s=seq_s,
+                frames_route_fps=BENCH_FRAMES / frames_s,
+                sequential_route_fps=BENCH_FRAMES / seq_s,
+                group_records=int(ids.numel()), valid_records=valid_records,
+                touched_voxels=valid_runs, sub_runs=valid_subs,
+                max_abs_err=max_err, tolerance=SPLAT_TOL, ms=kernel_ms,
+                plain_ms=plain_ms, prep_ms=prep_ms, library_ms=None,
+                **limit)
+
+
+def small_episode(device: str, compat: bool = False):
     """One two-phase episode at the JAX test suite's episode geometry
-    (80x80x24 at 0.125 m, camera 48); returns (results, actions)."""
+    (80x80x24 at 0.125 m, camera 48); with ``compat`` the settings of
+    tests/test_reference_compat.py's compat episode.  Returns (results,
+    actions)."""
     from mass_tpu_torch.agent.loop import RearrangementAgent
-    from mass_tpu_torch.config import AgentConfig, CameraConfig, NavConfig
+    from mass_tpu_torch.config import (AgentConfig, CameraConfig,
+                                       MatchConfig, NavConfig)
     from mass_tpu_torch.env.rearrange import GridWorldTaskSampler
 
     cam = CameraConfig(height=48, width=48)
-    cfg = AgentConfig(
-        camera=cam, map_height=80, map_width=80, map_depth=24,
-        grid_resolution=0.125,
-        nav=NavConfig(step_size=2, obstacle_padding=2, map_slice_start=0,
-                      map_slice_stop=12, max_goal_steps=80),
-        ground_truth_segmentation=True, ground_truth_disagreement=True,
-        exploration_budget_one=2, exploration_budget_two=2,
-        start_task=0, total_tasks=1)
-    sampler = GridWorldTaskSampler([2], camera=cam, num_objects=2,
-                                   num_misplaced=1, num_opened=0)
+    geo = dict(camera=cam, map_height=80, map_width=80, map_depth=24,
+               grid_resolution=0.125, start_task=0, total_tasks=1,
+               ground_truth_segmentation=True,
+               ground_truth_disagreement=True)
+    if compat:
+        cfg = AgentConfig(
+            nav=NavConfig(step_size=2, obstacle_padding=2,
+                          map_slice_start=0, map_slice_stop=12,
+                          graph_update_interval=5, max_goal_steps=60,
+                          reference_compat=True),
+            match=MatchConfig(contour_padding=0, confidence_threshold=0.1,
+                              distance_threshold=0.2, max_instances=8),
+            exploration_budget_one=4, exploration_budget_two=4,
+            ground_truth_semantic_search=True, navigate_on_semantic=False,
+            **geo)
+    else:
+        cfg = AgentConfig(
+            nav=NavConfig(step_size=2, obstacle_padding=2,
+                          map_slice_start=0, map_slice_stop=12,
+                          max_goal_steps=80),
+            exploration_budget_one=2, exploration_budget_two=2, **geo)
+    sampler = GridWorldTaskSampler([2], camera=cam, max_steps=250,
+                                   num_objects=2, num_misplaced=1,
+                                   num_opened=0)
     actions = []
     next_task = sampler.next_task
 
@@ -201,64 +454,99 @@ def small_episode(device: str):
         task.step = recorded
         return task
     sampler.next_task = recording_next_task
-    agent = RearrangementAgent(cfg, sampler, rng=np.random.RandomState(0),
-                               device=device)
+    agent = RearrangementAgent(
+        cfg, sampler, rng=np.random.RandomState(1 if compat else 0),
+        device=device)
     return agent.run_task(0), actions
 
 
-def phase_small_episodes() -> dict:
+def check_launches(single: int, multi: int, updates: int,
+                   compat: bool) -> None:
+    """Every map update launched one kernel: the single-map kernel, or
+    under --reference-compat the multi-map kernel for phase one."""
+    if compat:
+        check(multi > 0 and single + multi == updates,
+              f"{single} single-map + {multi} multi-map launches for "
+              f"{updates} map updates")
+    else:
+        check(multi == 0 and single == updates > 0,
+              f"{single} kernel launches for {updates} map updates")
+
+
+def phase_small_episodes(compat: bool = False) -> dict:
     from mass_tpu_torch.ops import splat as SP
 
-    SP.LAUNCHES = 0
+    SP.LAUNCHES = SP.MULTI_LAUNCHES = 0
     t0 = time.perf_counter()
-    gpu, gpu_actions = small_episode("cuda")
+    gpu, gpu_actions = small_episode("cuda", compat)
     gpu_s = time.perf_counter() - t0
-    launches = SP.LAUNCHES
+    single, multi = SP.LAUNCHES, SP.MULTI_LAUNCHES
     t0 = time.perf_counter()
-    cpu, cpu_actions = small_episode("cpu")
+    cpu, cpu_actions = small_episode("cpu", compat)
     cpu_s = time.perf_counter() - t0
     diff = {k: (gpu[k], cpu.get(k)) for k in gpu
             if k != "timing" and gpu[k] != cpu.get(k)}
     updates = gpu["timing"]["mapping"]["count"]
     check(not diff, f"cuda and cpu episodes differ: {diff}")
     check(gpu_actions == cpu_actions, "cuda and cpu action sequences differ")
-    check(launches == updates > 0,
-          f"{launches} kernel launches for {updates} map updates")
+    check_launches(single, multi, updates, compat)
     return dict(results_equal=True, actions=len(gpu_actions),
-                launches=launches, map_updates=updates, cuda_s=gpu_s,
-                cpu_s=cpu_s, metrics={k: v for k, v in gpu.items()
-                                      if k != "timing"})
+                launches=single, multi_launches=multi, map_updates=updates,
+                cuda_s=gpu_s, cpu_s=cpu_s,
+                metrics={k: v for k, v in gpu.items() if k != "timing"})
 
 
-def phase_full_episode() -> dict:
+def phase_full_episode(compat: bool = False) -> dict:
     from mass_tpu_torch.agent import cli
     from mass_tpu_torch.ops import splat as SP
 
-    logdir = os.path.join("build", "chip_smoke", "episode")
+    logdir = os.path.join("build", "chip_smoke",
+                          "episode_compat" if compat else "episode")
+    flags = ["--reference-compat"] if compat else []
     torch.cuda.reset_peak_memory_stats()
-    SP.LAUNCHES = 0                       # main path starts here
+    SP.LAUNCHES = SP.MULTI_LAUNCHES = 0   # main path starts here
     t0 = time.perf_counter()
-    metrics = cli.main(FULL_ARGS + FULL_BUDGETS + ["--logdir", logdir])
+    metrics = cli.main(FULL_ARGS + FULL_BUDGETS + flags
+                       + ["--logdir", logdir])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = SP.LAUNCHES                # main path ends here
+    single, multi = SP.LAUNCHES, SP.MULTI_LAUNCHES   # main path ends here
     check(len(metrics) == 1, "the CLI ran no episode")
     with open(os.path.join(logdir, "results", "2.json")) as f:
         results = json.load(f)
     updates = results["timing"]["mapping"]["count"]
-    check(launches == updates > 0,
-          f"{launches} kernel launches for {updates} map updates")
+    check_launches(single, multi, updates, compat)
     check(results["walkthrough/observed_cells"] > 0
           and results["unshuffle/observed_cells"] > 0,
           "the full-width maps stayed empty")
     check(0.0 <= results["unshuffle/prop_fixed"] <= 1.0,
           "prop_fixed out of range")
-    return dict(budgets=FULL_BUDGETS, wall_s=wall_s, launches=launches,
-                map_updates=updates,
+    return dict(budgets=FULL_BUDGETS + flags, wall_s=wall_s,
+                launches=single, multi_launches=multi, map_updates=updates,
                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
                 timing=results["timing"],
                 metrics={k: v for k, v in results.items()
                          if k != "timing"})
+
+
+def kernel_line(name: str, replaces: str, launches: int,
+                phase: dict) -> dict:
+    return dict(name=name, route="cuda",
+                source=f"mass_tpu_torch/csrc/{name}.cu", replaces=replaces,
+                launches=launches, max_abs_err=phase["max_abs_err"],
+                ms=phase["ms"], plain_ms=phase["plain_ms"],
+                bound_ms=phase["bound_ms"], bound_by=phase["bound_by"],
+                library_ms=phase["library_ms"])
+
+
+def print_episode(tag: str, full: dict) -> None:
+    print(f"[{tag}] budgets {' '.join(full['budgets'])}")
+    print(f"[{tag}] wall {full['wall_s']:.1f} s, peak memory "
+          f"{full['peak_memory_bytes'] / 2**30:.2f} GiB, launches: "
+          f"splat_onehot {full['launches']}, splat_onehot_multi "
+          f"{full['multi_launches']}, for {full['map_updates']} map updates")
+    print(f"[{tag}] timing {json.dumps(full['timing'])}")
+    print(f"[{tag}] metrics {json.dumps(full['metrics'])}")
 
 
 def main() -> int:
@@ -270,17 +558,22 @@ def main() -> int:
     dev = torch.device("cuda")
     report = {}
 
-    build_s = SP.build()
-    report["build_s"] = {"splat_onehot": build_s}
-    print(f"[build] splat_onehot.cu: {build_s:.2f} s")
+    t0 = time.perf_counter()
+    report["build_s"] = SP.build()
+    built = ", ".join(f"{k}.cu {v:.2f} s"
+                      for k, v in report["build_s"].items())
+    print(f"[build] {built} (one nvcc each, in parallel: "
+          f"{time.perf_counter() - t0:.2f} s)")
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    report["card"] = {"name": name, "nvidia_smi": smi}
-    print(f"[card] {name}")
+    report["card"] = {"name": name, "nvidia_smi": smi,
+                      "torch": torch.__version__, "cuda": torch.version.cuda}
+    print(f"[card] {name}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
     print(smi)
 
     kernel = phase_kernel_full_geometry(dev)
@@ -298,31 +591,64 @@ def main() -> int:
     print(f"[splat] record prep (sorted_runs: stable sort + runs) "
           f"{kernel['prep_ms']:.4f} ms for the same frame")
 
-    small = phase_small_episodes()
-    report["small_episodes"] = small
-    print(f"[episode 80x80x24] cuda {small['cuda_s']:.1f} s, cpu "
-          f"{small['cpu_s']:.1f} s, {small['actions']} actions, results "
-          f"equal; {small['launches']} launches for "
-          f"{small['map_updates']} map updates")
+    multi = phase_multi_full_geometry(dev)
+    report["multi_full_geometry"] = multi
+    print(f"[multi] occupancy + semantic (F={multi['maps']}, iw "
+          f"{multi['interpolation_weights']}): U={multi['touched_voxels']}, "
+          f"records={multi['valid_records']} valid; max abs diff vs plain "
+          f"{multi['max_abs_err']:.3g} (tol {SPLAT_TOL}); equal to the "
+          f"single-map kernel per map: "
+          f"{multi['bitwise_equal_single_kernel']}; two runs bit-identical: "
+          f"{multi['bit_identical_runs']}; equal to the plain CPU version: "
+          f"{multi['bitwise_equal_cpu_plain']}")
+    print(f"[multi] kernel {multi['ms']:.4f} ms, plain "
+          f"{multi['plain_ms']:.4f} ms, bound {multi['bound_ms']:.4f} ms "
+          f"({multi['bytes']} B at 3.35 TB/s), record prep "
+          f"(sorted_runs_multi) {multi['prep_ms']:.4f} ms; library call: "
+          f"none")
+
+    frames = phase_frames(dev)
+    report["frames"] = frames
+    print(f"[frames] {frames['frames']} bench.py frames in groups of "
+          f"{frames['group']}: {frames['launches']} launches, equal to "
+          f"{frames['frames']} single-map updates bit for bit: "
+          f"{frames['bitwise_equal_sequential']}; frames route "
+          f"{frames['frames_route_fps']:.1f} frames/s, sequential route "
+          f"{frames['sequential_route_fps']:.1f} frames/s (card synced)")
+    print(f"[frames] one group: U={frames['touched_voxels']}, "
+          f"{frames['sub_runs']} (voxel, frame) sub-runs, "
+          f"{frames['valid_records']} valid records; kernel "
+          f"{frames['ms']:.4f} ms per launch, plain {frames['plain_ms']:.4f}"
+          f" ms, bound {frames['bound_ms']:.4f} ms ({frames['bytes']} B), "
+          f"max abs diff vs plain {frames['max_abs_err']:.3g}, record prep "
+          f"(frame_runs) {frames['prep_ms']:.4f} ms; library call: none")
+
+    for compat in (False, True):
+        small = phase_small_episodes(compat)
+        tag = "compat 80x80x24" if compat else "episode 80x80x24"
+        report["small_compat_episodes" if compat else "small_episodes"] = \
+            small
+        print(f"[{tag}] cuda {small['cuda_s']:.1f} s, cpu "
+              f"{small['cpu_s']:.1f} s, {small['actions']} actions, results"
+              f" equal; launches splat_onehot {small['launches']}, "
+              f"splat_onehot_multi {small['multi_launches']}, for "
+              f"{small['map_updates']} map updates")
 
     full = phase_full_episode()
     report["full_episode"] = full
-    print(f"[episode 384x384x96x54, camera 224] budgets "
-          f"{' '.join(FULL_BUDGETS)}")
-    print(f"[episode] wall {full['wall_s']:.1f} s, peak memory "
-          f"{full['peak_memory_bytes'] / 2**30:.2f} GiB, splat launches "
-          f"{full['launches']} for {full['map_updates']} map updates")
-    print(f"[episode] timing {json.dumps(full['timing'])}")
-    print(f"[episode] metrics {json.dumps(full['metrics'])}")
+    print_episode("episode 384x384x96x54", full)
+    compat = phase_full_episode(compat=True)
+    report["full_compat_episode"] = compat
+    print_episode("compat 384x384x96x54", compat)
 
-    kernels = [dict(
-        name="splat_onehot", route="cuda",
-        source="mass_tpu_torch/csrc/splat_onehot.cu",
-        replaces="mass_tpu/ops/pallas_splat.py:756",
-        launches=full["launches"], max_abs_err=kernel["max_abs_err"],
-        ms=kernel["ms"], plain_ms=kernel["plain_ms"],
-        bound_ms=kernel["bound_ms"], bound_by=kernel["bound_by"],
-        library_ms=kernel["library_ms"])]
+    kernels = [
+        kernel_line("splat_onehot", "mass_tpu/ops/pallas_splat.py:756",
+                    full["launches"], kernel),
+        kernel_line("splat_onehot_multi", "mass_tpu/ops/pallas_splat.py:671",
+                    compat["multi_launches"], multi),
+        kernel_line("splat_onehot_frames",
+                    "mass_tpu/ops/pallas_splat.py:445", frames["launches"],
+                    frames)]
     report["kernels"] = kernels
     os.makedirs(os.path.join("build", "chip_smoke"), exist_ok=True)
     with open(os.path.join("build", "chip_smoke", "report.json"), "w") as f:

@@ -130,7 +130,6 @@ def unported_flags(args) -> Optional[str]:
         (args.revisit_exploration, "--revisit-exploration", 2),
         (args.use_feature_matching, "--use-feature-matching", 3),
         (args.one_phase, "--one-phase", 2),
-        (args.reference_compat, "--reference-compat", 2),
         (args.fleet_size > 1, "--fleet-size > 1", 2),
         (args.shard_map > 1, "--shard-map", 4),
         (args.videos, "--videos", 3),
@@ -145,7 +144,13 @@ def unported_flags(args) -> Optional[str]:
 
 
 def config_from_args(args) -> AgentConfig:
+    """The episode configuration the flags name.  ``--reference-compat``
+    pins the reference's rules: a separate occupancy map to navigate
+    on, the reference controller, and no per-goal step cap."""
+    if args.reference_compat:
+        args.max_goal_steps = 0
     return AgentConfig(
+        navigate_on_semantic=not args.reference_compat,
         camera=CameraConfig(height=args.camera_size,
                             width=args.camera_size,
                             vertical_fov_degrees=args.vertical_fov),
@@ -158,7 +163,8 @@ def config_from_args(args) -> AgentConfig:
                       map_slice_stop=args.map_slice_stop,
                       position_noise_std=args.position_noise_std,
                       rotation_noise_std=args.rotation_noise_std,
-                      max_goal_steps=args.max_goal_steps),
+                      max_goal_steps=args.max_goal_steps,
+                      reference_compat=args.reference_compat),
         match=MatchConfig(
             confidence_threshold=args.confidence_threshold,
             contour_padding=args.contour_padding,

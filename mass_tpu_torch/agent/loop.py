@@ -4,9 +4,12 @@
 Build the walkthrough semantic map while exploring, build a second map
 in the shuffled scene, diff the maps to find displaced objects, and
 navigate / pick / place to fix them.  This slice of the port runs the
-random and ground-truth goal heads; the policy, frontier and revisit
-heads, one-phase episodes and feature matching arrive with later slices
-and raise ``NotImplementedError`` naming theirs.
+random and ground-truth goal heads, navigating on the walkthrough's
+semantic map or (``--reference-compat``) on a separate occupancy map
+that phase one updates with ``semantic0`` in one multi-map splat; the
+policy, frontier and revisit heads, one-phase episodes and feature
+matching arrive with later slices and raise ``NotImplementedError``
+naming theirs.
 
 Every numpy random draw happens in the JAX package's order, so a seeded
 episode takes the same actions in both packages.
@@ -24,19 +27,19 @@ from mass_tpu_torch.agent import metrics as M
 from mass_tpu_torch.agent import oracle
 from mass_tpu_torch.config import AgentConfig
 from mass_tpu_torch.env.gridworld import snake_case
-from mass_tpu_torch.maps import MapSet, SemanticMap
+from mass_tpu_torch.maps import MapSet, OccupancyMap, SemanticMap
 from mass_tpu_torch.match.differences import predict_scene_differences
 from mass_tpu_torch.nav.controller import NavigationController
 from mass_tpu_torch.utils.profiling import StageTimer
+
+PHASE_ONE_MAPS = ["occupancy", "semantic0"]
+PHASE_TWO_MAPS = ["semantic1"]
 
 
 def _unported(config: AgentConfig) -> Optional[str]:
     """The later slice a configuration needs, or None."""
     if config.one_phase:
         return "one-phase episodes (--one-phase) are ported in slice 2"
-    if not config.navigate_on_semantic or config.nav.reference_compat:
-        return ("the separate occupancy layer (--reference-compat) needs "
-                "the multi-map splat kernel, ported in slice 2")
     if config.frontier_exploration or config.revisit_exploration:
         return ("frontier and revisit goal heads are ported in slice 2")
     if config.use_feature_matching:
@@ -80,11 +83,15 @@ class RearrangementAgent:
                                   device=self.device, **geo_kw),
             semantic1=SemanticMap(cam, taxonomy.NUM_CLASSES,
                                   device=self.device, **geo_kw))
-        # the planner reads the walkthrough map (config.py:200,
-        # navigate_on_semantic), so each step updates one map
+        # the planner reads the walkthrough's semantic map, or a separate
+        # occupancy map (navigate_on_semantic=False, --reference-compat)
+        # that phase one updates together with semantic0
         self.navigation_map = config.navigation_map_name
-        self.phase_one = ["semantic0"]
-        self.phase_two = ["semantic1"]
+        if not config.navigate_on_semantic:
+            self.maps["occupancy"] = OccupancyMap(cam, device=self.device,
+                                                  **geo_kw)
+        self.phase_one = [m for m in PHASE_ONE_MAPS if m in self.maps]
+        self.phase_two = [m for m in PHASE_TWO_MAPS if m in self.maps]
         # the JAX agent seeds its policy PRNG key here, policy or not;
         # the same draw keeps both packages' rng streams aligned
         self.rng.randint(1 << 30)

@@ -119,6 +119,30 @@ class VoxelMap:
                                           max_ray_depth)
         return self.apply_onehot(ids, weights, classes)
 
+    def update_classes_frames(self, rays, positions, yaws, elevations,
+                              depths, classes, min_ray_depth: float = 0.0,
+                              max_ray_depth: float = 10.0) -> "VoxelMap":
+        """Fold T frames into the map in place, in order, in one launch of
+        the frames kernel: equal to T calls of :meth:`update_classes`.
+
+        Args:
+          positions: ``[T, 3]``; yaws / elevations: ``[T]``;
+          depths: ``[T, h, w, 1]``; classes: ``[T, ch, cw]`` (integer,
+          upsampled to the ray grid).
+        """
+        h, w = rays.shape[0], rays.shape[1]
+        records = [self.contributions(rays, positions[t], float(yaws[t]),
+                                      float(elevations[t]), depths[t],
+                                      min_ray_depth, max_ray_depth)
+                   for t in range(positions.shape[0])]
+        classes = torch.stack([G.upsample_features(c[..., None], h, w)[
+            ..., 0].reshape(-1) for c in classes])
+        SP.splat_onehot_frames(self.data,
+                               torch.stack([i for i, _ in records]),
+                               torch.stack([wt for _, wt in records]),
+                               classes, self.geometry.interpolation_weight)
+        return self
+
     # ------------------------------------------------------------------
     # rendering / reading
     # ------------------------------------------------------------------
@@ -271,13 +295,13 @@ class HostMapToWorld:
 
 def apply_onehot_group(vms, ids, weights, classes_list):
     """EMA-blend one frame's shared corner records into the group's
-    one-hot maps.  One map goes through the single-map splat kernel;
-    several maps need the multi-map kernel, which arrives with slice 2
-    of the port (``--reference-compat`` and the fleet)."""
+    one-hot maps in place.  One map goes through the single-map splat
+    kernel; two to four maps of one grid are sorted once and splat in one
+    launch of the multi-map kernel (more raise)."""
     vms = list(vms)
-    if len(vms) != 1:
-        raise NotImplementedError(
-            "apply_onehot_group over several maps needs the multi-map "
-            "splat kernel (mass_tpu.ops.pallas_splat."
-            "splat_onehot_multi_cmajor), ported in slice 2")
-    return [vms[0].apply_onehot(ids, weights, classes_list[0])]
+    if len(vms) == 1:
+        return [vms[0].apply_onehot(ids, weights, classes_list[0])]
+    SP.splat_onehot_multi([vm.data for vm in vms], ids, weights,
+                          [c.reshape(-1) for c in classes_list],
+                          [vm.geometry.interpolation_weight for vm in vms])
+    return vms

@@ -6,7 +6,9 @@ plans on the nav grid (device BFS, host backtrack) and emits a discrete
 action from a deterministic heading rule.  Failed moves deposit
 collision evidence that erodes the mesh like a mapped obstacle.  Each
 planned step reads the device once: every field the backtrack needs
-comes back in one batched copy.
+comes back in one batched copy.  ``NavConfig.reference_compat`` pins the
+reference's rules instead: a monotone mesh, termination on a path of
+one node, next-node steering, and node pruning on every failed action.
 
 Pose conventions: world = (x, z_sim, y_sim - crouch offset); yaw =
 pi/2 - rotation; elevation = -horizon; a crouching agent's camera sits
@@ -34,16 +36,13 @@ class NavigationController:
 
     ``maps`` is a ``MapSet`` (``mass_tpu_torch.maps``);
     ``navigation_map`` names the layer the planner reads for
-    traversability.  ``--reference-compat`` pruning arrives with slice 2.
+    traversability.
     """
 
     def __init__(self, task: Task, navigation_map: str,
                  maps: Dict[str, object], config: NavConfig = NavConfig(),
                  rng: Optional[np.random.RandomState] = None,
                  timer: Optional[StageTimer] = None):
-        if config.reference_compat:
-            raise NotImplementedError(
-                "--reference-compat navigation is ported in slice 2")
         self.task = task
         self.maps = maps
         self.navigation_map = navigation_map
@@ -143,7 +142,8 @@ class NavigationController:
 
     def update_navigation_grid(self) -> None:
         self.nav_grid = NG.refresh_nav_grid(
-            self.nav_grid, self._navigable(), step=self.config.step_size)
+            self.nav_grid, self._navigable(), step=self.config.step_size,
+            monotone=self.config.reference_compat)
 
     # -------------------------------------------------------- planning
 
@@ -184,6 +184,26 @@ class NavigationController:
         cells3 = np.concatenate(
             [cells, np.zeros((cells.shape[0], 1), cells.dtype)], axis=1)
         return self._map_to_world(vm, cells3, epoch=self._bins_epoch())
+
+    def shortest_path(self, source_world, target_world) -> np.ndarray:
+        """World waypoint path source -> target on the current mesh: the
+        source snaps to its nearest node, the target to the nearest
+        reachable one; the true source is prepended when off-node."""
+        cfg = self.config
+        dev = self._occupancy_vm().device
+        _, dist, tgt, agent_cell, _ = NG.plan(
+            self.nav_grid, self._occupancy_vm(),
+            torch.as_tensor(np.asarray(source_world, np.float32), device=dev),
+            torch.as_tensor(np.asarray(target_world, np.float32), device=dev),
+            step=cfg.step_size, padding=cfg.obstacle_padding,
+            z_start=cfg.map_slice_start, z_stop=cfg.map_slice_stop,
+            threshold=cfg.obstacle_threshold, refresh=False,
+            monotone=cfg.reference_compat)
+        grid = self.nav_grid._replace(
+            edge_right=self.nav_grid.edge_right.cpu().numpy(),
+            edge_down=self.nav_grid.edge_down.cpu().numpy())
+        return self._path_from_field(dist.cpu().numpy(), tgt.cpu().numpy(),
+                                     agent_cell.cpu().numpy(), grid=grid)
 
     def navigable_node_cells(
             self, position, with_dist: bool = False
@@ -261,6 +281,7 @@ class NavigationController:
                 z_start=cfg.map_slice_start, z_stop=cfg.map_slice_stop,
                 threshold=cfg.obstacle_threshold,
                 refresh=bool(update_navigation_grid),
+                monotone=cfg.reference_compat,
                 blocked=(self._blocked_operand()
                          if update_navigation_grid else None))
         return self.decide_from_plan(observations, goal, plan_out)
@@ -289,6 +310,20 @@ class NavigationController:
             path = self._path_from_field(dist_h, tgt_h, agent_h,
                                          grid=host_grid)
         observations["path"] = path
+
+        if self.config.reference_compat:
+            # reference termination: the planned path has collapsed to
+            # the source node; else steer at the next node, strict pi/4
+            if path.shape[0] <= 1:
+                observations["heading"] = 0.0
+                return None
+            heading = self.get_heading(observations, path[1])
+            observations["heading"] = heading
+            names = self.task.action_names()
+            if abs(heading) <= np.pi / 4:
+                return names.index("move_ahead")
+            return names.index("rotate_left" if heading > 0
+                               else "rotate_right")
 
         # arrived: standing (within a node's reach) on the closest
         # reachable node to the goal
@@ -393,11 +428,13 @@ class NavigationController:
 
         Failed moves deposit collision evidence: the swept cells join
         ``blocked_cells`` and the mesh refreshes at once.  Failed
-        rotations prune the blocking node (sticky, ``NavGrid.pruned``).
+        rotations, and every failure under ``reference_compat``, prune
+        the first alive path node (sticky, ``NavGrid.pruned``); a failed
+        move looks past the source cell.
         """
         names = self.task.action_names()
         is_move = "rotate" not in names[action]
-        if is_move:
+        if is_move and not self.config.reference_compat:
             g = self._occupancy_vm().geometry
             cells = self._swept_cells(observations, 0.0)
             blocked = (np.zeros((g.map_height, g.map_width), bool)
@@ -417,7 +454,10 @@ class NavigationController:
         off_x, off_y = self.nav_grid.off_x, self.nav_grid.off_y
         alive = self.nav_grid.alive.cpu().numpy().copy()
         ny, nx = alive.shape
-        cells = self._cells_of_world(np.asarray(path)[:, :2])
+        path = np.asarray(path)[1 if is_move else 0:]
+        if path.shape[0] == 0:
+            return
+        cells = self._cells_of_world(path[:, :2])
         for cell in cells:
             j, i = (int(cell[0]) - off_x) // s, (int(cell[1]) - off_y) // s
             on_node = (int(cell[0]) - off_x) % s == 0 and \

@@ -1,23 +1,34 @@
-"""The single-map one-hot splat: a CUDA kernel for Hopper and its plain
-PyTorch version.
+"""The one-hot splat kernels for Hopper and their plain PyTorch versions.
 
-Replaces ``mass_tpu/ops/pallas_splat.py:splat_onehot_cmajor``.  One
-frame's corner records (``ops/scatter.corner_contributions``) fold into a
-voxel-major ``[V, F]`` map in place:
+Replaces the three TPU kernels of ``mass_tpu/ops/pallas_splat.py``:
+
+- ``splat_onehot_cmajor`` -> :func:`apply_runs` (``csrc/splat_onehot.cu``):
+  one frame's corner records (``ops/scatter.corner_contributions``) into
+  one voxel-major ``[V, F]`` map;
+- ``splat_onehot_multi_cmajor`` -> :func:`apply_runs_multi`
+  (``csrc/splat_onehot_multi.cu``): the same frame into two to four
+  maps of one grid, each with its own classes and EMA weight;
+- ``splat_onehot_frames_cmajor`` -> :func:`apply_frame_runs`
+  (``csrc/splat_onehot_frames.cu``): T frames folded into one map in
+  order, equal to T single-map updates in a row.
+
+Every map updates in place by the same rule::
 
     W_v = sum w,  S2_v = sum w^2,  T_v[f] = sum w^2 [class == f]
     row_v = row_v * (1 - iw * S2_v / W_v) + (iw / W_v) * T_v
 
-Preparation is plain PyTorch (:func:`sorted_runs`): a stable sort of the
-records by voxel id, then one run per touched voxel.  The kernel
-(``csrc/splat_onehot.cu``) gives each run to one warp and sums it in
-sorted order, so the update is deterministic (no float atomics) and
-equals :func:`splat_onehot_reference` on the CPU bit for bit.
+Preparation is plain PyTorch: a stable sort of the records by voxel id,
+then one run per touched voxel (:func:`sorted_runs`, once per frame for
+all maps of a group; :func:`frame_runs` once for T frames, with one
+sub-run per frame inside each voxel's run).  Each kernel gives a run to
+one warp and sums it in sorted order, so an update is deterministic (no
+float atomics) and equals its plain version on the CPU bit for bit.
 
-The kernel is built with ``nvcc`` for ``sm_90a`` into ``build/kernels/``
-at first use and bound with ctypes.  :func:`apply_runs` launches it for
-a CUDA map (and counts the launch in ``LAUNCHES``) and takes the plain
-version only for a map that lies on the CPU.
+The kernels are built with ``nvcc`` for ``sm_90a`` into ``build/kernels/``
+at first use (all sources at once, :func:`build`) and bound with ctypes.
+A wrapper launches its kernel for CUDA maps, counts the launch
+(``LAUNCHES``, ``MULTI_LAUNCHES``, ``FRAMES_LAUNCHES``), and takes the
+plain version only for maps that lie on the CPU.
 """
 
 from __future__ import annotations
@@ -27,31 +38,34 @@ import os
 import shutil
 import subprocess
 import time
-from typing import NamedTuple
+from typing import Dict, List, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "splat_onehot.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-LIBRARY = os.path.join(BUILD_DIR, "libsplat_onehot.so")
+KERNELS = ("splat_onehot", "splat_onehot_multi", "splat_onehot_frames")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+MAX_MAPS = 4
 
-# kernel launches made by apply_runs (read by chip_smoke.py to show the
-# main path went through the kernel)
-LAUNCHES = 0
+# kernel launches made by the wrappers (read by chip_smoke.py to show
+# the main path went through each kernel)
+LAUNCHES = 0          # apply_runs
+MULTI_LAUNCHES = 0    # apply_runs_multi
+FRAMES_LAUNCHES = 0   # apply_frame_runs
 
-_lib = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 class Runs(NamedTuple):
     """Records sorted by voxel id and cut into runs of one voxel each.
 
     ``ids [U]`` and ``starts [U + 1]`` (int64) give each run's voxel id
-    and record range; ``weights [R]`` (float32) and ``classes [R]``
-    (int32) are the sorted records.  A run with id ``V`` holds the
+    and record range; ``weights [R]`` (float32) are the sorted records
+    and ``classes`` (int32) their classes, ``[R]`` for one map or
+    ``[M, R]`` for a group of M maps.  A run with id ``V`` holds the
     discarded records of invalid pixels and is skipped.
     """
 
@@ -61,112 +75,288 @@ class Runs(NamedTuple):
     classes: torch.Tensor
 
 
-def sorted_runs(ids: torch.Tensor, weights: torch.Tensor,
-                classes: torch.Tensor) -> Runs:
+class FrameRuns(NamedTuple):
+    """T frames' records in one voxel-sorted stream.
+
+    Run ``u`` (voxel ``ids[u]``) holds sub-runs ``sub_starts[u]`` to
+    ``sub_starts[u + 1]``, one per frame that touched the voxel, in
+    frame order; sub-run ``s`` is the record range ``starts[s]`` to
+    ``starts[s + 1]`` of frame ``frames[s]``.  All index tensors are
+    int64; ``weights``/``classes`` are the sorted records.
+    """
+
+    ids: torch.Tensor
+    sub_starts: torch.Tensor
+    starts: torch.Tensor
+    frames: torch.Tensor
+    weights: torch.Tensor
+    classes: torch.Tensor
+
+
+def _cut(keys_sorted: torch.Tensor):
+    """Unique keys of a sorted stream and the ``[K + 1]`` range starts:
+    a range starts wherever the key differs from the one before it."""
+    n = keys_sorted.shape[0]
+    new = torch.ones(n, dtype=torch.bool, device=keys_sorted.device)
+    new[1:] = keys_sorted[1:] != keys_sorted[:-1]
+    first = new.nonzero().squeeze(1)
+    return keys_sorted[first], torch.cat([first, first.new_full((1,), n)])
+
+
+def sorted_runs_multi(ids: torch.Tensor, weights: torch.Tensor,
+                      classes: Sequence[torch.Tensor]) -> Runs:
     """Stable-sort ``[8N]`` corner records by voxel id (ties keep record
-    order) and cut them into per-voxel runs; ``classes`` is ``[N]``."""
+    order) and cut them into per-voxel runs, once for a group of maps:
+    each map's ``[N]`` class image is gathered in the same order into
+    ``classes [M, R]``."""
     ids_s, order = torch.sort(ids.to(torch.int64), stable=True)
-    cls8 = classes.reshape(-1).repeat(8).to(torch.int32)
-    run_ids, counts = torch.unique_consecutive(ids_s, return_counts=True)
-    starts = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    cls8 = torch.stack([c.reshape(-1).to(torch.int32)
+                        for c in classes]).repeat(1, 8)
+    run_ids, starts = _cut(ids_s)
     return Runs(ids=run_ids, starts=starts,
                 weights=weights[order].to(torch.float32).contiguous(),
-                classes=cls8[order].contiguous())
+                classes=cls8[:, order].contiguous())
 
 
-def splat_onehot_reference(data: torch.Tensor, runs: Runs,
-                           interpolation_weight: float) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the same sums in the same
-    order (``index_add_`` on the CPU adds in index order) and the same
-    float32 blend.  Updates ``data [V, F]`` in place and returns it."""
-    num_voxels, num_features = data.shape
+def sorted_runs(ids: torch.Tensor, weights: torch.Tensor,
+                classes: torch.Tensor) -> Runs:
+    """:func:`sorted_runs_multi` for one map: ``classes`` is ``[N]``
+    and the runs' classes ``[R]``."""
+    runs = sorted_runs_multi(ids, weights, [classes])
+    return runs._replace(classes=runs.classes[0])
+
+
+def frame_runs(ids: torch.Tensor, weights: torch.Tensor,
+               classes: torch.Tensor) -> FrameRuns:
+    """Records of T frames (``ids``/``weights [T, 8N]``, ``classes
+    [T, N]``) flattened frame-major and stable-sorted by voxel id, so
+    within a voxel they stay in frame order, then record order; cut into
+    one run per voxel and one sub-run per (voxel, frame)."""
+    num_frames, per_frame = ids.shape
+    ids_s, order = torch.sort(ids.reshape(-1).to(torch.int64), stable=True)
+    cls8 = classes.reshape(num_frames, -1).to(torch.int32).repeat(1, 8)
+    # frame order within a voxel is nondecreasing, so (voxel, frame)
+    # keys are sorted too
+    sub_keys, starts = _cut(ids_s * num_frames + order // per_frame)
+    run_ids, sub_starts = _cut(sub_keys // num_frames)
+    return FrameRuns(ids=run_ids, sub_starts=sub_starts, starts=starts,
+                     frames=sub_keys % num_frames,
+                     weights=weights.reshape(-1)[order].to(
+                         torch.float32).contiguous(),
+                     classes=cls8.reshape(-1)[order].contiguous())
+
+
+# ----------------------------------------------------------------------
+# plain versions: the kernels' sums in the same order (index_add_ on the
+# CPU adds in index order) and the same float32 blend
+# ----------------------------------------------------------------------
+
+def _record_sums(runs: Runs):
+    """(run of each record, W, S2, w^2) of prepared runs."""
     n_runs = runs.ids.shape[0]
     counts = runs.starts[1:] - runs.starts[:-1]
     run_of = torch.repeat_interleave(
-        torch.arange(n_runs, device=data.device), counts)
+        torch.arange(n_runs, device=runs.ids.device), counts)
     w = runs.weights
     w2 = w * w
     w_sum = w.new_zeros(n_runs).index_add_(0, run_of, w)
     s2_sum = w.new_zeros(n_runs).index_add_(0, run_of, w2)
-    cls = runs.classes.to(torch.int64)
-    ok = (cls >= 0) & (cls < num_features)   # the kernel drops the rest
-    t_sum = w.new_zeros(n_runs * num_features).index_add_(
+    return run_of, w_sum, s2_sum, w2
+
+
+def _class_sums(run_of, n_runs: int, w2, classes,
+                num_features: int) -> torch.Tensor:
+    """``T [U, F]``; classes outside ``[0, F)`` are dropped, as the
+    kernels drop them."""
+    cls = classes.to(torch.int64)
+    ok = (cls >= 0) & (cls < num_features)
+    return w2.new_zeros(n_runs * num_features).index_add_(
         0, (run_of * num_features + cls)[ok], w2[ok]).view(
         n_runs, num_features)
+
+
+def _blend(data, run_ids, w_sum, s2_sum, t_sum,
+           interpolation_weight: float) -> torch.Tensor:
     iw = torch.tensor(np.float32(interpolation_weight), device=data.device)
     safe_w = w_sum.clamp_min(1e-30)
     mult = torch.where(w_sum > 0, 1.0 - (iw * s2_sum) / safe_w,
                        torch.ones_like(w_sum))
     scale = iw / safe_w
-    keep = runs.ids < num_voxels
-    rows = runs.ids[keep]
+    keep = run_ids < data.shape[0]
+    rows = run_ids[keep]
     data[rows] = (data[rows] * mult[keep][:, None]
                   + scale[keep][:, None] * t_sum[keep])
     return data
 
 
-def build() -> float:
-    """Compile ``csrc/splat_onehot.cu`` for sm_90a unless the library is
-    newer than its source; returns the seconds spent."""
+def splat_onehot_reference(data: torch.Tensor, runs: Runs,
+                           interpolation_weight: float) -> torch.Tensor:
+    """Plain PyTorch version of the single-map kernel.  Updates
+    ``data [V, F]`` in place and returns it."""
+    run_of, w_sum, s2_sum, w2 = _record_sums(runs)
+    t_sum = _class_sums(run_of, w_sum.shape[0], w2, runs.classes,
+                        data.shape[1])
+    return _blend(data, runs.ids, w_sum, s2_sum, t_sum,
+                  interpolation_weight)
+
+
+def splat_onehot_multi_reference(datas: Sequence[torch.Tensor], runs: Runs,
+                                 interpolation_weights: Sequence[float]
+                                 ) -> List[torch.Tensor]:
+    """Plain PyTorch version of the multi-map kernel: W and S2 once, T
+    and the blend per map (``runs.classes [M, R]``), each map equal to
+    :func:`splat_onehot_reference` on its own classes."""
+    run_of, w_sum, s2_sum, w2 = _record_sums(runs)
+    for data, cls, iw in zip(datas, runs.classes, interpolation_weights):
+        t_sum = _class_sums(run_of, w_sum.shape[0], w2, cls, data.shape[1])
+        _blend(data, runs.ids, w_sum, s2_sum, t_sum, iw)
+    return list(datas)
+
+
+def splat_onehot_frames_reference(data: torch.Tensor, runs: FrameRuns,
+                                  interpolation_weight: float
+                                  ) -> torch.Tensor:
+    """Plain PyTorch version of the frames kernel:
+    :func:`splat_onehot_reference` frame by frame, in frame order, on
+    each frame's sub-runs."""
+    sub_counts = runs.starts[1:] - runs.starts[:-1]
+    sub_ids = torch.repeat_interleave(
+        runs.ids, runs.sub_starts[1:] - runs.sub_starts[:-1])
+    record_frame = torch.repeat_interleave(runs.frames, sub_counts)
+    for t in torch.unique(runs.frames).tolist():
+        sel = runs.frames == t
+        rec = record_frame == t
+        counts = sub_counts[sel]
+        splat_onehot_reference(data, Runs(
+            ids=sub_ids[sel],
+            starts=torch.cat([counts.new_zeros(1), counts.cumsum(0)]),
+            weights=runs.weights[rec], classes=runs.classes[rec]),
+            interpolation_weight)
+    return data
+
+
+# ----------------------------------------------------------------------
+# build and bind
+# ----------------------------------------------------------------------
+
+def _paths(name: str):
+    return (os.path.join(_PKG, "csrc", f"{name}.cu"),
+            os.path.join(BUILD_DIR, f"lib{name}.so"))
+
+
+def build(names: Sequence[str] = KERNELS) -> Dict[str, float]:
+    """Compile the named ``csrc/<name>.cu`` sources for sm_90a, one
+    ``nvcc`` each, all started together, skipping a library newer than
+    its source.  Returns the seconds until each one was ready."""
     t0 = time.perf_counter()
-    if (os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
-        return time.perf_counter() - t0
     nvcc = shutil.which("nvcc") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError(
-            "nvcc not found: the splat kernel is built from "
-            f"{SOURCE} at first use and needs the CUDA toolkit")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.tmp{os.getpid()}"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return time.perf_counter() - t0
+    jobs, seconds = {}, {}
+    for name in names:
+        source, library = _paths(name)
+        if (os.path.exists(library)
+                and os.path.getmtime(library) >= os.path.getmtime(source)):
+            seconds[name] = 0.0
+            continue
+        if not os.path.exists(nvcc):
+            raise RuntimeError(
+                f"nvcc not found: the splat kernels are built from "
+                f"{os.path.dirname(source)} at first use and need the CUDA "
+                "toolkit")
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{library}.tmp{os.getpid()}"
+        jobs[name] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, source], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True), tmp, library, source)
+    failed = []
+    for name, (proc, tmp, library, source) in jobs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {source}:\n{err}")
+            continue
+        os.replace(tmp, library)
+        seconds[name] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return seconds
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(LIBRARY)
-        lib.splat_onehot_launch.restype = ctypes.c_int
-        lib.splat_onehot_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_float,
-            ctypes.c_void_p]
-        lib.splat_onehot_max_features.restype = ctypes.c_int
-        lib.splat_onehot_max_features.argtypes = []
-        _lib = lib
-    return _lib
+_SIGNATURES = {
+    "splat_onehot": [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_void_p],
+    "splat_onehot_multi": [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
+        ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p],
+    "splat_onehot_frames": [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_float,
+        ctypes.c_void_p],
+}
 
 
-def _check(data: torch.Tensor, runs: Runs, max_features: int) -> None:
+def _library(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(_paths(name)[1])
+        launch = getattr(lib, f"{name}_launch")
+        launch.restype = ctypes.c_int
+        launch.argtypes = _SIGNATURES[name]
+        limit = getattr(lib, f"{name}_max_features")
+        limit.restype = ctypes.c_int
+        limit.argtypes = []
+        _libs[name] = lib
+    return lib
+
+
+def _check_map(kernel: str, data: torch.Tensor, max_features: int) -> None:
     if data.dtype != torch.float32 or data.dim() != 2 or \
             not data.is_contiguous():
-        raise ValueError("splat kernel: data must be a contiguous float32 "
-                         f"[V, F] tensor, got {data.dtype} "
+        raise ValueError(f"{kernel} kernel: data must be a contiguous "
+                         f"float32 [V, F] tensor, got {data.dtype} "
                          f"{tuple(data.shape)}")
     if data.shape[1] > max_features:
-        raise ValueError(f"splat kernel: F={data.shape[1]} exceeds "
+        raise ValueError(f"{kernel} kernel: F={data.shape[1]} exceeds "
                          f"{max_features}")
-    want = (("ids", torch.int64), ("starts", torch.int64),
-            ("weights", torch.float32), ("classes", torch.int32))
-    for name, dtype in want:
+
+
+def _check_tensors(kernel: str, device, runs, dims: Dict[str, int]) -> None:
+    for name in runs._fields:
         t = getattr(runs, name)
-        if t.device != data.device or t.dtype != dtype or \
-                t.dim() != 1 or not t.is_contiguous():
+        dtype = {"weights": torch.float32,
+                 "classes": torch.int32}.get(name, torch.int64)
+        if t.device != device or t.dtype != dtype or \
+                t.dim() != dims.get(name, 1) or not t.is_contiguous():
             raise ValueError(
-                f"splat kernel: runs.{name} must be a contiguous 1-D "
-                f"{dtype} tensor on {data.device}, got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}")
-    if runs.starts.shape[0] != runs.ids.shape[0] + 1 or \
-            runs.weights.shape != runs.classes.shape:
-        raise ValueError("splat kernel: inconsistent run shapes")
+                f"{kernel} kernel: runs.{name} must be a contiguous "
+                f"{dims.get(name, 1)}-D {dtype} tensor on {device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _device_kind(datas: Sequence[torch.Tensor], kernel: str) -> str:
+    kinds = {d.device.type for d in datas}
+    if kinds == {"cpu"}:
+        return "cpu"
+    if kinds != {"cuda"} or len({d.device for d in datas}) != 1:
+        raise ValueError(f"{kernel}: maps on unsupported or mixed devices "
+                         f"{sorted(str(d.device) for d in datas)}")
+    return "cuda"
+
+
+def _stream(device) -> int:
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream().cuda_stream
+
+
+def _raise_on(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
 
 
 def apply_runs(data: torch.Tensor, runs: Runs,
@@ -174,22 +364,95 @@ def apply_runs(data: torch.Tensor, runs: Runs,
     """Fold prepared runs into ``data [V, F]`` in place: the CUDA kernel
     for a CUDA map, the plain version for a CPU map."""
     global LAUNCHES
-    if data.device.type == "cpu":
+    if _device_kind([data], "splat") == "cpu":
         return splat_onehot_reference(data, runs, interpolation_weight)
-    if data.device.type != "cuda":
-        raise ValueError(f"splat: unsupported device {data.device}")
-    lib = _library()
-    _check(data, runs, lib.splat_onehot_max_features())
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.splat_onehot_launch(
-            data.data_ptr(), data.shape[1], data.shape[0],
-            runs.ids.data_ptr(), runs.starts.data_ptr(),
-            runs.weights.data_ptr(), runs.classes.data_ptr(),
-            runs.ids.shape[0], float(interpolation_weight), stream)
-    if err != 0:
-        raise RuntimeError(f"splat kernel launch failed: CUDA error {err}")
+    lib = _library("splat_onehot")
+    _check_map("splat", data, lib.splat_onehot_max_features())
+    _check_tensors("splat", data.device, runs, {})
+    if runs.starts.shape[0] != runs.ids.shape[0] + 1 or \
+            runs.weights.shape != runs.classes.shape:
+        raise ValueError("splat kernel: inconsistent run shapes")
+    _raise_on(lib.splat_onehot_launch(
+        data.data_ptr(), data.shape[1], data.shape[0],
+        runs.ids.data_ptr(), runs.starts.data_ptr(),
+        runs.weights.data_ptr(), runs.classes.data_ptr(),
+        runs.ids.shape[0], float(interpolation_weight),
+        _stream(data.device)), "splat")
     LAUNCHES += 1
+    return data
+
+
+def apply_runs_multi(datas: Sequence[torch.Tensor], runs: Runs,
+                     interpolation_weights: Sequence[float]
+                     ) -> List[torch.Tensor]:
+    """Fold one frame's prepared runs (``runs.classes [M, R]``) into
+    2 <= M <= 4 maps ``[V, F_m]`` in place, each with its own EMA weight: the CUDA
+    kernel for CUDA maps, the plain version for CPU maps."""
+    global MULTI_LAUNCHES
+    datas = list(datas)
+    num_maps = len(datas)
+    if not 2 <= num_maps <= MAX_MAPS or \
+            len(interpolation_weights) != num_maps:
+        raise ValueError(f"multi splat: takes 2-{MAX_MAPS} maps with one "
+                         f"EMA weight each (one map goes through "
+                         f"apply_runs), got {num_maps} maps and "
+                         f"{len(interpolation_weights)} weights")
+    if runs.classes.dim() != 2 or runs.classes.shape[0] != num_maps:
+        raise ValueError(f"multi splat: runs.classes must be [{num_maps}, "
+                         f"R], got {tuple(runs.classes.shape)}")
+    if len({d.shape[0] for d in datas}) != 1:
+        raise ValueError("multi splat: the maps must share one grid (V)")
+    if _device_kind(datas, "multi splat") == "cpu":
+        return splat_onehot_multi_reference(datas, runs,
+                                            interpolation_weights)
+    lib = _library("splat_onehot_multi")
+    for data in datas:
+        _check_map("multi splat", data,
+                   lib.splat_onehot_multi_max_features())
+    _check_tensors("multi splat", datas[0].device, runs, {"classes": 2})
+    if runs.starts.shape[0] != runs.ids.shape[0] + 1 or \
+            runs.weights.shape[0] != runs.classes.shape[1]:
+        raise ValueError("multi splat kernel: inconsistent run shapes")
+    pad = MAX_MAPS - num_maps
+    _raise_on(lib.splat_onehot_multi_launch(
+        num_maps,
+        (ctypes.c_void_p * MAX_MAPS)(*[d.data_ptr() for d in datas],
+                                     *[None] * pad),
+        (ctypes.c_int * MAX_MAPS)(*[d.shape[1] for d in datas], *[0] * pad),
+        (ctypes.c_float * MAX_MAPS)(*[float(w) for w in
+                                      interpolation_weights], *[0.0] * pad),
+        datas[0].shape[0], runs.ids.data_ptr(), runs.starts.data_ptr(),
+        runs.weights.data_ptr(), runs.classes.data_ptr(),
+        runs.weights.shape[0], runs.ids.shape[0],
+        _stream(datas[0].device)), "multi splat")
+    MULTI_LAUNCHES += 1
+    return datas
+
+
+def apply_frame_runs(data: torch.Tensor, runs: FrameRuns,
+                     interpolation_weight: float) -> torch.Tensor:
+    """Fold T frames' prepared runs into ``data [V, F]`` in place, in
+    frame order: the CUDA kernel for a CUDA map, the plain version for a
+    CPU map."""
+    global FRAMES_LAUNCHES
+    if _device_kind([data], "frames splat") == "cpu":
+        return splat_onehot_frames_reference(data, runs,
+                                             interpolation_weight)
+    lib = _library("splat_onehot_frames")
+    _check_map("frames splat", data,
+               lib.splat_onehot_frames_max_features())
+    _check_tensors("frames splat", data.device, runs, {})
+    if runs.sub_starts.shape[0] != runs.ids.shape[0] + 1 or \
+            runs.starts.shape[0] != runs.frames.shape[0] + 1 or \
+            runs.weights.shape != runs.classes.shape:
+        raise ValueError("frames splat kernel: inconsistent run shapes")
+    _raise_on(lib.splat_onehot_frames_launch(
+        data.data_ptr(), data.shape[1], data.shape[0],
+        runs.ids.data_ptr(), runs.sub_starts.data_ptr(),
+        runs.starts.data_ptr(), runs.weights.data_ptr(),
+        runs.classes.data_ptr(), runs.ids.shape[0],
+        float(interpolation_weight), _stream(data.device)), "frames splat")
+    FRAMES_LAUNCHES += 1
     return data
 
 
@@ -200,3 +463,23 @@ def splat_onehot(data: torch.Tensor, ids: torch.Tensor,
     (``ids``/``weights`` ``[8N]``, ``classes`` ``[N]``)."""
     return apply_runs(data, sorted_runs(ids, weights, classes),
                       interpolation_weight)
+
+
+def splat_onehot_multi(datas: Sequence[torch.Tensor], ids: torch.Tensor,
+                       weights: torch.Tensor,
+                       classes: Sequence[torch.Tensor],
+                       interpolation_weights: Sequence[float]
+                       ) -> List[torch.Tensor]:
+    """One frame's records into M maps of one grid in place, sorted once
+    (``classes``: one ``[N]`` image per map)."""
+    return apply_runs_multi(datas, sorted_runs_multi(ids, weights, classes),
+                            interpolation_weights)
+
+
+def splat_onehot_frames(data: torch.Tensor, ids: torch.Tensor,
+                        weights: torch.Tensor, classes: torch.Tensor,
+                        interpolation_weight: float) -> torch.Tensor:
+    """T frames' records (``ids``/``weights [T, 8N]``, ``classes
+    [T, N]``) into ``data [V, F]`` in place, in frame order."""
+    return apply_frame_runs(data, frame_runs(ids, weights, classes),
+                            interpolation_weight)

@@ -2,6 +2,7 @@
 (results and per-step actions equal), the CLI's flag surface, and the
 frozen-protocol random arm through the port's CLI."""
 
+import contextlib
 import json
 import os
 
@@ -10,6 +11,29 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@contextlib.contextmanager
+def jax_node_memo_held():
+    """Hold every nav grid and evidence object that the JAX controller's
+    node memo keys on.  That memo keys on the ``id()`` of objects it does
+    not hold, so a freed grid's id can pass to a new grid and hit a stale
+    entry (ROADMAP.md queue 3), which makes the reference episode depend
+    on the allocator.  Held keys keep every id unique for the episode, as
+    the port's memo (which holds its keys) always does."""
+    from mass_tpu.nav.controller import NavigationController
+
+    original = NavigationController.navigable_node_cells
+    held = []
+
+    def navigable_node_cells(self, *args, **kwargs):
+        held.append((self.nav_grid, self.blocked_cells))
+        return original(self, *args, **kwargs)
+    NavigationController.navigable_node_cells = navigable_node_cells
+    try:
+        yield
+    finally:
+        NavigationController.navigable_node_cells = original
 
 
 def _episode(pkg: str, gt_search: bool = False):
@@ -54,7 +78,8 @@ def _episode(pkg: str, gt_search: bool = False):
     sampler.next_task = recording_next_task
     agent = RearrangementAgent(cfg, sampler, rng=np.random.RandomState(0),
                                **extra)
-    return agent.run_task(0), actions
+    with jax_node_memo_held():
+        return agent.run_task(0), actions
 
 
 @pytest.mark.parametrize("gt_search", [False, True])
@@ -130,9 +155,10 @@ def test_failed_actions_match_jax():
     (["--revisit-exploration"], 2),
     (["--use-feature-matching"], 3),
     (["--one-phase"], 2),
-    (["--reference-compat"], 2),
     (["--fleet-size", "4"], 2),
     (["--shard-map", "8"], 4),
+    (["--snapshot-maps"], 3),
+    (["--videos"], 3),
 ])
 def test_cli_rejects_flags_of_later_slices(flags, slice_no, tmp_path):
     from mass_tpu_torch.agent import cli

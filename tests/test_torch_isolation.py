@@ -1,5 +1,6 @@
 """mass_tpu_torch stands alone: every module imports in a process where
-``jax`` and ``mass_tpu`` cannot be imported, and so does chip_smoke.py."""
+``jax`` and ``mass_tpu`` cannot be imported, and so does chip_smoke.py;
+its kernels build from plain CUDA sources of their own."""
 
 import os
 import subprocess
@@ -28,6 +29,14 @@ SCRIPT = textwrap.dedent("""
         importlib.import_module(name)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
+    from mass_tpu_torch.core.voxelmap import VoxelMap, apply_onehot_group
+    from mass_tpu_torch.ops import splat
+    for entry in ("apply_runs", "apply_runs_multi", "apply_frame_runs",
+                  "sorted_runs_multi", "frame_runs",
+                  "splat_onehot_multi_reference",
+                  "splat_onehot_frames_reference"):
+        assert callable(getattr(splat, entry)), entry
+    assert callable(VoxelMap.update_classes_frames)
     print(len(names))
 """)
 
@@ -38,3 +47,23 @@ def test_port_imports_without_jax_or_mass_tpu():
                           env=dict(os.environ, PYTHONPATH=REPO))
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip().splitlines()[-1]) >= 25
+
+
+def test_kernel_sources_stand_alone():
+    """Every kernel the port builds has its CUDA source in the package,
+    with a plain C interface (no PyTorch or JAX header, so nvcc builds it
+    in seconds) and its launch and limit entry points."""
+    from mass_tpu_torch.ops import splat
+
+    assert splat.KERNELS == ("splat_onehot", "splat_onehot_multi",
+                             "splat_onehot_frames")
+    for name in splat.KERNELS:
+        source, library = splat._paths(name)
+        with open(source) as f:
+            text = f.read()
+        assert "#include <torch" not in text and "ATen" not in text
+        assert "mass_tpu/ops/pallas_splat.py" in text   # what it replaces
+        for entry in (f"{name}_launch(", f"{name}_max_features("):
+            assert f'extern "C" int {entry}' in text, (name, entry)
+        assert library.endswith(f"build/kernels/lib{name}.so")
+        assert name in splat._SIGNATURES

@@ -137,14 +137,27 @@ def test_coordinate_transforms_match_jax():
 
 @pytest.mark.parametrize("layout", ["vmajor", "cmajor"])
 def test_convert_round_trips_both_layouts(layout):
-    jgeo = JMapGeometry(layout=layout, **GEO)
+    _convert_round_trip(layout, GEO)
+
+
+@pytest.mark.parametrize("layout", ["vmajor", "cmajor"])
+def test_convert_round_trips_occupancy_map(layout):
+    """An F = 1 occupancy map (cmajor ``[8, V]``: seven zero pad rows)
+    crosses between the packages both ways."""
+    data = _convert_round_trip(layout, dict(GEO, feature_size=1))
+    assert data.shape == ((8, 2048) if layout == "cmajor" else (2048, 1))
+
+
+def _convert_round_trip(layout, geo):
+    jgeo = JMapGeometry(layout=layout, **geo)
     jvm = JVoxelMap.create(jgeo, ORIGIN)
-    grid = np.random.RandomState(6).rand(32, 16, 4, 6).astype(np.float32)
+    grid = np.random.RandomState(6).rand(
+        32, 16, 4, geo["feature_size"]).astype(np.float32)
     jvm = jvm.with_grid(jnp.asarray(grid))
     data = np.asarray(jvm.data)
     tvm = convert.voxelmap_from_jax(
         data, np.asarray(jvm.bins_x), np.asarray(jvm.bins_y),
-        np.asarray(jvm.bins_z), MapGeometry(**GEO), device="cpu")
+        np.asarray(jvm.bins_z), MapGeometry(**geo), device="cpu")
     np.testing.assert_array_equal(tvm.grid().numpy(), grid)
     back = convert.voxelmap_to_numpy(tvm, layout)
     np.testing.assert_array_equal(back["data"], data)
@@ -154,10 +167,14 @@ def test_convert_round_trips_both_layouts(layout):
     with pytest.raises(ValueError):
         convert.voxelmap_from_jax(data[:, :-1], back["bins_x"],
                                   back["bins_y"], back["bins_z"],
-                                  MapGeometry(**GEO), device="cpu")
+                                  MapGeometry(**geo), device="cpu")
+    return data
 
 
 def test_apply_onehot_group_single_map_and_multi_raises():
+    """One map takes the single-map splat; two to four maps are sorted
+    once and each equals its own single-map update bit for bit; five
+    maps raise (the multi-map kernel takes at most four)."""
     _, tvm = _pair(7)
     v = tvm.geometry.num_voxels
     before = tvm.data.clone()
@@ -168,8 +185,19 @@ def test_apply_onehot_group_single_map_and_multi_raises():
     [out] = apply_onehot_group([tvm], ids, w, [cls])
     assert out is tvm and not torch.equal(tvm.data, before)
     assert torch.equal(tvm.data, other.apply_onehot(ids, w, cls).data)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        apply_onehot_group([tvm, other], ids, w, [cls, cls])
+    occ = VoxelMap.create(MapGeometry(**dict(GEO, feature_size=1)),
+                          ORIGIN, device="cpu")
+    group = [dataclasses.replace(tvm, data=before.clone()), occ]
+    singles = [dataclasses.replace(tvm, data=before.clone()).apply_onehot(
+        ids, w, cls), VoxelMap.create(occ.geometry, ORIGIN,
+                                      device="cpu").apply_onehot(
+        ids, w, torch.tensor([0]))]
+    got = apply_onehot_group(group, ids, w, [cls, torch.tensor([0])])
+    assert got[0] is group[0] and got[1] is occ
+    for a, b in zip(got, singles):
+        assert torch.equal(a.data, b.data)
+    with pytest.raises(ValueError, match="2-4 maps"):
+        apply_onehot_group([tvm] * 5, ids, w, [cls] * 5)
 
 
 @pytest.mark.parametrize("kind", ["semantic", "occupancy"])
