@@ -3,10 +3,13 @@
     python3 chip_smoke.py
 
 Builds the port's three splat kernels from the sources in this
-checkout (one nvcc each, started together), holds each against its plain
-PyTorch version at the shapes its path gives it (the single-map and
-multi-map kernels on one full 224x224 frame into 384x384x96 maps, the
-frames kernel on bench.py's 128-frame stream in groups of 8), runs the
+checkout (two libraries: the single-map and multi-map kernels share
+``csrc/splat_onehot.cu``; one nvcc each, started together), holds each
+against its plain PyTorch version at the shapes its path gives it (the
+single-map and multi-map kernels on one full 224x224 room frame into
+384x384x96 maps, and on a frame 0.3 m from a wall whose runs outgrow a
+tile; the frames kernel on bench.py's 128-frame stream in groups of 8),
+runs the
 default and the ``--reference-compat`` two-phase episodes on the card
 at a small geometry (and on the CPU, which must give equal results),
 then both episodes at full width (384x384x96 voxels x 54 classes,
@@ -35,6 +38,10 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOPS = 67e12              # H100 SXM float32 outside tensor cores
 SPLAT_TOL = 1e-5
+# the kernels' times before their redesign as one tile-staged body (one
+# warp per run, a shuffle per record; NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md)
+BEFORE_MS = {"splat_onehot": 0.0289, "splat_onehot_multi": 0.0496}
 
 # full width: the port's default map (config.MapGeometry) and camera
 FULL_MAP = dict(map_height=384, map_width=384, map_depth=96,
@@ -115,170 +122,221 @@ def room_frame(camera: int, rng: np.random.RandomState):
     return yaw, elevation, depth, classes
 
 
-def phase_kernel_full_geometry(dev) -> dict:
-    """The splat kernel against its plain version at full geometry."""
-    from mass_tpu_torch.config import MapGeometry
-    from mass_tpu_torch.core.voxelmap import VoxelMap
+def wall_frame(camera: int, distance: float = 0.3):
+    """Depth of a flat wall ``distance`` metres in front of the camera
+    (level, yaw 0.3): a frame whose records crowd into a few hundred
+    voxels, so runs hold about a thousand records each."""
+    from mass_tpu_torch.core import geometry as G
+
+    yaw, elevation = 0.3, 0.0
+    rays = G.orient_rays(G.camera_rays(camera, camera, camera / 2,
+                                       camera / 2), yaw,
+                         elevation).numpy().astype(np.float64)
+    normal = rays[camera // 2, camera // 2]
+    normal = normal / np.linalg.norm(normal)
+    depth = (distance / (rays @ normal)).astype(np.float32)[..., None]
+    return yaw, elevation, depth
+
+
+def run_lengths(records, num_voxels: int):
+    """(valid records, touched voxels, longest run) of sorted records."""
+    ids, counts = torch.unique_consecutive(records.ids, return_counts=True)
+    valid = counts[ids < num_voxels]
+    return (int(valid.sum()), int(valid.shape[0]),
+            int(valid.max()) if valid.numel() else 0)
+
+
+def record_prep_ms(ids, weights, classes, flush) -> dict:
+    """The two steps of one frame's record prep, timed apart: the stable
+    sort (int32 ids) and the gathers of weights and every map's
+    classes."""
     from mass_tpu_torch.ops import splat as SP
 
-    geo = MapGeometry(**FULL_MAP)
-    rng = np.random.RandomState(0)
-    yaw, elevation, depth, classes = room_frame(CAMERA, rng)
-    vm = VoxelMap.create(geo, (0.0, 0.0, 0.0), device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    vm.data.copy_(torch.rand(vm.data.shape, generator=gen, device=dev))
+    ids_s, order = SP.sort_ids(ids)
+    return dict(
+        sort_ms=cuda_ms(lambda: SP.sort_ids(ids), 20, flush),
+        gather_ms=cuda_ms(lambda: SP.gather_records(ids_s, order, weights,
+                                                    classes), 20, flush))
+
+
+def splat_bound(valid_records: int, touched: int, features) -> dict:
+    """What the single- or multi-map kernel must read and write: per
+    valid record its int32 id, weight and one class per map (8 + 4M B),
+    per touched voxel each map's row read and written once; per record
+    w*w and 2 + M adds, per row element 2 mul + 1 add."""
+    return bound((8 + 4 * len(features)) * valid_records
+                 + sum(2 * 4 * f for f in features) * touched,
+                 (3 + len(features)) * valid_records
+                 + 3 * sum(features) * touched)
+
+
+def check_splat(name: str, datas, records, iws) -> dict:
+    """One kernel (single-map for one map, else multi-map) against its
+    plain version on the card (tolerance) and on the CPU (bit for bit),
+    and against itself (bit for bit)."""
+    from mass_tpu_torch.ops import splat as SP
+
+    if len(datas) == 1:
+        def run(maps, recs):
+            return [SP.apply_records(maps[0], recs, iws[0])]
+
+        def plain(maps, recs):
+            return [SP.splat_onehot_reference(maps[0], recs, iws[0])]
+    else:
+        def run(maps, recs):
+            return SP.apply_records_multi(maps, recs, iws)
+
+        def plain(maps, recs):
+            return SP.splat_onehot_multi_reference(maps, recs, iws)
+    out1 = run([d.clone() for d in datas], records)
+    out2 = run([d.clone() for d in datas], records)
+    torch.cuda.synchronize()
+    identical = all(torch.equal(a, b) for a, b in zip(out1, out2))
+    del out2
+    ref = plain([d.clone() for d in datas], records)
+    torch.cuda.synchronize()
+    max_err = max(float((a - b).abs().max()) for a, b in zip(out1, ref))
+    del ref
+    changed = max(float((a - d).abs().max()) for a, d in zip(out1, datas))
+    cpu = plain([d.to("cpu", copy=True) for d in datas],
+                SP.Records(*(t.cpu() for t in records)))
+    cpu_equal = all(torch.equal(a.cpu(), b) for a, b in zip(out1, cpu))
+    del cpu
+    check(changed > 0, f"{name}: the kernel changed nothing")
+    check(max_err <= SPLAT_TOL,
+          f"{name}: kernel vs plain max abs diff {max_err} > {SPLAT_TOL}")
+    check(identical, f"{name}: two kernel runs differ")
+    check(cpu_equal, f"{name}: kernel differs bitwise from the plain CPU "
+          "version")
+    return dict(out=out1, max_abs_err=max_err, tolerance=SPLAT_TOL,
+                bit_identical_runs=identical, bitwise_equal_cpu_plain=True,
+                run=run, plain=plain)
+
+
+def time_splat(checked: dict, records, flush) -> dict:
+    """Kernel and plain version, each on the checked maps, cold L2."""
+    scratch = checked.pop("out")
+    run, plain = checked.pop("run"), checked.pop("plain")
+    for _ in range(3):
+        run(scratch, records)
+        plain(scratch, records)
+    kernel_ms = cuda_ms(lambda: run(scratch, records), 20, flush)
+    plain_ms = cuda_ms(lambda: plain(scratch, records), 20, flush)
+    del scratch
+    return dict(checked, ms=kernel_ms, plain_ms=plain_ms, library_ms=None)
+
+
+def full_geometry_frame(dev, seed: int, frame=None):
+    """One 224x224 frame's corner records at full geometry (the room
+    frame unless ``frame`` gives (yaw, elevation, depth)), random
+    classes, and a 384x384x96x54 map of random values."""
+    from mass_tpu_torch.config import MapGeometry
     from mass_tpu_torch.core import geometry as G
+    from mass_tpu_torch.core.voxelmap import VoxelMap
+
+    geo = MapGeometry(**FULL_MAP)
+    rng = np.random.RandomState(seed)
+    yaw, elevation, depth, classes = room_frame(CAMERA, rng)
+    if frame is not None:
+        yaw, elevation, depth = frame
+    vm = VoxelMap.create(geo, (0.0, 0.0, 0.0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    vm.data.copy_(torch.rand(vm.data.shape, generator=gen, device=dev))
     rays = G.camera_rays(CAMERA, CAMERA, CAMERA / 2, CAMERA / 2, device=dev)
     ids, weights = vm.contributions(
         rays, torch.zeros(3, device=dev), yaw, elevation,
         torch.as_tensor(depth, device=dev))
-    classes = torch.as_tensor(classes, device=dev)
-    runs = SP.sorted_runs(ids, weights, classes)
-    num_voxels = geo.num_voxels
-    valid_runs = int((runs.ids < num_voxels).sum())
-    valid_records = int((ids < num_voxels).sum())
-    check(valid_runs > 1000, f"synthetic frame touched {valid_runs} voxels")
+    return geo, vm, ids, weights, torch.as_tensor(classes, device=dev)
 
-    out1 = SP.apply_runs(vm.data.clone(), runs, 0.5)
-    out2 = SP.apply_runs(vm.data.clone(), runs, 0.5)
-    ref = SP.splat_onehot_reference(vm.data.clone(), runs, 0.5)
-    torch.cuda.synchronize()
-    max_err = float((out1 - ref).abs().max())
-    identical = bool(torch.equal(out1, out2))
-    changed = float((out1 - vm.data).abs().max())
-    cpu = SP.splat_onehot_reference(
-        vm.data.cpu(), SP.Runs(*(t.cpu() for t in runs)), 0.5)
-    cpu_equal = bool(torch.equal(out1.cpu(), cpu))
-    del out2, ref, cpu
-    check(changed > 0, "the kernel changed nothing")
-    check(max_err <= SPLAT_TOL,
-          f"kernel vs plain max abs diff {max_err} > {SPLAT_TOL}")
-    check(identical, "two kernel runs differ")
-    check(cpu_equal, "kernel differs bitwise from the plain CPU version")
 
+def phase_kernel_full_geometry(dev) -> dict:
+    """The single-map kernel against its plain version at full geometry:
+    the room frame into a 384x384x96x54 map of random values."""
+    from mass_tpu_torch.ops import splat as SP
+
+    geo, vm, ids, weights, classes = full_geometry_frame(dev, 0)
+    records = SP.sorted_records(ids, weights, classes)
+    valid_records, touched, longest = run_lengths(records, geo.num_voxels)
+    check(touched > 1000, f"synthetic frame touched {touched} voxels")
+    checked = check_splat("splat", [vm.data], records, (0.5,))
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    scratch = out1
-    for _ in range(3):
-        SP.apply_runs(scratch, runs, 0.5)
-        SP.splat_onehot_reference(scratch, runs, 0.5)
-    kernel_ms = cuda_ms(lambda: SP.apply_runs(scratch, runs, 0.5), 20,
-                        flush)
-    plain_ms = cuda_ms(lambda: SP.splat_onehot_reference(scratch, runs, 0.5),
-                       20, flush)
-    # the record prep of the same map update (sort, runs; syncs the host)
-    prep_ms = cuda_ms(lambda: SP.sorted_runs(ids, weights, classes), 20,
-                      flush)
-    # what the kernel must read and write: weight and class of each valid
-    # record (4 B + 4 B), id and start of each run (int64, plus the last
-    # start), and each touched row read and written once
-    row_bytes = 4 * geo.feature_size
-    n_runs = int(runs.ids.shape[0])
-    # per record: w*w and three adds; per row element: 2 mul + 1 add
-    limit = bound(8 * valid_records + 8 * (2 * n_runs + 1)
-                  + 2 * row_bytes * valid_runs,
-                  4 * valid_records + 3 * geo.feature_size * valid_runs)
-    del scratch, flush, vm
+    result = time_splat(checked, records, flush)
+    prep = record_prep_ms(ids, weights, [classes.reshape(-1)], flush)
+    del flush, vm
     torch.cuda.empty_cache()
-    return dict(records=int(ids.shape[0]), valid_records=valid_records,
-                touched_voxels=valid_runs, runs=n_runs, max_abs_err=max_err,
-                tolerance=SPLAT_TOL, bit_identical_runs=identical,
-                bitwise_equal_cpu_plain=cpu_equal, ms=kernel_ms,
-                plain_ms=plain_ms, prep_ms=prep_ms, library_ms=None,
-                **limit)
+    return dict(result, records=int(ids.shape[0]),
+                valid_records=valid_records, touched_voxels=touched,
+                longest_run=longest, before_ms=BEFORE_MS["splat_onehot"],
+                **prep,
+                **splat_bound(valid_records, touched, [geo.feature_size]))
 
 
 def phase_multi_full_geometry(dev) -> dict:
     """The multi-map kernel against its plain version at full geometry:
     occupancy [V, 1] and semantic [V, 54] maps of random values, one
-    room frame with random classes, EMA weights 0.5 and 0.25."""
-    from mass_tpu_torch.config import MapGeometry
-    from mass_tpu_torch.core import geometry as G
-    from mass_tpu_torch.core.voxelmap import VoxelMap
+    room frame with random classes, EMA weights 0.5 and 0.25; each map
+    also equals the single-map kernel on its own classes."""
     from mass_tpu_torch.ops import splat as SP
 
-    geo = MapGeometry(**FULL_MAP)
-    rng = np.random.RandomState(1)
-    yaw, elevation, depth, classes = room_frame(CAMERA, rng)
-    sem = VoxelMap.create(geo, (0.0, 0.0, 0.0), device=dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    sem.data.copy_(torch.rand(sem.data.shape, generator=gen, device=dev))
+    geo, sem, ids, weights, classes = full_geometry_frame(dev, 1)
+    gen = torch.Generator(device=dev).manual_seed(2)
     occ = torch.rand((geo.num_voxels, 1), generator=gen, device=dev)
-    rays = G.camera_rays(CAMERA, CAMERA, CAMERA / 2, CAMERA / 2, device=dev)
-    ids, weights = sem.contributions(
-        rays, torch.zeros(3, device=dev), yaw, elevation,
-        torch.as_tensor(depth, device=dev))
     group = [torch.zeros(CAMERA * CAMERA, dtype=torch.int32, device=dev),
-             torch.as_tensor(classes, device=dev).reshape(-1)]
+             classes.reshape(-1)]
     iws = (0.5, 0.25)
-    runs = SP.sorted_runs_multi(ids, weights, group)
-    num_voxels = geo.num_voxels
-    valid_runs = int((runs.ids < num_voxels).sum())
-    valid_records = int((ids < num_voxels).sum())
+    records = SP.sorted_records_multi(ids, weights, group)
+    valid_records, touched, longest = run_lengths(records, geo.num_voxels)
     datas = [occ, sem.data]
-
-    out1 = SP.apply_runs_multi([d.clone() for d in datas], runs, iws)
-    out2 = SP.apply_runs_multi([d.clone() for d in datas], runs, iws)
-    torch.cuda.synchronize()
-    identical = all(torch.equal(a, b) for a, b in zip(out1, out2))
-    del out2
-    ref = SP.splat_onehot_multi_reference([d.clone() for d in datas], runs,
-                                          iws)
-    torch.cuda.synchronize()
-    max_err = max(float((a - b).abs().max()) for a, b in zip(out1, ref))
-    del ref
-    single_equal, cpu_equal, changed = True, True, 0.0
-    cpu_runs = SP.Runs(*(t.cpu() for t in runs))
+    checked = check_splat("multi splat", datas, records, iws)
+    single_equal = True
     for m, data in enumerate(datas):
-        single = SP.apply_runs(data.clone(), runs._replace(
-            classes=runs.classes[m].contiguous()), iws[m])
-        single_equal &= bool(torch.equal(out1[m], single))
-        changed = max(changed, float((out1[m] - data).abs().max()))
+        single = SP.apply_records(data.clone(), records._replace(
+            classes=records.classes[m].contiguous()), iws[m])
+        single_equal &= bool(torch.equal(checked["out"][m], single))
         del single
-        cpu = SP.splat_onehot_reference(data.cpu(), cpu_runs._replace(
-            classes=cpu_runs.classes[m].contiguous()), iws[m])
-        cpu_equal &= bool(torch.equal(out1[m].cpu(), cpu))
-        del cpu
-    check(changed > 0, "the multi-map kernel changed nothing")
-    check(max_err <= SPLAT_TOL,
-          f"multi kernel vs plain max abs diff {max_err} > {SPLAT_TOL}")
-    check(identical, "two multi-map kernel runs differ")
     check(single_equal,
           "multi-map kernel differs bitwise from the single-map kernel")
-    check(cpu_equal,
-          "multi-map kernel differs bitwise from the plain CPU version")
-
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    scratch = out1
-    for _ in range(3):
-        SP.apply_runs_multi(scratch, runs, iws)
-        SP.splat_onehot_multi_reference(scratch, runs, iws)
-    kernel_ms = cuda_ms(lambda: SP.apply_runs_multi(scratch, runs, iws), 20,
-                        flush)
-    plain_ms = cuda_ms(
-        lambda: SP.splat_onehot_multi_reference(scratch, runs, iws), 20,
-        flush)
-    prep_ms = cuda_ms(lambda: SP.sorted_runs_multi(ids, weights, group), 20,
-                      flush)
-    n_runs = int(runs.ids.shape[0])
+    result = time_splat(checked, records, flush)
+    prep = record_prep_ms(ids, weights, group, flush)
     features = [d.shape[1] for d in datas]
-    # weight + map-0 class per valid record, 4 B of class per further
-    # map, int64 id and start per run, every map's row read and written
-    # once; per record w*w and 2 + M adds, per row element 2 mul + 1 add
-    limit = bound(8 * valid_records + 4 * (len(datas) - 1) * valid_records
-                  + 8 * (2 * n_runs + 1)
-                  + sum(2 * 4 * f for f in features) * valid_runs,
-                  (3 + len(datas)) * valid_records
-                  + 3 * sum(features) * valid_runs)
-    del scratch, flush, sem, occ, datas, out1
+    del flush, sem, occ, datas
     torch.cuda.empty_cache()
-    return dict(maps=features, interpolation_weights=iws,
+    return dict(result, maps=features, interpolation_weights=iws,
                 records=int(ids.shape[0]), valid_records=valid_records,
-                touched_voxels=valid_runs, runs=n_runs, max_abs_err=max_err,
-                tolerance=SPLAT_TOL, bit_identical_runs=identical,
+                touched_voxels=touched, longest_run=longest,
                 bitwise_equal_single_kernel=single_equal,
-                bitwise_equal_cpu_plain=cpu_equal, ms=kernel_ms,
-                plain_ms=plain_ms, prep_ms=prep_ms, library_ms=None,
-                **limit)
+                before_ms=BEFORE_MS["splat_onehot_multi"], **prep,
+                **splat_bound(valid_records, touched, features))
+
+
+def phase_skewed_frame(dev) -> dict:
+    """Both entries of the single/multi-map kernel on a frame 0.3 m from
+    a wall at full geometry, where runs hold about a thousand records and
+    most cross a tile's end: bit-equal to the plain CPU version."""
+    from mass_tpu_torch.ops import splat as SP
+
+    geo, sem, ids, weights, classes = full_geometry_frame(
+        dev, 3, wall_frame(CAMERA))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    occ = torch.rand((geo.num_voxels, 1), generator=gen, device=dev)
+    group = [torch.zeros(CAMERA * CAMERA, dtype=torch.int32, device=dev),
+             classes.reshape(-1)]
+    single = SP.sorted_records(ids, weights, classes)
+    multi = SP.sorted_records_multi(ids, weights, group)
+    valid_records, touched, longest = run_lengths(single, geo.num_voxels)
+    check(longest > SP.TILE_RECORDS,
+          f"the wall frame's longest run is {longest} records")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    one = time_splat(check_splat("skewed splat", [sem.data], single,
+                                 (0.5,)), single, flush)
+    two = time_splat(check_splat("skewed multi splat", [occ, sem.data],
+                                 multi, (0.5, 0.25)), multi, flush)
+    del flush, sem, occ
+    torch.cuda.empty_cache()
+    return dict(records=int(ids.shape[0]), valid_records=valid_records,
+                touched_voxels=touched, longest_run=longest, single=one,
+                multi=two)
 
 
 def bench_frames(dev, rng: np.random.RandomState, k: int, camera: int,
@@ -377,6 +435,16 @@ def phase_frames(dev) -> dict:
                         flush)
     plain_ms = cuda_ms(
         lambda: SP.splat_onehot_frames_reference(out, runs, 0.5), 3, flush)
+    # the prep in its three steps: sort, gathers, cut into runs (syncs)
+    ids_s, order = SP.sort_ids(ids.reshape(-1), torch.int64)
+    gathered = SP.gather_frames(order, weights, cls)
+    prep = dict(
+        sort_ms=cuda_ms(lambda: SP.sort_ids(ids.reshape(-1), torch.int64),
+                        10, flush),
+        gather_ms=cuda_ms(lambda: SP.gather_frames(order, weights, cls), 10,
+                          flush),
+        cut_ms=cuda_ms(lambda: SP.cut_frames(ids_s, order, BENCH_GROUP,
+                                             *gathered), 10, flush))
     prep_ms = cuda_ms(lambda: SP.frame_runs(ids, weights, cls), 10, flush)
     valid_records = int((ids < num_voxels).sum())
     run_valid = runs.ids < num_voxels
@@ -392,7 +460,7 @@ def phase_frames(dev) -> dict:
     limit = bound(8 * valid_records + 8 * (2 * n_runs + 1)
                   + 8 * (n_subs + 1) + 2 * 4 * geo.feature_size * valid_runs,
                   4 * valid_records + 3 * geo.feature_size * valid_subs)
-    del out, flush, batched
+    del out, flush, batched, gathered
     torch.cuda.empty_cache()
     return dict(frames=BENCH_FRAMES, group=BENCH_GROUP, launches=launches,
                 bitwise_equal_sequential=equal,
@@ -402,7 +470,7 @@ def phase_frames(dev) -> dict:
                 group_records=int(ids.numel()), valid_records=valid_records,
                 touched_voxels=valid_runs, sub_runs=valid_subs,
                 max_abs_err=max_err, tolerance=SPLAT_TOL, ms=kernel_ms,
-                plain_ms=plain_ms, prep_ms=prep_ms, library_ms=None,
+                plain_ms=plain_ms, prep_ms=prep_ms, **prep, library_ms=None,
                 **limit)
 
 
@@ -531,12 +599,32 @@ def phase_full_episode(compat: bool = False) -> dict:
 
 def kernel_line(name: str, replaces: str, launches: int,
                 phase: dict) -> dict:
+    from mass_tpu_torch.ops import splat as SP
+
+    library = SP._ENTRIES[name][0]
     return dict(name=name, route="cuda",
-                source=f"mass_tpu_torch/csrc/{name}.cu", replaces=replaces,
+                source=f"mass_tpu_torch/csrc/{library}.cu", replaces=replaces,
                 launches=launches, max_abs_err=phase["max_abs_err"],
                 ms=phase["ms"], plain_ms=phase["plain_ms"],
                 bound_ms=phase["bound_ms"], bound_by=phase["bound_by"],
                 library_ms=phase["library_ms"])
+
+
+def print_splat(tag: str, k: dict) -> None:
+    print(f"[{tag}] full geometry, maps F={k.get('maps', [54])}: touched "
+          f"voxels U={k['touched_voxels']}, records={k['valid_records']} "
+          f"valid of {k['records']}, longest run {k['longest_run']}; max "
+          f"abs diff vs plain {k['max_abs_err']:.3g} (tol {SPLAT_TOL}); two "
+          f"runs bit-identical: {k['bit_identical_runs']}; equal to the "
+          f"plain CPU version: {k['bitwise_equal_cpu_plain']}")
+    print(f"[{tag}] kernel {k['ms']:.4f} ms (before the redesign: "
+          f"{k['before_ms']:.4f} ms), "
+          f"bound {k['bound_ms']:.4f} ms ({k['bytes']} B: id, weight and "
+          f"class per valid record, each touched row read and written, at "
+          f"3.35 TB/s), {k['ms'] / k['bound_ms']:.2f}x the bound; plain "
+          f"{k['plain_ms']:.4f} ms; library call: none")
+    print(f"[{tag}] record prep: sort {k['sort_ms']:.4f} ms, gathers "
+          f"{k['gather_ms']:.4f} ms, no cut (the kernel finds the runs)")
 
 
 def print_episode(tag: str, full: dict) -> None:
@@ -576,36 +664,28 @@ def main() -> int:
           f"{torch.version.cuda}")
     print(smi)
 
-    kernel = phase_kernel_full_geometry(dev)
-    report["splat_full_geometry"] = kernel
-    print(f"[splat] full geometry: touched voxels U={kernel['touched_voxels']}"
-          f", records={kernel['valid_records']} valid of "
-          f"{kernel['records']}; max abs diff vs plain "
-          f"{kernel['max_abs_err']:.3g} (tol {SPLAT_TOL}); two runs "
-          f"bit-identical: {kernel['bit_identical_runs']}; equal to the "
-          f"plain CPU version: {kernel['bitwise_equal_cpu_plain']}")
-    print(f"[splat] kernel {kernel['ms']:.4f} ms, plain "
-          f"{kernel['plain_ms']:.4f} ms, bound {kernel['bound_ms']:.4f} ms "
-          f"({kernel['bytes']} B: 8 B/valid record + 16 B/run + "
-          f"2 x 216 B/touched voxel, at 3.35 TB/s); library call: none")
-    print(f"[splat] record prep (sorted_runs: stable sort + runs) "
-          f"{kernel['prep_ms']:.4f} ms for the same frame")
+    for tag, key, phase in (("splat", "splat_full_geometry",
+                             phase_kernel_full_geometry),
+                            ("multi", "multi_full_geometry",
+                             phase_multi_full_geometry)):
+        result = report[key] = phase(dev)
+        print_splat(tag, result)
+    kernel = report["splat_full_geometry"]
+    multi = report["multi_full_geometry"]
+    print(f"[multi] equal to the single-map kernel per map: "
+          f"{multi['bitwise_equal_single_kernel']}")
 
-    multi = phase_multi_full_geometry(dev)
-    report["multi_full_geometry"] = multi
-    print(f"[multi] occupancy + semantic (F={multi['maps']}, iw "
-          f"{multi['interpolation_weights']}): U={multi['touched_voxels']}, "
-          f"records={multi['valid_records']} valid; max abs diff vs plain "
-          f"{multi['max_abs_err']:.3g} (tol {SPLAT_TOL}); equal to the "
-          f"single-map kernel per map: "
-          f"{multi['bitwise_equal_single_kernel']}; two runs bit-identical: "
-          f"{multi['bit_identical_runs']}; equal to the plain CPU version: "
-          f"{multi['bitwise_equal_cpu_plain']}")
-    print(f"[multi] kernel {multi['ms']:.4f} ms, plain "
-          f"{multi['plain_ms']:.4f} ms, bound {multi['bound_ms']:.4f} ms "
-          f"({multi['bytes']} B at 3.35 TB/s), record prep "
-          f"(sorted_runs_multi) {multi['prep_ms']:.4f} ms; library call: "
-          f"none")
+    skewed = report["skewed_frame"] = phase_skewed_frame(dev)
+    print(f"[skewed] wall 0.3 m ahead: U={skewed['touched_voxels']}, "
+          f"records={skewed['valid_records']} valid of {skewed['records']},"
+          f" longest run {skewed['longest_run']} records (tile "
+          f"{SP.TILE_RECORDS}); equal to the plain CPU version: single "
+          f"{skewed['single']['bitwise_equal_cpu_plain']}, multi "
+          f"{skewed['multi']['bitwise_equal_cpu_plain']}; two runs "
+          f"bit-identical: {skewed['single']['bit_identical_runs']}, "
+          f"{skewed['multi']['bit_identical_runs']}; kernel "
+          f"{skewed['single']['ms']:.4f} ms single, "
+          f"{skewed['multi']['ms']:.4f} ms multi")
 
     frames = phase_frames(dev)
     report["frames"] = frames
@@ -620,8 +700,11 @@ def main() -> int:
           f"{frames['valid_records']} valid records; kernel "
           f"{frames['ms']:.4f} ms per launch, plain {frames['plain_ms']:.4f}"
           f" ms, bound {frames['bound_ms']:.4f} ms ({frames['bytes']} B), "
-          f"max abs diff vs plain {frames['max_abs_err']:.3g}, record prep "
-          f"(frame_runs) {frames['prep_ms']:.4f} ms; library call: none")
+          f"max abs diff vs plain {frames['max_abs_err']:.3g}; library "
+          f"call: none")
+    print(f"[frames] record prep (frame_runs) {frames['prep_ms']:.4f} ms: "
+          f"sort {frames['sort_ms']:.4f} ms, gathers "
+          f"{frames['gather_ms']:.4f} ms, cut {frames['cut_ms']:.4f} ms")
 
     for compat in (False, True):
         small = phase_small_episodes(compat)

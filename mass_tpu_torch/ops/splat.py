@@ -2,12 +2,12 @@
 
 Replaces the three TPU kernels of ``mass_tpu/ops/pallas_splat.py``:
 
-- ``splat_onehot_cmajor`` -> :func:`apply_runs` (``csrc/splat_onehot.cu``):
-  one frame's corner records (``ops/scatter.corner_contributions``) into
-  one voxel-major ``[V, F]`` map;
-- ``splat_onehot_multi_cmajor`` -> :func:`apply_runs_multi`
-  (``csrc/splat_onehot_multi.cu``): the same frame into two to four
-  maps of one grid, each with its own classes and EMA weight;
+- ``splat_onehot_cmajor`` -> :func:`apply_records` (``csrc/splat_onehot.cu``,
+  M = 1): one frame's corner records (``ops/scatter.corner_contributions``)
+  into one voxel-major ``[V, F]`` map;
+- ``splat_onehot_multi_cmajor`` -> :func:`apply_records_multi` (the same
+  kernel body, M = 2..4): the same frame into two to four maps of one
+  grid, each with its own classes and EMA weight;
 - ``splat_onehot_frames_cmajor`` -> :func:`apply_frame_runs`
   (``csrc/splat_onehot_frames.cu``): T frames folded into one map in
   order, equal to T single-map updates in a row.
@@ -17,18 +17,20 @@ Every map updates in place by the same rule::
     W_v = sum w,  S2_v = sum w^2,  T_v[f] = sum w^2 [class == f]
     row_v = row_v * (1 - iw * S2_v / W_v) + (iw / W_v) * T_v
 
-Preparation is plain PyTorch: a stable sort of the records by voxel id,
-then one run per touched voxel (:func:`sorted_runs`, once per frame for
-all maps of a group; :func:`frame_runs` once for T frames, with one
-sub-run per frame inside each voxel's run).  Each kernel gives a run to
-one warp and sums it in sorted order, so an update is deterministic (no
-float atomics) and equals its plain version on the CPU bit for bit.
+Preparation is plain PyTorch.  For one frame it is a stable sort of the
+records by voxel id and gathers (:func:`sorted_records`, once per frame
+for all maps of a group); the kernel finds the runs of equal ids itself,
+so nothing syncs with the host between the sort and the launch.  For T
+frames :func:`frame_runs` also cuts the sorted stream into one run per
+voxel and one sub-run per frame inside it.  The kernels sum each run in
+sorted order, so an update is deterministic (no float atomics) and
+equals its plain version on the CPU bit for bit.
 
 The kernels are built with ``nvcc`` for ``sm_90a`` into ``build/kernels/``
-at first use (all sources at once, :func:`build`) and bound with ctypes.
-A wrapper launches its kernel for CUDA maps, counts the launch
-(``LAUNCHES``, ``MULTI_LAUNCHES``, ``FRAMES_LAUNCHES``), and takes the
-plain version only for maps that lie on the CPU.
+at first use (one library per source, all at once, :func:`build`) and
+bound with ctypes.  A wrapper launches its kernel for CUDA maps, counts
+the launch (``LAUNCHES``, ``MULTI_LAUNCHES``, ``FRAMES_LAUNCHES``), and
+takes the plain version only for maps that lie on the CPU.
 """
 
 from __future__ import annotations
@@ -45,32 +47,35 @@ import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-KERNELS = ("splat_onehot", "splat_onehot_multi", "splat_onehot_frames")
+LIBRARIES = ("splat_onehot", "splat_onehot_frames")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 MAX_MAPS = 4
+# records per tile of csrc/splat_onehot.cu (SPLAT_TILE; the edge-case
+# tests size their runs by it)
+TILE_RECORDS = 1024
+# the largest grid whose discard id V fits the kernel's int32 ids
+MAX_VOXELS = 2**31 - 1
 
 # kernel launches made by the wrappers (read by chip_smoke.py to show
 # the main path went through each kernel)
-LAUNCHES = 0          # apply_runs
-MULTI_LAUNCHES = 0    # apply_runs_multi
+LAUNCHES = 0          # apply_records
+MULTI_LAUNCHES = 0    # apply_records_multi
 FRAMES_LAUNCHES = 0   # apply_frame_runs
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-class Runs(NamedTuple):
-    """Records sorted by voxel id and cut into runs of one voxel each.
+class Records(NamedTuple):
+    """One frame's records, stable-sorted by voxel id.
 
-    ``ids [U]`` and ``starts [U + 1]`` (int64) give each run's voxel id
-    and record range; ``weights [R]`` (float32) are the sorted records
-    and ``classes`` (int32) their classes, ``[R]`` for one map or
-    ``[M, R]`` for a group of M maps.  A run with id ``V`` holds the
-    discarded records of invalid pixels and is skipped.
+    ``ids [R]`` (int32, nondecreasing) are the voxel ids, ``weights [R]``
+    (float32) the trilinear weights and ``classes`` (int32) the classes,
+    ``[R]`` for one map or ``[M, R]`` for a group of M maps.  Records with
+    the discard id ``V`` (invalid pixels) are skipped.
     """
 
     ids: torch.Tensor
-    starts: torch.Tensor
     weights: torch.Tensor
     classes: torch.Tensor
 
@@ -103,27 +108,62 @@ def _cut(keys_sorted: torch.Tensor):
     return keys_sorted[first], torch.cat([first, first.new_full((1,), n)])
 
 
-def sorted_runs_multi(ids: torch.Tensor, weights: torch.Tensor,
-                      classes: Sequence[torch.Tensor]) -> Runs:
-    """Stable-sort ``[8N]`` corner records by voxel id (ties keep record
-    order) and cut them into per-voxel runs, once for a group of maps:
-    each map's ``[N]`` class image is gathered in the same order into
-    ``classes [M, R]``."""
-    ids_s, order = torch.sort(ids.to(torch.int64), stable=True)
-    cls8 = torch.stack([c.reshape(-1).to(torch.int32)
-                        for c in classes]).repeat(1, 8)
-    run_ids, starts = _cut(ids_s)
-    return Runs(ids=run_ids, starts=starts,
-                weights=weights[order].to(torch.float32).contiguous(),
-                classes=cls8[:, order].contiguous())
+def sort_ids(ids: torch.Tensor, dtype: torch.dtype = torch.int32):
+    """Stable sort of voxel ids in ``dtype`` (ties keep record order):
+    ``(sorted ids, order)``."""
+    return torch.sort(ids.to(dtype), stable=True)
 
 
-def sorted_runs(ids: torch.Tensor, weights: torch.Tensor,
-                classes: torch.Tensor) -> Runs:
-    """:func:`sorted_runs_multi` for one map: ``classes`` is ``[N]``
-    and the runs' classes ``[R]``."""
-    runs = sorted_runs_multi(ids, weights, [classes])
-    return runs._replace(classes=runs.classes[0])
+def gather_records(ids_sorted: torch.Tensor, order: torch.Tensor,
+                   weights: torch.Tensor,
+                   classes: Sequence[torch.Tensor]) -> Records:
+    """The records in sorted order: weights, and each map's ``[N]``
+    class image gathered into ``classes [M, R]`` (record ``k`` is pixel
+    ``k % N``)."""
+    cls = torch.stack([c.reshape(-1).to(torch.int32) for c in classes])
+    return Records(ids=ids_sorted,
+                   weights=weights[order].to(torch.float32).contiguous(),
+                   classes=cls.index_select(1, order % cls.shape[1]))
+
+
+def sorted_records_multi(ids: torch.Tensor, weights: torch.Tensor,
+                         classes: Sequence[torch.Tensor]) -> Records:
+    """Stable-sort ``[8N]`` corner records by voxel id once for a group
+    of maps (ids narrowed to int32: every id, the discard id included,
+    must be below ``2**31``)."""
+    return gather_records(*sort_ids(ids), weights, classes)
+
+
+def sorted_records(ids: torch.Tensor, weights: torch.Tensor,
+                   classes: torch.Tensor) -> Records:
+    """:func:`sorted_records_multi` for one map: ``classes`` is ``[N]``
+    and the records' classes ``[R]``."""
+    records = sorted_records_multi(ids, weights, [classes])
+    return records._replace(classes=records.classes[0])
+
+
+def gather_frames(order: torch.Tensor, weights: torch.Tensor,
+                  classes: torch.Tensor):
+    """T frames' weights and classes (``classes [T, N]``) in the sorted
+    order of their flattened ``[T * 8N]`` records."""
+    cls8 = classes.reshape(classes.shape[0], -1).to(torch.int32).repeat(1, 8)
+    return (weights.reshape(-1)[order].to(torch.float32).contiguous(),
+            cls8.reshape(-1)[order].contiguous())
+
+
+def cut_frames(ids_sorted: torch.Tensor, order: torch.Tensor,
+               num_frames: int, weights_sorted: torch.Tensor,
+               classes_sorted: torch.Tensor) -> FrameRuns:
+    """Cut T frames' sorted records into one run per voxel and one
+    sub-run per (voxel, frame)."""
+    per_frame = ids_sorted.shape[0] // num_frames
+    # frame order within a voxel is nondecreasing, so (voxel, frame)
+    # keys are sorted too
+    sub_keys, starts = _cut(ids_sorted * num_frames + order // per_frame)
+    run_ids, sub_starts = _cut(sub_keys // num_frames)
+    return FrameRuns(ids=run_ids, sub_starts=sub_starts, starts=starts,
+                     frames=sub_keys % num_frames, weights=weights_sorted,
+                     classes=classes_sorted)
 
 
 def frame_runs(ids: torch.Tensor, weights: torch.Tensor,
@@ -132,18 +172,9 @@ def frame_runs(ids: torch.Tensor, weights: torch.Tensor,
     [T, N]``) flattened frame-major and stable-sorted by voxel id, so
     within a voxel they stay in frame order, then record order; cut into
     one run per voxel and one sub-run per (voxel, frame)."""
-    num_frames, per_frame = ids.shape
-    ids_s, order = torch.sort(ids.reshape(-1).to(torch.int64), stable=True)
-    cls8 = classes.reshape(num_frames, -1).to(torch.int32).repeat(1, 8)
-    # frame order within a voxel is nondecreasing, so (voxel, frame)
-    # keys are sorted too
-    sub_keys, starts = _cut(ids_s * num_frames + order // per_frame)
-    run_ids, sub_starts = _cut(sub_keys // num_frames)
-    return FrameRuns(ids=run_ids, sub_starts=sub_starts, starts=starts,
-                     frames=sub_keys % num_frames,
-                     weights=weights.reshape(-1)[order].to(
-                         torch.float32).contiguous(),
-                     classes=cls8.reshape(-1)[order].contiguous())
+    ids_s, order = sort_ids(ids.reshape(-1), torch.int64)
+    return cut_frames(ids_s, order, ids.shape[0],
+                      *gather_frames(order, weights, classes))
 
 
 # ----------------------------------------------------------------------
@@ -151,13 +182,12 @@ def frame_runs(ids: torch.Tensor, weights: torch.Tensor,
 # CPU adds in index order) and the same float32 blend
 # ----------------------------------------------------------------------
 
-def _record_sums(runs: Runs):
-    """(run of each record, W, S2, w^2) of prepared runs."""
-    n_runs = runs.ids.shape[0]
-    counts = runs.starts[1:] - runs.starts[:-1]
+def _record_sums(starts: torch.Tensor, w: torch.Tensor):
+    """(run of each record, W, S2, w^2) of sorted records cut at
+    ``starts [U + 1]``."""
+    n_runs = starts.shape[0] - 1
     run_of = torch.repeat_interleave(
-        torch.arange(n_runs, device=runs.ids.device), counts)
-    w = runs.weights
+        torch.arange(n_runs, device=w.device), starts[1:] - starts[:-1])
     w2 = w * w
     w_sum = w.new_zeros(n_runs).index_add_(0, run_of, w)
     s2_sum = w.new_zeros(n_runs).index_add_(0, run_of, w2)
@@ -182,34 +212,41 @@ def _blend(data, run_ids, w_sum, s2_sum, t_sum,
     mult = torch.where(w_sum > 0, 1.0 - (iw * s2_sum) / safe_w,
                        torch.ones_like(w_sum))
     scale = iw / safe_w
-    keep = run_ids < data.shape[0]
+    keep = (run_ids >= 0) & (run_ids < data.shape[0])
     rows = run_ids[keep]
     data[rows] = (data[rows] * mult[keep][:, None]
                   + scale[keep][:, None] * t_sum[keep])
     return data
 
 
-def splat_onehot_reference(data: torch.Tensor, runs: Runs,
+def _splat_runs(data, run_ids, starts, weights, classes,
+                interpolation_weight: float) -> torch.Tensor:
+    run_of, w_sum, s2_sum, w2 = _record_sums(starts, weights)
+    t_sum = _class_sums(run_of, w_sum.shape[0], w2, classes, data.shape[1])
+    return _blend(data, run_ids, w_sum, s2_sum, t_sum, interpolation_weight)
+
+
+def splat_onehot_reference(data: torch.Tensor, records: Records,
                            interpolation_weight: float) -> torch.Tensor:
     """Plain PyTorch version of the single-map kernel.  Updates
     ``data [V, F]`` in place and returns it."""
-    run_of, w_sum, s2_sum, w2 = _record_sums(runs)
-    t_sum = _class_sums(run_of, w_sum.shape[0], w2, runs.classes,
-                        data.shape[1])
-    return _blend(data, runs.ids, w_sum, s2_sum, t_sum,
-                  interpolation_weight)
+    run_ids, starts = _cut(records.ids)
+    return _splat_runs(data, run_ids, starts, records.weights,
+                       records.classes, interpolation_weight)
 
 
-def splat_onehot_multi_reference(datas: Sequence[torch.Tensor], runs: Runs,
+def splat_onehot_multi_reference(datas: Sequence[torch.Tensor],
+                                 records: Records,
                                  interpolation_weights: Sequence[float]
                                  ) -> List[torch.Tensor]:
     """Plain PyTorch version of the multi-map kernel: W and S2 once, T
-    and the blend per map (``runs.classes [M, R]``), each map equal to
+    and the blend per map (``records.classes [M, R]``), each map equal to
     :func:`splat_onehot_reference` on its own classes."""
-    run_of, w_sum, s2_sum, w2 = _record_sums(runs)
-    for data, cls, iw in zip(datas, runs.classes, interpolation_weights):
+    run_ids, starts = _cut(records.ids)
+    run_of, w_sum, s2_sum, w2 = _record_sums(starts, records.weights)
+    for data, cls, iw in zip(datas, records.classes, interpolation_weights):
         t_sum = _class_sums(run_of, w_sum.shape[0], w2, cls, data.shape[1])
-        _blend(data, runs.ids, w_sum, s2_sum, t_sum, iw)
+        _blend(data, run_ids, w_sum, s2_sum, t_sum, iw)
     return list(datas)
 
 
@@ -227,11 +264,10 @@ def splat_onehot_frames_reference(data: torch.Tensor, runs: FrameRuns,
         sel = runs.frames == t
         rec = record_frame == t
         counts = sub_counts[sel]
-        splat_onehot_reference(data, Runs(
-            ids=sub_ids[sel],
-            starts=torch.cat([counts.new_zeros(1), counts.cumsum(0)]),
-            weights=runs.weights[rec], classes=runs.classes[rec]),
-            interpolation_weight)
+        _splat_runs(data, sub_ids[sel],
+                    torch.cat([counts.new_zeros(1), counts.cumsum(0)]),
+                    runs.weights[rec], runs.classes[rec],
+                    interpolation_weight)
     return data
 
 
@@ -244,7 +280,7 @@ def _paths(name: str):
             os.path.join(BUILD_DIR, f"lib{name}.so"))
 
 
-def build(names: Sequence[str] = KERNELS) -> Dict[str, float]:
+def build(names: Sequence[str] = LIBRARIES) -> Dict[str, float]:
     """Compile the named ``csrc/<name>.cu`` sources for sm_90a, one
     ``nvcc`` each, all started together, skipping a library newer than
     its source.  Returns the seconds until each one was ready."""
@@ -281,33 +317,39 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, float]:
     return seconds
 
 
-_SIGNATURES = {
-    "splat_onehot": [
+# each kernel's launch entry ``<kernel>_launch``: its library (built
+# from ``csrc/<library>.cu``) and its argument types
+_ENTRIES = {
+    "splat_onehot": ("splat_onehot", [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_void_p],
-    "splat_onehot_multi": [
+        ctypes.c_int64, ctypes.c_float, ctypes.c_void_p]),
+    "splat_onehot_multi": ("splat_onehot", [
         ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
-        ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p],
-    "splat_onehot_frames": [
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_void_p]),
+    "splat_onehot_frames": ("splat_onehot_frames", [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_float,
-        ctypes.c_void_p],
+        ctypes.c_void_p]),
 }
+KERNELS = tuple(_ENTRIES)
 
 
 def _library(name: str) -> ctypes.CDLL:
+    """The built library ``name`` with its kernels' launch entries and
+    ``<name>_max_features`` bound."""
     lib = _libs.get(name)
     if lib is None:
         build([name])
         lib = ctypes.CDLL(_paths(name)[1])
-        launch = getattr(lib, f"{name}_launch")
-        launch.restype = ctypes.c_int
-        launch.argtypes = _SIGNATURES[name]
+        for kernel, (library, argtypes) in _ENTRIES.items():
+            if library == name:
+                launch = getattr(lib, f"{kernel}_launch")
+                launch.restype = ctypes.c_int
+                launch.argtypes = argtypes
         limit = getattr(lib, f"{name}_max_features")
         limit.restype = ctypes.c_int
         limit.argtypes = []
@@ -326,17 +368,43 @@ def _check_map(kernel: str, data: torch.Tensor, max_features: int) -> None:
                          f"{max_features}")
 
 
-def _check_tensors(kernel: str, device, runs, dims: Dict[str, int]) -> None:
-    for name in runs._fields:
-        t = getattr(runs, name)
-        dtype = {"weights": torch.float32,
-                 "classes": torch.int32}.get(name, torch.int64)
+def _check_tensors(kernel: str, device, tensors, dims: Dict[str, int],
+                   dtypes: Dict[str, torch.dtype]) -> None:
+    """Every field of ``tensors`` is contiguous, on ``device``, of its
+    dtype (int64 unless named in ``dtypes``) and rank (1 unless named in
+    ``dims``)."""
+    for name in tensors._fields:
+        t = getattr(tensors, name)
+        dtype = dtypes.get(name, torch.int64)
         if t.device != device or t.dtype != dtype or \
                 t.dim() != dims.get(name, 1) or not t.is_contiguous():
             raise ValueError(
-                f"{kernel} kernel: runs.{name} must be a contiguous "
+                f"{kernel} kernel: {name} must be a contiguous "
                 f"{dims.get(name, 1)}-D {dtype} tensor on {device}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+_RECORD_DTYPES = {"ids": torch.int32, "weights": torch.float32,
+                  "classes": torch.int32}
+
+
+def _check_records(kernel: str, device, records: Records,
+                   num_voxels: int, class_dim: int) -> None:
+    _check_tensors(kernel, device, records, {"classes": class_dim},
+                   _RECORD_DTYPES)
+    if not records.ids.shape[0] == records.weights.shape[0] == \
+            records.classes.shape[-1]:
+        raise ValueError(f"{kernel} kernel: inconsistent record shapes "
+                         f"{[tuple(t.shape) for t in records]}")
+    check_voxels(num_voxels)
+
+
+def check_voxels(num_voxels: int) -> None:
+    """The kernel reads voxel ids as int32, the discard id ``V``
+    included."""
+    if num_voxels > MAX_VOXELS:
+        raise ValueError(f"splat: V={num_voxels} voxels do not fit the "
+                         f"kernel's int32 ids (at most {MAX_VOXELS})")
 
 
 def _device_kind(datas: Sequence[torch.Tensor], kernel: str) -> str:
@@ -359,35 +427,31 @@ def _raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
 
 
-def apply_runs(data: torch.Tensor, runs: Runs,
-               interpolation_weight: float) -> torch.Tensor:
-    """Fold prepared runs into ``data [V, F]`` in place: the CUDA kernel
-    for a CUDA map, the plain version for a CPU map."""
+def apply_records(data: torch.Tensor, records: Records,
+                  interpolation_weight: float) -> torch.Tensor:
+    """Fold one frame's sorted records into ``data [V, F]`` in place:
+    the CUDA kernel for a CUDA map, the plain version for a CPU map."""
     global LAUNCHES
     if _device_kind([data], "splat") == "cpu":
-        return splat_onehot_reference(data, runs, interpolation_weight)
+        return splat_onehot_reference(data, records, interpolation_weight)
     lib = _library("splat_onehot")
     _check_map("splat", data, lib.splat_onehot_max_features())
-    _check_tensors("splat", data.device, runs, {})
-    if runs.starts.shape[0] != runs.ids.shape[0] + 1 or \
-            runs.weights.shape != runs.classes.shape:
-        raise ValueError("splat kernel: inconsistent run shapes")
+    _check_records("splat", data.device, records, data.shape[0], 1)
     _raise_on(lib.splat_onehot_launch(
         data.data_ptr(), data.shape[1], data.shape[0],
-        runs.ids.data_ptr(), runs.starts.data_ptr(),
-        runs.weights.data_ptr(), runs.classes.data_ptr(),
-        runs.ids.shape[0], float(interpolation_weight),
-        _stream(data.device)), "splat")
+        records.ids.data_ptr(), records.weights.data_ptr(),
+        records.classes.data_ptr(), records.ids.shape[0],
+        float(interpolation_weight), _stream(data.device)), "splat")
     LAUNCHES += 1
     return data
 
 
-def apply_runs_multi(datas: Sequence[torch.Tensor], runs: Runs,
-                     interpolation_weights: Sequence[float]
-                     ) -> List[torch.Tensor]:
-    """Fold one frame's prepared runs (``runs.classes [M, R]``) into
-    2 <= M <= 4 maps ``[V, F_m]`` in place, each with its own EMA weight: the CUDA
-    kernel for CUDA maps, the plain version for CPU maps."""
+def apply_records_multi(datas: Sequence[torch.Tensor], records: Records,
+                        interpolation_weights: Sequence[float]
+                        ) -> List[torch.Tensor]:
+    """Fold one frame's sorted records (``records.classes [M, R]``) into
+    2 <= M <= 4 maps ``[V, F_m]`` in place, each with its own EMA weight:
+    the CUDA kernel for CUDA maps, the plain version for CPU maps."""
     global MULTI_LAUNCHES
     datas = list(datas)
     num_maps = len(datas)
@@ -395,24 +459,22 @@ def apply_runs_multi(datas: Sequence[torch.Tensor], runs: Runs,
             len(interpolation_weights) != num_maps:
         raise ValueError(f"multi splat: takes 2-{MAX_MAPS} maps with one "
                          f"EMA weight each (one map goes through "
-                         f"apply_runs), got {num_maps} maps and "
+                         f"apply_records), got {num_maps} maps and "
                          f"{len(interpolation_weights)} weights")
-    if runs.classes.dim() != 2 or runs.classes.shape[0] != num_maps:
-        raise ValueError(f"multi splat: runs.classes must be [{num_maps}, "
-                         f"R], got {tuple(runs.classes.shape)}")
+    if records.classes.dim() != 2 or records.classes.shape[0] != num_maps:
+        raise ValueError(f"multi splat: records.classes must be "
+                         f"[{num_maps}, R], got "
+                         f"{tuple(records.classes.shape)}")
     if len({d.shape[0] for d in datas}) != 1:
         raise ValueError("multi splat: the maps must share one grid (V)")
     if _device_kind(datas, "multi splat") == "cpu":
-        return splat_onehot_multi_reference(datas, runs,
+        return splat_onehot_multi_reference(datas, records,
                                             interpolation_weights)
-    lib = _library("splat_onehot_multi")
+    lib = _library("splat_onehot")
     for data in datas:
-        _check_map("multi splat", data,
-                   lib.splat_onehot_multi_max_features())
-    _check_tensors("multi splat", datas[0].device, runs, {"classes": 2})
-    if runs.starts.shape[0] != runs.ids.shape[0] + 1 or \
-            runs.weights.shape[0] != runs.classes.shape[1]:
-        raise ValueError("multi splat kernel: inconsistent run shapes")
+        _check_map("multi splat", data, lib.splat_onehot_max_features())
+    _check_records("multi splat", datas[0].device, records,
+                   datas[0].shape[0], 2)
     pad = MAX_MAPS - num_maps
     _raise_on(lib.splat_onehot_multi_launch(
         num_maps,
@@ -421,10 +483,9 @@ def apply_runs_multi(datas: Sequence[torch.Tensor], runs: Runs,
         (ctypes.c_int * MAX_MAPS)(*[d.shape[1] for d in datas], *[0] * pad),
         (ctypes.c_float * MAX_MAPS)(*[float(w) for w in
                                       interpolation_weights], *[0.0] * pad),
-        datas[0].shape[0], runs.ids.data_ptr(), runs.starts.data_ptr(),
-        runs.weights.data_ptr(), runs.classes.data_ptr(),
-        runs.weights.shape[0], runs.ids.shape[0],
-        _stream(datas[0].device)), "multi splat")
+        datas[0].shape[0], records.ids.data_ptr(),
+        records.weights.data_ptr(), records.classes.data_ptr(),
+        records.ids.shape[0], _stream(datas[0].device)), "multi splat")
     MULTI_LAUNCHES += 1
     return datas
 
@@ -441,7 +502,8 @@ def apply_frame_runs(data: torch.Tensor, runs: FrameRuns,
     lib = _library("splat_onehot_frames")
     _check_map("frames splat", data,
                lib.splat_onehot_frames_max_features())
-    _check_tensors("frames splat", data.device, runs, {})
+    _check_tensors("frames splat", data.device, runs, {},
+                   {"weights": torch.float32, "classes": torch.int32})
     if runs.sub_starts.shape[0] != runs.ids.shape[0] + 1 or \
             runs.starts.shape[0] != runs.frames.shape[0] + 1 or \
             runs.weights.shape != runs.classes.shape:
@@ -461,8 +523,9 @@ def splat_onehot(data: torch.Tensor, ids: torch.Tensor,
                  interpolation_weight: float) -> torch.Tensor:
     """One frame's one-hot corner records into ``data [V, F]`` in place
     (``ids``/``weights`` ``[8N]``, ``classes`` ``[N]``)."""
-    return apply_runs(data, sorted_runs(ids, weights, classes),
-                      interpolation_weight)
+    check_voxels(data.shape[0])
+    return apply_records(data, sorted_records(ids, weights, classes),
+                         interpolation_weight)
 
 
 def splat_onehot_multi(datas: Sequence[torch.Tensor], ids: torch.Tensor,
@@ -472,8 +535,10 @@ def splat_onehot_multi(datas: Sequence[torch.Tensor], ids: torch.Tensor,
                        ) -> List[torch.Tensor]:
     """One frame's records into M maps of one grid in place, sorted once
     (``classes``: one ``[N]`` image per map)."""
-    return apply_runs_multi(datas, sorted_runs_multi(ids, weights, classes),
-                            interpolation_weights)
+    check_voxels(max((d.shape[0] for d in datas), default=0))
+    return apply_records_multi(
+        datas, sorted_records_multi(ids, weights, classes),
+        interpolation_weights)
 
 
 def splat_onehot_frames(data: torch.Tensor, ids: torch.Tensor,

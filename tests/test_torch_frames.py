@@ -98,7 +98,7 @@ def test_frames_route_is_sequential_updates():
 def test_frame_runs_cut_voxels_then_frames():
     """frame_runs: one run per voxel (ids increasing), its sub-runs in
     frame order, and each frame's sub-runs holding exactly that frame's
-    sorted_runs records."""
+    sorted_records records."""
     fr = _frames(2)
     vm = _port_map(fr)
     rays = _t(_rays())
@@ -115,9 +115,10 @@ def test_frame_runs_cut_voxels_then_frames():
     key = sub_ids * T + runs.frames
     assert torch.all(key[1:] > key[:-1])
     for t in range(T):
-        single = SP.sorted_runs(recs[t][0], recs[t][1], classes[t])
+        single = SP.sorted_records(recs[t][0], recs[t][1], classes[t])
         sel = torch.nonzero(runs.frames == t)[:, 0]
-        assert torch.equal(sub_ids[sel], single.ids)
+        assert torch.equal(sub_ids[sel],
+                           torch.unique_consecutive(single.ids).long())
         rec = torch.cat([torch.arange(int(runs.starts[s]),
                                       int(runs.starts[s + 1]))
                          for s in sel.tolist()])

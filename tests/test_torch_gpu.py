@@ -16,6 +16,7 @@ from mass_tpu_torch.config import MapGeometry
 from mass_tpu_torch.core import geometry as G
 from mass_tpu_torch.core.voxelmap import VoxelMap
 from mass_tpu_torch.ops import splat as SP
+from tests import torch_streams as TS
 
 pytestmark = pytest.mark.gpu
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -49,23 +50,23 @@ def _random_map(rng, num_features):
     return vm
 
 
-def _runs(device, seed=0):
-    """A random frame's runs on a 32x16x4x6 map, with the map's random
-    starting values."""
+def _sorted(device, seed=0):
+    """A random frame's sorted records on a 32x16x4x6 map, with the
+    map's random starting values."""
     rng = np.random.RandomState(seed)
     vm = _random_map(rng, 6)
     ids, w = _records(rng, vm)
     classes = torch.from_numpy(rng.randint(0, 6, 99).astype(np.int32))
-    runs = SP.sorted_runs(ids, w, classes)
-    return vm.data, runs, SP.Runs(*(t.to(device) for t in runs))
+    records = SP.sorted_records(ids, w, classes)
+    return vm.data, records, SP.Records(*(t.to(device) for t in records))
 
 
 def test_kernel_matches_plain_versions(cuda):
-    data, cpu_runs, runs = _runs(cuda)
+    data, cpu_runs, runs = _sorted(cuda)
     gpu = data.to(cuda)
     before = SP.LAUNCHES
-    out = SP.apply_runs(gpu.clone(), runs, 0.5)
-    again = SP.apply_runs(gpu.clone(), runs, 0.5)
+    out = SP.apply_records(gpu.clone(), runs, 0.5)
+    again = SP.apply_records(gpu.clone(), runs, 0.5)
     plain_gpu = SP.splat_onehot_reference(gpu.clone(), runs, 0.5)
     torch.cuda.synchronize()
     assert SP.LAUNCHES == before + 2
@@ -77,16 +78,32 @@ def test_kernel_matches_plain_versions(cuda):
 
 
 def test_kernel_wrapper_rejects_bad_inputs(cuda):
-    data, _, runs = _runs(cuda)
+    """Wrong dtypes, a non-contiguous map, records off the card, V too
+    large for int32 ids: the wrapper raises and launches nothing."""
+    data, _, runs = _sorted(cuda)
     gpu = data.to(cuda)
+    before = SP.LAUNCHES
     with pytest.raises(ValueError):
-        SP.apply_runs(gpu.double(), runs, 0.5)
+        SP.apply_records(gpu.double(), runs, 0.5)
     with pytest.raises(ValueError):
-        SP.apply_runs(gpu.t(), runs, 0.5)
+        SP.apply_records(gpu.t(), runs, 0.5)
     with pytest.raises(ValueError):
-        SP.apply_runs(gpu, runs._replace(classes=runs.classes.long()), 0.5)
+        SP.apply_records(gpu, runs._replace(classes=runs.classes.long()),
+                         0.5)
     with pytest.raises(ValueError):
-        SP.apply_runs(gpu, runs._replace(weights=runs.weights.cpu()), 0.5)
+        SP.apply_records(gpu, runs._replace(ids=runs.ids.long()), 0.5)
+    with pytest.raises(ValueError):
+        SP.apply_records(gpu, runs._replace(weights=runs.weights.cpu()), 0.5)
+    with pytest.raises(ValueError):
+        SP.apply_records(gpu, runs._replace(weights=runs.weights[:-1]), 0.5)
+    huge = torch.empty((SP.MAX_VOXELS + 1, 1), device=cuda)   # 8 GiB
+    with pytest.raises(ValueError, match="int32"):
+        SP.apply_records(huge, runs, 0.5)
+    with pytest.raises(ValueError, match="int32"):
+        SP.apply_records_multi([huge, huge], runs._replace(
+            classes=torch.stack([runs.classes] * 2)), (0.5, 0.5))
+    del huge
+    assert SP.LAUNCHES == before
 
 
 def test_multi_kernel_matches_plain_versions(cuda):
@@ -100,13 +117,13 @@ def test_multi_kernel_matches_plain_versions(cuda):
     cls_sem = rng.randint(0, 6, 99).astype(np.int32)
     cls_sem[5] = 9                                   # dropped for sem only
     classes = [torch.zeros(99, dtype=torch.int32), torch.from_numpy(cls_sem)]
-    cpu_runs = SP.sorted_runs_multi(ids, w, classes)
-    runs = SP.Runs(*(t.to(cuda) for t in cpu_runs))
+    cpu_runs = SP.sorted_records_multi(ids, w, classes)
+    runs = SP.Records(*(t.to(cuda) for t in cpu_runs))
     datas = [occ.data.to(cuda), sem.data.to(cuda)]
     iws = (0.5, 0.25)
     before = SP.MULTI_LAUNCHES
-    out = SP.apply_runs_multi([d.clone() for d in datas], runs, iws)
-    again = SP.apply_runs_multi([d.clone() for d in datas], runs, iws)
+    out = SP.apply_records_multi([d.clone() for d in datas], runs, iws)
+    again = SP.apply_records_multi([d.clone() for d in datas], runs, iws)
     plain = SP.splat_onehot_multi_reference([d.clone() for d in datas], runs,
                                             iws)
     cpu = SP.splat_onehot_multi_reference(
@@ -114,7 +131,7 @@ def test_multi_kernel_matches_plain_versions(cuda):
     torch.cuda.synchronize()
     assert SP.MULTI_LAUNCHES == before + 2
     for m in range(2):
-        single = SP.apply_runs(datas[m].clone(), runs._replace(
+        single = SP.apply_records(datas[m].clone(), runs._replace(
             classes=runs.classes[m].contiguous()), iws[m])
         assert torch.equal(out[m], again[m])
         assert torch.equal(out[m], single)
@@ -122,13 +139,50 @@ def test_multi_kernel_matches_plain_versions(cuda):
         assert torch.equal(out[m].cpu(), cpu[m])
         assert not torch.equal(out[m], datas[m])
     with pytest.raises(ValueError, match="2-4 maps"):   # one map
-        SP.apply_runs_multi(datas[:1], runs._replace(
+        SP.apply_records_multi(datas[:1], runs._replace(
             classes=runs.classes[:1].contiguous()), iws[:1])
     with pytest.raises(ValueError):             # five maps
-        SP.apply_runs_multi(datas * 2 + datas[:1], runs, iws * 2 + iws[:1])
+        SP.apply_records_multi(datas * 2 + datas[:1], runs, iws * 2 + iws[:1])
     with pytest.raises(ValueError):             # F > 128
-        SP.apply_runs_multi([datas[0], torch.zeros(
+        SP.apply_records_multi([datas[0], torch.zeros(
             datas[0].shape[0], 129, device=cuda)], runs, iws)
+    with pytest.raises(ValueError):             # a non-contiguous map
+        SP.apply_records_multi([datas[0], torch.zeros(
+            6, datas[1].shape[0], device=cuda).t()], runs, iws)
+    assert SP.MULTI_LAUNCHES == before + 2
+
+
+@pytest.mark.parametrize("num_maps", [1, 2, 3, 4])
+@pytest.mark.parametrize("name", sorted(TS.STREAMS))
+def test_kernel_on_chosen_runs(cuda, name, num_maps):
+    """The kernel on tests/torch_streams.py's streams (runs of 1, 31, 32
+    and 33 records, a stream shorter than a tile, a run across a tile's
+    end, one longer than a tile, one voxel, only discard ids): equal to
+    the plain version on the CPU bit for bit, the same bits twice."""
+    ids, w, classes, datas = TS.stream(name, num_maps, seed=num_maps)
+    iws = TS.INTERPOLATION_WEIGHTS[:num_maps]
+    cpu = SP.Records(torch.from_numpy(ids), torch.from_numpy(w),
+                     torch.from_numpy(classes))
+    gpu = SP.Records(*(t.to(cuda) for t in cpu))
+    maps = [torch.from_numpy(d) for d in datas]
+    if num_maps == 1:
+        cpu, gpu = (r._replace(classes=r.classes[0]) for r in (cpu, gpu))
+        want = [SP.splat_onehot_reference(maps[0].clone(), cpu, iws[0])]
+        before = SP.LAUNCHES
+        outs = [[SP.apply_records(maps[0].to(cuda), gpu, iws[0])]
+                for _ in range(2)]
+        assert SP.LAUNCHES == before + 2
+    else:
+        want = SP.splat_onehot_multi_reference(
+            [d.clone() for d in maps], cpu, iws)
+        before = SP.MULTI_LAUNCHES
+        outs = [SP.apply_records_multi([d.to(cuda) for d in maps], gpu, iws)
+                for _ in range(2)]
+        assert SP.MULTI_LAUNCHES == before + 2
+    torch.cuda.synchronize()
+    for first, second, ref in zip(*outs, want):
+        assert torch.equal(first, second)
+        assert torch.equal(first.cpu(), ref)
 
 
 def test_frames_kernel_matches_plain_versions(cuda):
@@ -149,8 +203,10 @@ def test_frames_kernel_matches_plain_versions(cuda):
     plain = SP.splat_onehot_frames_reference(data.clone(), runs, 0.5)
     seq = data.clone()
     for t in range(3):
-        SP.apply_runs(seq, SP.Runs(*(x.to(cuda) for x in SP.sorted_runs(
-            ids[t], w[t], classes[t]))), 0.5)
+        SP.apply_records(seq, SP.Records(*(x.to(cuda) for x in
+                                           SP.sorted_records(
+                                               ids[t], w[t], classes[t]))),
+                         0.5)
     cpu = SP.splat_onehot_frames_reference(vm.data.clone(), cpu_runs, 0.5)
     torch.cuda.synchronize()
     assert SP.FRAMES_LAUNCHES == before + 2

@@ -31,8 +31,8 @@ SCRIPT = textwrap.dedent("""
     assert not leaked, leaked
     from mass_tpu_torch.core.voxelmap import VoxelMap, apply_onehot_group
     from mass_tpu_torch.ops import splat
-    for entry in ("apply_runs", "apply_runs_multi", "apply_frame_runs",
-                  "sorted_runs_multi", "frame_runs",
+    for entry in ("apply_records", "apply_records_multi", "apply_frame_runs",
+                  "sorted_records_multi", "frame_runs",
                   "splat_onehot_multi_reference",
                   "splat_onehot_frames_reference"):
         assert callable(getattr(splat, entry)), entry
@@ -52,18 +52,26 @@ def test_port_imports_without_jax_or_mass_tpu():
 def test_kernel_sources_stand_alone():
     """Every kernel the port builds has its CUDA source in the package,
     with a plain C interface (no PyTorch or JAX header, so nvcc builds it
-    in seconds) and its launch and limit entry points."""
+    in seconds) and its launch and limit entry points.  The single-map
+    and multi-map kernels share one source and one library."""
     from mass_tpu_torch.ops import splat
 
     assert splat.KERNELS == ("splat_onehot", "splat_onehot_multi",
                              "splat_onehot_frames")
-    for name in splat.KERNELS:
+    assert splat.LIBRARIES == ("splat_onehot", "splat_onehot_frames")
+    assert not os.path.exists(os.path.join(
+        REPO, "mass_tpu_torch", "csrc", "splat_onehot_multi.cu"))
+    for name in splat.LIBRARIES:
         source, library = splat._paths(name)
         with open(source) as f:
             text = f.read()
         assert "#include <torch" not in text and "ATen" not in text
         assert "mass_tpu/ops/pallas_splat.py" in text   # what it replaces
-        for entry in (f"{name}_launch(", f"{name}_max_features("):
+        kernels = [k for k, (lib, _) in splat._ENTRIES.items()
+                   if lib == name]
+        for entry in [f"{k}_launch(" for k in kernels] + [
+                f"{name}_max_features("]:
             assert f'extern "C" int {entry}' in text, (name, entry)
         assert library.endswith(f"build/kernels/lib{name}.so")
-        assert name in splat._SIGNATURES
+    with open(splat._paths("splat_onehot")[0]) as f:
+        assert f"#define SPLAT_TILE {splat.TILE_RECORDS}\n" in f.read()

@@ -19,6 +19,8 @@ from mass_tpu_torch.core import geometry as TG
 from mass_tpu_torch.ops import scatter as TS
 from mass_tpu_torch.ops import splat as SP
 from tests import reference_impl as R
+from tests import torch_streams as TS_STREAMS
+from tests.torch_streams import naive_splat
 
 # the JAX splat tests' geometry (tests/test_pallas_splat.py)
 GEO = JMapGeometry(map_height=32, map_width=16, map_depth=4,
@@ -96,14 +98,13 @@ def test_xla_path_ports_match_jax(layout):
 
 
 def test_span_sorted_records_match_jax():
-    """sorted_runs orders the records as mass_tpu's span sort does: by
-    voxel id, ties in record order (and, where JAX packs the class into
-    the key, by class within a voxel, then record order)."""
+    """sorted_records orders the records as mass_tpu's span sort does:
+    by voxel id, ties in record order (and, where JAX packs the class
+    into the key, by class within a voxel, then record order)."""
     _, ids, w, classes, _ = _frame(2)
-    runs = SP.sorted_runs(_t(ids), _t(w), _t(classes))
-    counts = (runs.starts[1:] - runs.starts[:-1]).numpy()
-    ids_s = np.repeat(runs.ids.numpy(), counts)
-    w_s, cls_s = runs.weights.numpy(), runs.classes.numpy()
+    records = SP.sorted_records(_t(ids), _t(w), _t(classes))
+    ids_s = records.ids.numpy()
+    w_s, cls_s = records.weights.numpy(), records.classes.numpy()
     for num_classes in (None, GEO.feature_size):
         ref = JS.span_sorted_records(jnp.asarray(ids), jnp.asarray(w),
                                      jnp.asarray(classes), GEO.num_voxels,
@@ -165,33 +166,12 @@ def test_splat_two_updates_match_numpy_oracle():
     np.testing.assert_allclose(vm.grid().numpy(), fmap, atol=1e-4)
 
 
-def _kernel_emulation(data, runs, iw):
-    """What the CUDA kernel computes, one run at a time in float32 with
-    no fused multiply-add (the kernel writes its arithmetic with
+def _kernel_emulation(data, records, iw):
+    """What the CUDA kernel computes, one voxel at a time in float32
+    with no fused multiply-add (the kernel writes its arithmetic with
     round-to-nearest intrinsics)."""
-    f32 = np.float32
-    out = data.copy()
-    ids, starts = runs.ids.numpy(), runs.starts.numpy()
-    w_all, c_all = runs.weights.numpy(), runs.classes.numpy()
-    num_voxels, num_features = data.shape
-    iw = f32(iw)
-    for u in range(ids.shape[0]):
-        if ids[u] >= num_voxels:
-            continue
-        w_sum, s2_sum = f32(0), f32(0)
-        t = np.zeros(num_features, f32)
-        for r in range(starts[u], starts[u + 1]):
-            w2 = f32(w_all[r] * w_all[r])
-            w_sum = f32(w_sum + w_all[r])
-            s2_sum = f32(s2_sum + w2)
-            if 0 <= c_all[r] < num_features:
-                t[c_all[r]] = f32(t[c_all[r]] + w2)
-        safe = max(w_sum, f32(1e-30))
-        mult = f32(1) - f32(f32(iw * s2_sum) / safe) if w_sum > 0 else f32(1)
-        scale = f32(iw / safe)
-        out[ids[u]] = (out[ids[u]] * mult).astype(f32) + (scale * t).astype(
-            f32)
-    return out
+    return naive_splat([data], records.ids.numpy(), records.weights.numpy(),
+                       records.classes.numpy()[None], [iw])[0]
 
 
 def test_plain_splat_is_the_kernel_arithmetic():
@@ -199,20 +179,43 @@ def test_plain_splat_is_the_kernel_arithmetic():
     kernel's float32 blend: bit-identical to an emulation of the
     kernel, so a CUDA episode and a CPU episode see the same maps."""
     _, ids, w, classes, data = _frame(5)
-    runs = SP.sorted_runs(_t(ids), _t(w), _t(classes))
+    records = SP.sorted_records(_t(ids), _t(w), _t(classes))
     vdata = data.T.copy()
-    want = _kernel_emulation(vdata, runs, 0.5)
-    out = SP.splat_onehot_reference(torch.tensor(vdata), runs, 0.5).numpy()
+    want = _kernel_emulation(vdata, records, 0.5)
+    out = SP.splat_onehot_reference(torch.tensor(vdata), records,
+                                    0.5).numpy()
     np.testing.assert_array_equal(out, want)
 
 
 def test_sorted_runs_stable_and_complete():
+    """sorted_records is a stable sort and gathers: int32 ids, every
+    record kept, weights and classes in the sorted order."""
     _, ids, w, classes, _ = _frame(6)
-    runs = SP.sorted_runs(_t(ids), _t(w), _t(classes))
-    starts = runs.starts.numpy()
-    assert starts[0] == 0 and starts[-1] == ids.shape[0]
-    assert np.all(np.diff(runs.ids.numpy()) > 0)
+    records = SP.sorted_records(_t(ids), _t(w), _t(classes))
+    assert records.ids.dtype == torch.int32
     order = np.argsort(ids, kind="stable")
-    np.testing.assert_array_equal(runs.weights.numpy(), w[order])
-    np.testing.assert_array_equal(runs.classes.numpy(),
+    np.testing.assert_array_equal(records.ids.numpy(), ids[order])
+    np.testing.assert_array_equal(records.weights.numpy(), w[order])
+    np.testing.assert_array_equal(records.classes.numpy(),
                                   np.tile(classes, 8)[order])
+
+
+@pytest.mark.parametrize("num_maps", [1, 2, 3, 4])
+@pytest.mark.parametrize("name", sorted(TS_STREAMS.STREAMS))
+def test_plain_splat_on_chosen_runs(name, num_maps):
+    """On streams of chosen run lengths (1, 31, 32, 33 records, a run
+    across a tile's end, one longer than a tile, every record in one
+    voxel, only discard ids) the plain version equals a naive float32
+    loop over each voxel's records bit for bit, for one to four maps."""
+    ids, w, classes, datas = TS_STREAMS.stream(name, num_maps)
+    iws = TS_STREAMS.INTERPOLATION_WEIGHTS[:num_maps]
+    want = naive_splat(datas, ids, w, classes, iws)
+    records = SP.Records(_t(ids), _t(w), _t(classes))
+    if num_maps == 1:
+        got = [SP.apply_records(_t(datas[0]), records._replace(
+            classes=records.classes[0]), iws[0])]
+    else:
+        got = SP.apply_records_multi([_t(d) for d in datas], records, iws)
+    for out, ref, data in zip(got, want, datas):
+        np.testing.assert_array_equal(out.numpy(), ref)
+        assert np.array_equal(ref, data) == (name == "all_invalid")

@@ -1,5 +1,5 @@
-"""The port's multi-map splat (ops/splat.py: sorted_runs_multi,
-splat_onehot_multi_reference, apply_runs_multi) held against the JAX
+"""The port's multi-map splat (ops/splat.py: sorted_records_multi,
+splat_onehot_multi_reference, apply_records_multi) held against the JAX
 package's Pallas multi-map kernel in interpret mode and its XLA
 per-map path (atol 1e-5), and against the port's own single-map splat
 bit for bit.  The CUDA kernel runs only on a card: its test is in
@@ -100,17 +100,18 @@ def test_plain_multi_matches_pallas_and_xla(num_maps):
 def test_plain_multi_is_per_map_single_splat(num_maps):
     """Sorted once, each map of the group equals the single-map plain
     splat on its own classes bit for bit (the sums and their order are
-    the same), and the sort equals sorted_runs for every map."""
+    the same), and the sort equals sorted_records for every map."""
     ids, w, datas, classes = _group(10 + num_maps, num_maps)
     iws = [iw for _, iw in GROUPS[num_maps]]
-    runs = SP.sorted_runs_multi(_t(ids), _t(w), [_t(c) for c in classes])
-    assert runs.classes.shape == (num_maps, ids.shape[0])
-    out = SP.apply_runs_multi([_t(d) for d in datas], runs, iws)
+    records = SP.sorted_records_multi(_t(ids), _t(w),
+                                      [_t(c) for c in classes])
+    assert records.classes.shape == (num_maps, ids.shape[0])
+    out = SP.apply_records_multi([_t(d) for d in datas], records, iws)
     for m, (d, c, iw) in enumerate(zip(datas, classes, iws)):
-        single = SP.sorted_runs(_t(ids), _t(w), _t(c))
-        for name in ("ids", "starts", "weights"):
-            assert torch.equal(getattr(runs, name), getattr(single, name))
-        assert torch.equal(runs.classes[m], single.classes)
+        single = SP.sorted_records(_t(ids), _t(w), _t(c))
+        for name in ("ids", "weights"):
+            assert torch.equal(getattr(records, name), getattr(single, name))
+        assert torch.equal(records.classes[m], single.classes)
         want = SP.splat_onehot(_t(d), _t(ids), _t(w), _t(c), iw)
         assert torch.equal(out[m], want)
 
@@ -148,9 +149,9 @@ def test_out_of_range_class_dropped_for_its_map_only():
     assert torch.equal(dirty[0], clean[0])
     assert torch.equal(dirty[2], clean[2])
     assert not torch.equal(dirty[1], clean[1])
-    runs = SP.sorted_runs(_t(ids), _t(w), _t(bad))
+    records = SP.sorted_records(_t(ids), _t(w), _t(bad))
     np.testing.assert_array_equal(
-        dirty[1].numpy(), _kernel_emulation(datas[1], runs, iws[1]))
+        dirty[1].numpy(), _kernel_emulation(datas[1], records, iws[1]))
 
 
 def test_mapset_group_is_one_multi_splat():
