@@ -8,10 +8,10 @@ checkout (two libraries: the single-map and multi-map kernels share
 against its plain PyTorch version at the shapes its path gives it (the
 single-map and multi-map kernels on one full 224x224 room frame into
 384x384x96 maps, and on a frame 0.3 m from a wall whose runs outgrow a
-tile; the frames kernel on bench.py's 128-frame stream in groups of 8),
-runs the
-default and the ``--reference-compat`` two-phase episodes on the card
-at a small geometry (and on the CPU, which must give equal results),
+tile, and on a stream of more tiles than the persistent grid has
+blocks; the frames kernel on bench.py's 128-frame stream in groups of
+8), runs the default and the ``--reference-compat`` two-phase episodes
+on the card at a small geometry (and on the CPU, which must give equal results),
 then both episodes at full width (384x384x96 voxels x 54 classes,
 224x224 camera) through ``python -m mass_tpu_torch.agent.cli``'s entry
 point, with the kernels' launch counts set to 0 before each path and
@@ -325,7 +325,7 @@ def phase_skewed_frame(dev) -> dict:
     single = SP.sorted_records(ids, weights, classes)
     multi = SP.sorted_records_multi(ids, weights, group)
     valid_records, touched, longest = run_lengths(single, geo.num_voxels)
-    check(longest > SP.TILE_RECORDS,
+    check(longest > SP.tile_records(),
           f"the wall frame's longest run is {longest} records")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     one = time_splat(check_splat("skewed splat", [sem.data], single,
@@ -337,6 +337,46 @@ def phase_skewed_frame(dev) -> dict:
     return dict(records=int(ids.shape[0]), valid_records=valid_records,
                 touched_voxels=touched, longest_run=longest, single=one,
                 multi=two)
+
+
+def phase_many_tiles(dev) -> dict:
+    """Both entries of the single/multi-map kernel on a stream of three
+    times as many tiles as the card holds blocks (an SM holds at most 32),
+    so every block of the persistent grid sums three or more tiles
+    through both stage buffers: random sorted ids over a grid of one
+    voxel per ten records (runs cross tile ends all along), bit-equal to
+    the plain CPU version."""
+    from mass_tpu_torch.ops import splat as SP
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = 3 * sms * 32
+    num_records = tiles * SP.tile_records() + 517
+    num_voxels = num_records // 10
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ids = torch.randint(0, num_voxels + 1, (num_records,), generator=gen,
+                        device=dev, dtype=torch.int32).sort().values
+    weights = torch.rand(num_records, generator=gen, device=dev)
+    classes = torch.randint(-1, 56, (num_records,), generator=gen,
+                            device=dev, dtype=torch.int32)
+    sem = torch.rand((num_voxels, 54), generator=gen, device=dev)
+    occ = torch.rand((num_voxels, 1), generator=gen, device=dev)
+    single = SP.Records(ids, weights, classes)
+    multi = SP.Records(ids, weights,
+                       torch.stack([torch.zeros_like(classes), classes]))
+    valid_records, touched, longest = run_lengths(single, num_voxels)
+    out = {}
+    for key, datas, records, iws in (
+            ("single", [sem], single, (0.5,)),
+            ("multi", [occ, sem], multi, (0.5, 0.25))):
+        checked = check_splat(f"many-tile {key} splat", datas, records, iws)
+        out[key] = {k: v for k, v in checked.items()
+                    if k not in ("out", "run", "plain")}
+        del checked
+    del sem, occ, single, multi, ids, weights, classes
+    torch.cuda.empty_cache()
+    return dict(tiles=tiles, records=num_records,
+                valid_records=valid_records, touched_voxels=touched,
+                longest_run=longest, **out)
 
 
 def bench_frames(dev, rng: np.random.RandomState, k: int, camera: int,
@@ -679,13 +719,23 @@ def main() -> int:
     print(f"[skewed] wall 0.3 m ahead: U={skewed['touched_voxels']}, "
           f"records={skewed['valid_records']} valid of {skewed['records']},"
           f" longest run {skewed['longest_run']} records (tile "
-          f"{SP.TILE_RECORDS}); equal to the plain CPU version: single "
+          f"{SP.tile_records()}); equal to the plain CPU version: single "
           f"{skewed['single']['bitwise_equal_cpu_plain']}, multi "
           f"{skewed['multi']['bitwise_equal_cpu_plain']}; two runs "
           f"bit-identical: {skewed['single']['bit_identical_runs']}, "
           f"{skewed['multi']['bit_identical_runs']}; kernel "
           f"{skewed['single']['ms']:.4f} ms single, "
           f"{skewed['multi']['ms']:.4f} ms multi")
+
+    many = report["many_tiles"] = phase_many_tiles(dev)
+    print(f"[tiles] {many['tiles']} tiles + 517 records "
+          f"({many['records']} records, U={many['touched_voxels']}, longest "
+          f"run {many['longest_run']}), three or more per block of the "
+          f"persistent grid: equal to the plain CPU version: single "
+          f"{many['single']['bitwise_equal_cpu_plain']}, multi "
+          f"{many['multi']['bitwise_equal_cpu_plain']}; two runs "
+          f"bit-identical: {many['single']['bit_identical_runs']}, "
+          f"{many['multi']['bit_identical_runs']}")
 
     frames = phase_frames(dev)
     report["frames"] = frames

@@ -55,20 +55,15 @@
 // serial by its definition (sorted-order sums), so a frame whose records
 // crowd into few voxels is bounded by its longest run instead.
 //
-// Where the time goes (mass_tpu_torch/profile_splat.py, PERF.md): on a
-// full 224x224 frame the per-record sums are more than half of the
-// kernel.  Each record costs every lane of its warp about ten issued
-// instructions (two shared loads, w*w, two adds, and a compare and a
-// predicated add per class slot and map), the price of summing in
-// record order with no atomics.  Smaller tiles, more threads per block,
-// handing runs to warps through a counter, and staging records after a
-// tile for the runs that cross its end all measured slower or no faster,
-// and so did giving each warp the runs that start in its share of the
-// tile instead of every kWarps-th run.
-//
-// Build options, for profile_splat.py: SPLAT_TILE (records per tile, a
-// multiple of SPLAT_THREADS up to 1024), SPLAT_THREADS (threads per
-// block), SPLAT_SKIP_SUMS (skip the sums: timing only, wrong maps).
+// Where the time goes (PERF.md): on a full 224x224 frame the per-record
+// sums are more than half of the kernel.  Each record costs every lane
+// of its warp about ten issued instructions (two shared loads, w*w, two
+// adds, and a compare and a predicated add per class slot and map), the
+// price of summing in record order with no atomics.  Smaller tiles, more
+// threads per block, handing runs to warps through a counter, and
+// staging records after a tile for the runs that cross its end all
+// measured slower or no faster, and so did giving each warp the runs
+// that start in its share of the tile instead of every kWarps-th run.
 //
 // The launch goes on the caller's stream, allocates nothing and does not
 // synchronise; the entries return cudaGetLastError().
@@ -78,19 +73,9 @@
 
 namespace {
 
-#ifndef SPLAT_TILE
-#define SPLAT_TILE 1024
-#endif
-#ifndef SPLAT_THREADS
-#define SPLAT_THREADS 256
-#endif
-#ifndef SPLAT_SKIP_SUMS
-#define SPLAT_SKIP_SUMS 0
-#endif
-
-constexpr int kThreads = SPLAT_THREADS;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = SPLAT_TILE;          // records per tile
+constexpr int kTile = 1024;                // records per tile
 constexpr int kPasses = kTile / kThreads;  // records per thread
 constexpr int kBallots = kPasses * kWarps;  // = kTile / 32
 constexpr int kHalo = 4;                   // id words staged before a tile
@@ -277,7 +262,6 @@ __global__ void __launch_bounds__(kThreads)
       }
       offsets[lane] = total - count;
       if (lane == 31) num_runs = total;
-
     }
     __syncthreads();
 #pragma unroll
@@ -321,8 +305,7 @@ __global__ void __launch_bounds__(kThreads)
         for (int m = 0; m < M; ++m)
 #pragma unroll
           for (int s = 0; s < S; ++s) t[m][s] = 0.f;
-        const int end = SPLAT_SKIP_SUMS ? starts[r]
-                        : r + 1 < runs ? starts[r + 1] : n;
+        const int end = r + 1 < runs ? starts[r + 1] : n;
 #pragma unroll 4
         for (int k = starts[r]; k < end; ++k) {
           int c[M];
@@ -331,7 +314,7 @@ __global__ void __launch_bounds__(kThreads)
           add_record<M, S>(sw[k], c, lane, w_sum, s2_sum, t);
         }
         // the tile's last run may go on past the tile
-        if (!SPLAT_SKIP_SUMS && end == n && base + n < R)
+        if (end == n && base + n < R)
           sum_past_tile<M, S>(v, base + n, ids, weights, classes, R, lane,
                               w_sum, s2_sum, t);
 
@@ -420,6 +403,8 @@ int launch_maps(const Maps& maps, int64_t V, const void* ids,
 }  // namespace
 
 extern "C" int splat_onehot_max_features() { return 32 * kMaxSlots; }
+
+extern "C" int splat_onehot_tile() { return kTile; }
 
 extern "C" int splat_onehot_launch(void* data, int F, int64_t V,
                                    const void* ids, const void* weights,

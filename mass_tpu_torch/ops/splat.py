@@ -51,9 +51,6 @@ LIBRARIES = ("splat_onehot", "splat_onehot_frames")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 MAX_MAPS = 4
-# records per tile of csrc/splat_onehot.cu (SPLAT_TILE; the edge-case
-# tests size their runs by it)
-TILE_RECORDS = 1024
 # the largest grid whose discard id V fits the kernel's int32 ids
 MAX_VOXELS = 2**31 - 1
 
@@ -72,7 +69,8 @@ class Records(NamedTuple):
     ``ids [R]`` (int32, nondecreasing) are the voxel ids, ``weights [R]``
     (float32) the trilinear weights and ``classes`` (int32) the classes,
     ``[R]`` for one map or ``[M, R]`` for a group of M maps.  Records with
-    the discard id ``V`` (invalid pixels) are skipped.
+    the discard id ``V`` (invalid pixels), or any id outside ``[0, V)``,
+    are skipped.
     """
 
     ids: torch.Tensor
@@ -355,6 +353,12 @@ def _library(name: str) -> ctypes.CDLL:
         limit.argtypes = []
         _libs[name] = lib
     return lib
+
+
+def tile_records() -> int:
+    """Records per tile of the built single/multi-map kernel: a run
+    longer than this crosses a tile's end."""
+    return _library("splat_onehot").splat_onehot_tile()
 
 
 def _check_map(kernel: str, data: torch.Tensor, max_features: int) -> None:

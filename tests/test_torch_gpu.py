@@ -96,13 +96,12 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda):
         SP.apply_records(gpu, runs._replace(weights=runs.weights.cpu()), 0.5)
     with pytest.raises(ValueError):
         SP.apply_records(gpu, runs._replace(weights=runs.weights[:-1]), 0.5)
-    huge = torch.empty((SP.MAX_VOXELS + 1, 1), device=cuda)   # 8 GiB
+    huge = torch.empty((SP.MAX_VOXELS + 1, 0), device=cuda)  # no memory
     with pytest.raises(ValueError, match="int32"):
         SP.apply_records(huge, runs, 0.5)
     with pytest.raises(ValueError, match="int32"):
         SP.apply_records_multi([huge, huge], runs._replace(
             classes=torch.stack([runs.classes] * 2)), (0.5, 0.5))
-    del huge
     assert SP.LAUNCHES == before
 
 
@@ -152,14 +151,10 @@ def test_multi_kernel_matches_plain_versions(cuda):
     assert SP.MULTI_LAUNCHES == before + 2
 
 
-@pytest.mark.parametrize("num_maps", [1, 2, 3, 4])
-@pytest.mark.parametrize("name", sorted(TS.STREAMS))
-def test_kernel_on_chosen_runs(cuda, name, num_maps):
-    """The kernel on tests/torch_streams.py's streams (runs of 1, 31, 32
-    and 33 records, a stream shorter than a tile, a run across a tile's
-    end, one longer than a tile, one voxel, only discard ids): equal to
-    the plain version on the CPU bit for bit, the same bits twice."""
-    ids, w, classes, datas = TS.stream(name, num_maps, seed=num_maps)
+def _check_streams(cuda, ids, w, classes, datas):
+    """The kernel (one map) or the multi-map kernel on one stream: equal
+    to the plain version on the CPU bit for bit, the same bits twice."""
+    num_maps = len(datas)
     iws = TS.INTERPOLATION_WEIGHTS[:num_maps]
     cpu = SP.Records(torch.from_numpy(ids), torch.from_numpy(w),
                      torch.from_numpy(classes))
@@ -183,6 +178,28 @@ def test_kernel_on_chosen_runs(cuda, name, num_maps):
     for first, second, ref in zip(*outs, want):
         assert torch.equal(first, second)
         assert torch.equal(first.cpu(), ref)
+
+
+@pytest.mark.parametrize("num_maps", [1, 2, 3, 4])
+@pytest.mark.parametrize("name", sorted(TS.STREAMS))
+def test_kernel_on_chosen_runs(cuda, name, num_maps):
+    """The kernel on tests/torch_streams.py's streams (runs of 1, 31, 32
+    and 33 records, a stream shorter than a tile, a run across a tile's
+    end, one longer than a tile, one voxel, only discard ids, negative
+    ids), sized by the built kernel's tile."""
+    assert SP.tile_records() == TS.TILE_RECORDS
+    _check_streams(cuda, *TS.stream(name, num_maps, seed=num_maps))
+
+
+@pytest.mark.parametrize("num_maps", [1, 2, 3, 4])
+def test_kernel_on_more_tiles_than_blocks(cuda, num_maps):
+    """A stream of three times as many tiles as the card can hold blocks
+    (at most 32 per SM), so every block of the persistent grid sums
+    three or more tiles through both stage buffers, with runs across
+    tile ends all along: equal to the plain CPU version bit for bit."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _check_streams(cuda, *TS.many_tile_stream(
+        3 * sms * TS.MAX_BLOCKS_PER_SM, num_maps, seed=num_maps))
 
 
 def test_frames_kernel_matches_plain_versions(cuda):

@@ -74,4 +74,4 @@ def test_kernel_sources_stand_alone():
             assert f'extern "C" int {entry}' in text, (name, entry)
         assert library.endswith(f"build/kernels/lib{name}.so")
     with open(splat._paths("splat_onehot")[0]) as f:
-        assert f"#define SPLAT_TILE {splat.TILE_RECORDS}\n" in f.read()
+        assert 'extern "C" int splat_onehot_tile(' in f.read()

@@ -205,8 +205,9 @@ def test_sorted_runs_stable_and_complete():
 def test_plain_splat_on_chosen_runs(name, num_maps):
     """On streams of chosen run lengths (1, 31, 32, 33 records, a run
     across a tile's end, one longer than a tile, every record in one
-    voxel, only discard ids) the plain version equals a naive float32
-    loop over each voxel's records bit for bit, for one to four maps."""
+    voxel, only discard ids, runs of negative ids, which it skips as the
+    kernels do) the plain version equals a naive float32 loop over each
+    voxel's records bit for bit, for one to four maps."""
     ids, w, classes, datas = TS_STREAMS.stream(name, num_maps)
     iws = TS_STREAMS.INTERPOLATION_WEIGHTS[:num_maps]
     want = naive_splat(datas, ids, w, classes, iws)

@@ -6,42 +6,67 @@ only PyTorch.
 
 import numpy as np
 
-from mass_tpu_torch.ops.splat import TILE_RECORDS
-
+# records per tile of csrc/splat_onehot.cu (kTile); test_torch_gpu.py
+# checks the built library's splat_onehot_tile() against it
+TILE_RECORDS = 1024
+# resident blocks an SM of sm_90 holds at most, whatever their size
+MAX_BLOCKS_PER_SM = 32
 NUM_VOXELS = 4096
 # features of each map of a group of M maps (occupancy first, as the
 # agent's compat group; 128 is the kernel's widest map)
 FEATURES = {1: (54,), 2: (1, 54), 3: (1, 54, 7), 4: (1, 54, 7, 128)}
 INTERPOLATION_WEIGHTS = (0.5, 0.25, 0.75, 0.125)
 
-# run lengths of valid voxels, then the count of discard records (id V)
+# run lengths of negative ids (ids -K..-1, which no path makes and the
+# splat skips), run lengths of valid voxels, and the count of discard
+# records (id V)
 STREAMS = {
-    "runs_1_31_32_33": ((1, 31, 32, 33), 5),
-    "shorter_than_tile": ((3, 7, 1), 0),
-    "straddles_tile": ((TILE_RECORDS - 10, 25, 40), 3),
-    "longer_than_tile": ((2, 2 * TILE_RECORDS + 517, 1, 60), 11),
-    "one_voxel": ((3 * TILE_RECORDS + 100,), 0),
-    "all_invalid": ((), 2 * TILE_RECORDS + 9),
-    "many_runs": (tuple(np.random.RandomState(7).geometric(1 / 19, 400)),
+    "runs_1_31_32_33": ((), (1, 31, 32, 33), 5),
+    "shorter_than_tile": ((), (3, 7, 1), 0),
+    "straddles_tile": ((), (TILE_RECORDS - 10, 25, 40), 3),
+    "longer_than_tile": ((), (2, 2 * TILE_RECORDS + 517, 1, 60), 11),
+    "one_voxel": ((), (3 * TILE_RECORDS + 100,), 0),
+    "all_invalid": ((), (), 2 * TILE_RECORDS + 9),
+    "many_runs": ((), tuple(np.random.RandomState(7).geometric(1 / 19, 400)),
                   TILE_RECORDS + 1),
+    "negative_ids": ((3, TILE_RECORDS + 5), (33, 2), 4),
 }
+
+
+def _stream(negative, lengths, discarded, num_voxels, num_maps, rng):
+    voxels = np.sort(rng.choice(num_voxels, len(lengths), replace=False))
+    ids = np.concatenate([
+        np.repeat(np.arange(-len(negative), 0), negative),
+        np.repeat(voxels, lengths),
+        np.full(discarded, num_voxels)]).astype(np.int32)
+    weights = rng.uniform(1e-9, 1.0, ids.shape[0]).astype(np.float32)
+    feats = FEATURES[num_maps]
+    classes = np.stack([rng.randint(-1, f + 1, ids.shape[0])
+                        for f in feats]).astype(np.int32)
+    datas = [rng.rand(num_voxels, f).astype(np.float32) for f in feats]
+    return ids, weights, classes, datas
 
 
 def stream(name: str, num_maps: int, seed: int = 0):
     """One stream as numpy: sorted int32 ids ``[R]``, float32 weights
     ``[R]``, int32 classes ``[M, R]`` (a few outside each map's range,
     which the splat drops) and M maps ``[V, F_m]`` of random values."""
-    lengths, discarded = STREAMS[name]
+    return _stream(*STREAMS[name], NUM_VOXELS, num_maps,
+                   np.random.RandomState(seed))
+
+
+def many_tile_stream(num_tiles: int, num_maps: int, seed: int = 0):
+    """:func:`stream`'s arrays for a stream of ``num_tiles`` tiles and a
+    part of one more: runs of about 40 records with every 4,000th run
+    longer than two tiles, so runs cross tile ends all along, then a few
+    discard records, on a grid of one voxel per ten records."""
     rng = np.random.RandomState(seed)
-    voxels = np.sort(rng.choice(NUM_VOXELS, len(lengths), replace=False))
-    ids = np.concatenate([np.repeat(voxels, lengths),
-                          np.full(discarded, NUM_VOXELS)]).astype(np.int32)
-    weights = rng.uniform(1e-9, 1.0, ids.shape[0]).astype(np.float32)
-    feats = FEATURES[num_maps]
-    classes = np.stack([rng.randint(-1, f + 1, ids.shape[0])
-                        for f in feats]).astype(np.int32)
-    datas = [rng.rand(NUM_VOXELS, f).astype(np.float32) for f in feats]
-    return ids, weights, classes, datas
+    total = num_tiles * TILE_RECORDS + 517
+    lengths = rng.geometric(1 / 40, total // 20)
+    lengths[::4000] = 2 * TILE_RECORDS + 300
+    lengths = lengths[:np.searchsorted(np.cumsum(lengths), total - 7) + 1]
+    lengths[-1] -= lengths.sum() - (total - 7)
+    return _stream((), lengths, 7, total // 10, num_maps, rng)
 
 
 def naive_splat(datas, ids, weights, classes, iws):
