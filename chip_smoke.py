@@ -3,14 +3,15 @@
     python3 chip_smoke.py
 
 Builds the port's three splat kernels from the sources in this
-checkout (two libraries: the single-map and multi-map kernels share
-``csrc/splat_onehot.cu``; one nvcc each, started together), holds each
-against its plain PyTorch version at the shapes its path gives it (the
-single-map and multi-map kernels on one full 224x224 room frame into
-384x384x96 maps, and on a frame 0.3 m from a wall whose runs outgrow a
-tile, and on a stream of more tiles than the persistent grid has
-blocks; the frames kernel on bench.py's 128-frame stream in groups of
-8), runs the default and the ``--reference-compat`` two-phase episodes
+checkout (one library: the single-map, multi-map and frames kernels
+share ``csrc/splat_onehot.cu``), holds each against its plain PyTorch
+version at the shapes its path gives it (the single-map and multi-map
+kernels on one full 224x224 room frame into 384x384x96 maps, and on a
+frame 0.3 m from a wall whose runs outgrow a tile, and on a stream of
+more tiles than the persistent grid has blocks; the frames kernel on
+bench.py's 128-frame stream in groups of 8, and on 8 frames of a wall
+0.30-0.37 m ahead whose sub-runs cross tile ends), runs the default and
+the ``--reference-compat`` two-phase episodes
 on the card at a small geometry (and on the CPU, which must give equal results),
 then both episodes at full width (384x384x96 voxels x 54 classes,
 224x224 camera) through ``python -m mass_tpu_torch.agent.cli``'s entry
@@ -39,9 +40,10 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOPS = 67e12              # H100 SXM float32 outside tensor cores
 SPLAT_TOL = 1e-5
 # the kernels' times before their redesign as one tile-staged body (one
-# warp per run, a shuffle per record; NVIDIA H100 80GB HBM3, 700.00 W;
-# PERF.md)
-BEFORE_MS = {"splat_onehot": 0.0289, "splat_onehot_multi": 0.0496}
+# warp per run or voxel, a shuffle per record; NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md)
+BEFORE_MS = {"splat_onehot": 0.0289, "splat_onehot_multi": 0.0496,
+             "splat_onehot_frames": 0.668}
 
 # full width: the port's default map (config.MapGeometry) and camera
 FULL_MAP = dict(map_height=384, map_width=384, map_depth=96,
@@ -89,6 +91,34 @@ def cuda_ms(fn, iters: int, flush: torch.Tensor) -> float:
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def host_ms(fn, iters: int) -> float:
+    """Mean host time of ``fn`` up to a card sync, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def kernel_device_ms(fn, iters: int, flush: torch.Tensor) -> float:
+    """Mean device time of the splat kernel per call of ``fn``, read from
+    torch.profiler's trace (no launch latency in it), cold L2."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", None)
+                or getattr(e, "cuda_time_total", 0.0)
+                for e in prof.key_averages()
+                if "splat_onehot_kernel" in e.key)
+    return total / 1e3 / iters
 
 
 def bound(bytes_moved: int, flops: int) -> dict:
@@ -394,12 +424,101 @@ def bench_frames(dev, rng: np.random.RandomState, k: int, camera: int,
                 np.int32)))
 
 
+def frame_stats(records, num_voxels: int) -> dict:
+    """Valid records, touched voxels, valid (voxel, frame) sub-runs,
+    longest run and sub-run, and the valid sub-runs that cross a tile's
+    end, of sorted frame records."""
+    from mass_tpu_torch.ops import splat as SP
+
+    ids = records.ids.long()
+    frames = records.frames.long()
+    key = ids * (int(frames.max()) + 1) + frames
+    runs, run_counts = torch.unique_consecutive(ids, return_counts=True)
+    subs, sub_counts = torch.unique_consecutive(key, return_counts=True)
+    run_valid = (runs >= 0) & (runs < num_voxels)
+    sub_valid = (subs >= 0) & (subs // (int(frames.max()) + 1) < num_voxels)
+    first = torch.cumsum(sub_counts, 0) - sub_counts
+    tile = SP.tile_records()
+    across = (first // tile != (first + sub_counts - 1) // tile) & sub_valid
+    return dict(valid_records=int(run_counts[run_valid].sum()),
+                touched_voxels=int(run_valid.sum()),
+                sub_runs=int(sub_valid.sum()),
+                longest_run=int(run_counts[run_valid].max()),
+                longest_sub_run=int(sub_counts[sub_valid].max()),
+                sub_runs_across_tiles=int(across.sum()))
+
+
+def frames_bound(stats: dict, num_features: int) -> dict:
+    """What the frames kernel must read and write: per valid record its
+    int32 id, weight, class and frame (16 B), per touched voxel its row
+    read and written once for all frames; per record w*w and three adds,
+    per (voxel, frame) sub-run's blend 2 mul + 1 add per class."""
+    return bound(16 * stats["valid_records"]
+                 + 2 * 4 * num_features * stats["touched_voxels"],
+                 4 * stats["valid_records"]
+                 + 3 * num_features * stats["sub_runs"])
+
+
+def check_frames(name: str, data, records) -> dict:
+    """The frames kernel against its plain version on the card
+    (tolerance) and on the CPU (bit for bit), and against itself (bit
+    for bit)."""
+    from mass_tpu_torch.ops import splat as SP
+
+    out = SP.apply_frame_records(data.clone(), records, 0.5)
+    again = SP.apply_frame_records(data.clone(), records, 0.5)
+    torch.cuda.synchronize()
+    identical = bool(torch.equal(out, again))
+    del again
+    ref = SP.splat_onehot_frames_reference(data.clone(), records, 0.5)
+    torch.cuda.synchronize()
+    max_err = float((out - ref).abs().max())
+    del ref
+    changed = float((out - data).abs().max())
+    cpu = SP.splat_onehot_frames_reference(
+        data.to("cpu", copy=True), SP.FrameRecords(
+            *(t.cpu() for t in records)), 0.5)
+    cpu_equal = bool(torch.equal(out.cpu(), cpu))
+    del cpu, out
+    check(changed > 0, f"{name}: the frames kernel changed nothing")
+    check(max_err <= SPLAT_TOL, f"{name}: frames kernel vs plain max abs "
+          f"diff {max_err} > {SPLAT_TOL}")
+    check(identical, f"{name}: two frames-kernel runs differ")
+    check(cpu_equal, f"{name}: the frames kernel differs bitwise from the "
+          "plain CPU version")
+    return dict(max_abs_err=max_err, tolerance=SPLAT_TOL,
+                bit_identical_runs=identical, bitwise_equal_cpu_plain=True)
+
+
+def time_frames(data, records, flush) -> dict:
+    """The frames kernel (events and profiler device time) and its plain
+    version on ``data``, cold L2."""
+    from mass_tpu_torch.ops import splat as SP
+
+    scratch = data.clone()
+    for _ in range(3):
+        SP.apply_frame_records(scratch, records, 0.5)
+    result = dict(
+        ms=cuda_ms(lambda: SP.apply_frame_records(scratch, records, 0.5),
+                   20, flush),
+        device_ms=kernel_device_ms(
+            lambda: SP.apply_frame_records(scratch, records, 0.5), 20,
+            flush),
+        plain_ms=cuda_ms(lambda: SP.splat_onehot_frames_reference(
+            scratch, records, 0.5), 3, flush),
+        library_ms=None)
+    del scratch
+    return result
+
+
 def phase_frames(dev) -> dict:
     """The frames path: bench.py's 128 frames (seed 0) folded into a
     384x384x96x54 map through VoxelMap.update_classes_frames in groups
     of 8 (its main path, counted), held bit for bit against 128
     update_classes calls on the single-map kernel; then the kernel on one
-    group's runs against its plain version, timed."""
+    group's records against its plain version, timed, with its prep and
+    the group's binning; prep and launch under sync debug mode
+    "error"."""
     from mass_tpu_torch.config import MapGeometry
     from mass_tpu_torch.core import geometry as G
     from mass_tpu_torch.core.voxelmap import VoxelMap
@@ -450,68 +569,85 @@ def phase_frames(dev) -> dict:
           "single-map updates")
     del seq
 
-    # one group's runs, folded onto the filled map
+    # one group's records, folded onto the filled map
     positions, yaws, elevations, depths, classes = (x[:BENCH_GROUP]
                                                     for x in frames)
-    records = [batched.contributions(rays, positions[t], float(yaws[t]),
-                                     float(elevations[t]), depths[t])
-               for t in range(BENCH_GROUP)]
-    ids = torch.stack([i for i, _ in records])
-    weights = torch.stack([w for _, w in records])
+    ids, weights = batched.contributions_frames(rays, positions, yaws,
+                                                elevations, depths)
     cls = classes.reshape(BENCH_GROUP, -1)
-    runs = SP.frame_runs(ids, weights, cls)
-    num_voxels = geo.num_voxels
-    out = SP.apply_frame_runs(batched.data.clone(), runs, 0.5)
-    ref = SP.splat_onehot_frames_reference(batched.data.clone(), runs, 0.5)
-    torch.cuda.synchronize()
-    max_err = float((out - ref).abs().max())
-    del ref
-    check(max_err <= SPLAT_TOL,
-          f"frames kernel vs plain max abs diff {max_err} > {SPLAT_TOL}")
+    records = SP.sorted_frame_records(ids, weights, cls)
+    stats = frame_stats(records, geo.num_voxels)
+    checked = check_frames("frames", batched.data, records)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    for _ in range(3):
-        SP.apply_frame_runs(out, runs, 0.5)
-    kernel_ms = cuda_ms(lambda: SP.apply_frame_runs(out, runs, 0.5), 10,
-                        flush)
-    plain_ms = cuda_ms(
-        lambda: SP.splat_onehot_frames_reference(out, runs, 0.5), 3, flush)
-    # the prep in its three steps: sort, gathers, cut into runs (syncs)
-    ids_s, order = SP.sort_ids(ids.reshape(-1), torch.int64)
-    gathered = SP.gather_frames(order, weights, cls)
+    timed = time_frames(batched.data, records, flush)
+    # the prep in its two steps, no cut and no host sync
+    flat = ids.reshape(-1)
+    ids_s, order = SP.sort_ids(flat)
     prep = dict(
-        sort_ms=cuda_ms(lambda: SP.sort_ids(ids.reshape(-1), torch.int64),
-                        10, flush),
-        gather_ms=cuda_ms(lambda: SP.gather_frames(order, weights, cls), 10,
-                          flush),
-        cut_ms=cuda_ms(lambda: SP.cut_frames(ids_s, order, BENCH_GROUP,
-                                             *gathered), 10, flush))
-    prep_ms = cuda_ms(lambda: SP.frame_runs(ids, weights, cls), 10, flush)
-    valid_records = int((ids < num_voxels).sum())
-    run_valid = runs.ids < num_voxels
-    valid_runs = int(run_valid.sum())
-    sub_valid = torch.repeat_interleave(
-        run_valid, runs.sub_starts[1:] - runs.sub_starts[:-1])
-    valid_subs = int(sub_valid.sum())
-    n_runs, n_subs = int(runs.ids.shape[0]), int(runs.frames.shape[0])
-    # weight + class per valid record; int64 id and sub-run start per
-    # run, record start per sub-run; each touched row read and written
-    # once for the whole group.  Per record w*w and three adds, per
-    # (voxel, frame) blend 2 mul + 1 add per class
-    limit = bound(8 * valid_records + 8 * (2 * n_runs + 1)
-                  + 8 * (n_subs + 1) + 2 * 4 * geo.feature_size * valid_runs,
-                  4 * valid_records + 3 * geo.feature_size * valid_subs)
-    del out, flush, batched, gathered
+        sort_ms=cuda_ms(lambda: SP.sort_ids(flat), 20, flush),
+        gather_ms=cuda_ms(lambda: SP.gather_frame_records(
+            ids_s, order, weights, cls), 20, flush),
+        prep_ms=cuda_ms(lambda: SP.sorted_frame_records(ids, weights, cls),
+                        20, flush))
+    binning = dict(
+        group_binning_ms=host_ms(lambda: batched.contributions_frames(
+            rays, positions, yaws, elevations, depths), 10),
+        per_frame_binning_ms=host_ms(lambda: [batched.contributions(
+            rays, positions[t], float(yaws[t]), float(elevations[t]),
+            depths[t]) for t in range(BENCH_GROUP)], 10))
+    # prep and launch enqueue with no host sync
+    scratch = batched.data.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        SP.splat_onehot_frames(scratch, ids, weights, cls, 0.5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    del scratch, flush, batched
     torch.cuda.empty_cache()
     return dict(frames=BENCH_FRAMES, group=BENCH_GROUP, launches=launches,
                 bitwise_equal_sequential=equal,
                 frames_route_s=frames_s, sequential_route_s=seq_s,
                 frames_route_fps=BENCH_FRAMES / frames_s,
                 sequential_route_fps=BENCH_FRAMES / seq_s,
-                group_records=int(ids.numel()), valid_records=valid_records,
-                touched_voxels=valid_runs, sub_runs=valid_subs,
-                max_abs_err=max_err, tolerance=SPLAT_TOL, ms=kernel_ms,
-                plain_ms=plain_ms, prep_ms=prep_ms, **prep, library_ms=None,
-                **limit)
+                group_records=int(ids.numel()), **stats, **checked, **timed,
+                **prep, **binning, sync_free_prep_and_launch=True,
+                before_ms=BEFORE_MS["splat_onehot_frames"],
+                **frames_bound(stats, geo.feature_size))
+
+
+def phase_wall_frames(dev) -> dict:
+    """The frames kernel on 8 frames of a flat wall 0.30-0.37 m ahead at
+    full geometry, binned as one group: runs of thousands of records with
+    several frames' sub-runs, many across a tile's end; bit-equal to the
+    plain CPU version."""
+    from mass_tpu_torch.core import geometry as G
+    from mass_tpu_torch.ops import splat as SP
+
+    walls = [wall_frame(CAMERA, 0.30 + 0.01 * t) for t in range(BENCH_GROUP)]
+    geo, vm, _, _, _ = full_geometry_frame(dev, 6)
+    rays = G.camera_rays(CAMERA, CAMERA, CAMERA / 2, CAMERA / 2, device=dev)
+    ids, weights = vm.contributions_frames(
+        rays, torch.zeros(BENCH_GROUP, 3, device=dev),
+        torch.tensor([y for y, _, _ in walls], device=dev),
+        torch.tensor([e for _, e, _ in walls], device=dev),
+        torch.as_tensor(np.stack([d for _, _, d in walls]), device=dev))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cls = torch.randint(0, geo.feature_size, (BENCH_GROUP, CAMERA * CAMERA),
+                        generator=gen, device=dev, dtype=torch.int32)
+    records = SP.sorted_frame_records(ids, weights, cls)
+    stats = frame_stats(records, geo.num_voxels)
+    check(stats["sub_runs_across_tiles"] > 0 and
+          stats["longest_run"] > SP.tile_records(),
+          f"the wall frames' sub-runs cross no tile end: {stats}")
+    checked = check_frames("wall frames", vm.data, records)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    timed = time_frames(vm.data, records, flush)
+    del flush, vm
+    torch.cuda.empty_cache()
+    return dict(records=int(ids.numel()), **stats, **checked, **timed,
+                **frames_bound(stats, geo.feature_size))
 
 
 def small_episode(device: str, compat: bool = False):
@@ -667,6 +803,22 @@ def print_splat(tag: str, k: dict) -> None:
           f"{k['gather_ms']:.4f} ms, no cut (the kernel finds the runs)")
 
 
+def print_frames(tag: str, what: str, k: dict) -> None:
+    before = (f" (before the redesign: {k['before_ms']:.3f} ms)"
+              if "before_ms" in k else "")
+    print(f"[{tag}] {what}: U={k['touched_voxels']}, {k['sub_runs']} "
+          f"(voxel, frame) sub-runs, {k['valid_records']} valid records; "
+          f"max abs diff vs plain {k['max_abs_err']:.3g} (tol {SPLAT_TOL});"
+          f" two runs bit-identical: {k['bit_identical_runs']}; equal to "
+          f"the plain CPU version: {k['bitwise_equal_cpu_plain']}")
+    print(f"[{tag}] kernel {k['ms']:.4f} ms per launch{before}, device "
+          f"time {k['device_ms']:.4f} ms (profiler); bound "
+          f"{k['bound_ms']:.4f} ms ({k['bytes']} B: id, weight, class and "
+          f"frame per valid record, each touched row read and written "
+          f"once, at 3.35 TB/s), {k['ms'] / k['bound_ms']:.2f}x the bound;"
+          f" plain {k['plain_ms']:.3f} ms; library call: none")
+
+
 def print_episode(tag: str, full: dict) -> None:
     print(f"[{tag}] budgets {' '.join(full['budgets'])}")
     print(f"[{tag}] wall {full['wall_s']:.1f} s, peak memory "
@@ -737,24 +889,28 @@ def main() -> int:
           f"bit-identical: {many['single']['bit_identical_runs']}, "
           f"{many['multi']['bit_identical_runs']}")
 
-    frames = phase_frames(dev)
-    report["frames"] = frames
+    frames = report["frames"] = phase_frames(dev)
     print(f"[frames] {frames['frames']} bench.py frames in groups of "
           f"{frames['group']}: {frames['launches']} launches, equal to "
           f"{frames['frames']} single-map updates bit for bit: "
           f"{frames['bitwise_equal_sequential']}; frames route "
           f"{frames['frames_route_fps']:.1f} frames/s, sequential route "
           f"{frames['sequential_route_fps']:.1f} frames/s (card synced)")
-    print(f"[frames] one group: U={frames['touched_voxels']}, "
-          f"{frames['sub_runs']} (voxel, frame) sub-runs, "
-          f"{frames['valid_records']} valid records; kernel "
-          f"{frames['ms']:.4f} ms per launch, plain {frames['plain_ms']:.4f}"
-          f" ms, bound {frames['bound_ms']:.4f} ms ({frames['bytes']} B), "
-          f"max abs diff vs plain {frames['max_abs_err']:.3g}; library "
-          f"call: none")
-    print(f"[frames] record prep (frame_runs) {frames['prep_ms']:.4f} ms: "
-          f"sort {frames['sort_ms']:.4f} ms, gathers "
-          f"{frames['gather_ms']:.4f} ms, cut {frames['cut_ms']:.4f} ms")
+    print_frames("frames", "one bench.py group", frames)
+    print(f"[frames] record prep (sorted_frame_records) "
+          f"{frames['prep_ms']:.4f} ms: sort {frames['sort_ms']:.4f} ms, "
+          f"gathers {frames['gather_ms']:.4f} ms, no cut; prep and launch "
+          f"clean under sync debug mode 'error': "
+          f"{frames['sync_free_prep_and_launch']}")
+    print(f"[frames] binning of one group of {frames['group']} "
+          f"{frames['group_binning_ms']:.3f} ms as one batch, "
+          f"{frames['per_frame_binning_ms']:.3f} ms frame by frame "
+          f"(host clock, card synced)")
+    wall = report["wall_frames"] = phase_wall_frames(dev)
+    print_frames("wall frames", f"8 frames of a wall 0.30-0.37 m ahead "
+                 f"(longest run {wall['longest_run']}, longest sub-run "
+                 f"{wall['longest_sub_run']}, {wall['sub_runs_across_tiles']}"
+                 f" sub-runs across a tile's end)", wall)
 
     for compat in (False, True):
         small = phase_small_episodes(compat)

@@ -12,6 +12,11 @@ Precision: everything is strict float32.  The 3x3 rotation is written
 out as elementwise products (no matmul, so no TF32), and the rotation
 itself is computed on the host from the scalar pose, so a CPU run and a
 CUDA run bin every pixel identically.
+
+Batches: :func:`orient_rays`, :func:`bin_rays` and
+``ops/scatter.corner_contributions`` also take T frames with a leading
+``[T]`` dimension (the JAX package vmaps them), each frame equal bit for
+bit to its own one-frame call.
 """
 
 from __future__ import annotations
@@ -58,15 +63,38 @@ def camera_rotation(yaw: float, elevation: float) -> np.ndarray:
     return np.stack([right, up, -eye], axis=-1)
 
 
-def orient_rays(rays: torch.Tensor, yaw: float,
-                elevation: float) -> torch.Tensor:
+def _to_device(host: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device``, copied to a card without a host sync
+    (from pinned memory)."""
+    if torch.device(device).type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def orient_rays(rays: torch.Tensor, yaw, elevation) -> torch.Tensor:
     """Rotate camera-frame rays ``[..., 3]`` into the world frame:
-    ``out[..., i] = sum_j rays[..., j] * R[i, j]`` in float32."""
-    rot = camera_rotation(yaw, elevation)
+    ``out[..., i] = sum_j rays[..., j] * R[i, j]`` in float32.
+
+    ``yaw`` and ``elevation`` are one pose (floats), or T poses (host
+    arrays ``[T]``) that turn ``[h, w, 3]`` rays into ``[T, h, w, 3]``.
+    """
+    if np.ndim(yaw) == 0:
+        rot = camera_rotation(yaw, elevation)
+
+        def coef(i, j):
+            return float(rot[i, j])
+    else:
+        rots = np.stack([camera_rotation(y, e)
+                         for y, e in zip(yaw, elevation)])
+        rot_t = _to_device(torch.from_numpy(rots), rays.device)[
+            :, None, None]
+
+        def coef(i, j):
+            return rot_t[..., i, j]
     r0, r1, r2 = rays[..., 0], rays[..., 1], rays[..., 2]
     return torch.stack(
-        [r0 * float(rot[i, 0]) + r1 * float(rot[i, 1])
-         + r2 * float(rot[i, 2]) for i in range(3)], dim=-1)
+        [r0 * coef(i, 0) + r1 * coef(i, 1) + r2 * coef(i, 2)
+         for i in range(3)], dim=-1)
 
 
 def uniform_bins(origin: float, num_cells: int, resolution: float,
@@ -114,10 +142,10 @@ def bucketize(x: torch.Tensor, bins: torch.Tensor,
 
 
 class BinnedPoints(NamedTuple):
-    """Fixed-shape binned point cloud for one frame (all ``[h, w]``):
-    cell indices per axis (y already flipped to map-row order), the
-    fraction through each cell (y ratio reversed), and the validity
-    mask."""
+    """Fixed-shape binned point cloud for one frame (all ``[h, w]``) or
+    T frames (``[T, h, w]``): cell indices per axis (y already flipped to
+    map-row order), the fraction through each cell (y ratio reversed),
+    and the validity mask."""
 
     ind_x: torch.Tensor
     ind_y: torch.Tensor
@@ -134,8 +162,10 @@ def bin_rays(bins_x, bins_y, bins_z, origin, rays, depth,
              resolution: float = None) -> BinnedPoints:
     """Bin world-frame ray endpoints ``origin + rays * depth`` into voxel
     cells with validity masking; the y index is flipped
-    (``len(bins_y) - 2 - ind_y``) and its ratio reversed."""
-    points = origin[None, None, :] + rays * depth
+    (``len(bins_y) - 2 - ind_y``) and its ratio reversed.  One frame:
+    ``origin [3]``, ``rays [h, w, 3]``, ``depth [h, w, 1]``; T frames add
+    a leading ``[T]`` to each."""
+    points = origin[..., None, None, :] + rays * depth
     px, py, pz = points[..., 0], points[..., 1], points[..., 2]
 
     ind_x = bucketize(px, bins_x, resolution)
@@ -172,11 +202,11 @@ def bin_rays(bins_x, bins_y, bins_z, origin, rays, depth,
 
 def upsample_features(features: torch.Tensor, height: int,
                       width: int) -> torch.Tensor:
-    """Nearest-repeat a ``[h, w, F]`` feature image up to
-    ``[height, width, F]`` by integer factors."""
-    fh, fw = features.shape[0], features.shape[1]
+    """Nearest-repeat a ``[..., h, w, F]`` feature image up to
+    ``[..., height, width, F]`` by integer factors."""
+    fh, fw = features.shape[-3], features.shape[-2]
     if fh != height:
-        features = features.repeat_interleave(height // fh, dim=0)
+        features = features.repeat_interleave(height // fh, dim=-3)
     if fw != width:
-        features = features.repeat_interleave(width // fw, dim=1)
+        features = features.repeat_interleave(width // fw, dim=-2)
     return features

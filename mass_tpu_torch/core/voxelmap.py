@@ -89,7 +89,9 @@ class VoxelMap:
                       max_ray_depth: float = 10.0):
         """Orient + bin + trilinear corner records for one frame:
         ``(ids, weights)``, shared by every map of the same camera and
-        grid."""
+        grid.  With host arrays ``yaw``/``elevation [T]`` (``position
+        [T, 3]``, ``depth [T, h, w, 1]``) it bins T frames as one batch:
+        ``[T, 8N]`` records, frame t equal to its own one-frame call."""
         g = self.geometry
         oriented = G.orient_rays(rays, yaw, elevation)
         points = G.bin_rays(self.bins_x, self.bins_y, self.bins_z,
@@ -99,6 +101,19 @@ class VoxelMap:
                             resolution=g.grid_resolution)
         return S.corner_contributions(
             points, (g.map_height, g.map_width, g.map_depth))
+
+    def contributions_frames(self, rays, positions, yaws, elevations,
+                             depths, min_ray_depth: float = 0.0,
+                             max_ray_depth: float = 10.0):
+        """:meth:`contributions` of T frames as one batch: the poses
+        reach the host once (one sync on a card), where the T rotations
+        are built as for one frame.  Returns ``[T, 8N]`` ids and
+        weights."""
+        yaws, elevations = torch.stack([torch.as_tensor(yaws),
+                                        torch.as_tensor(elevations)]).cpu()
+        return self.contributions(rays, positions, yaws.numpy(),
+                                  elevations.numpy(), depths,
+                                  min_ray_depth, max_ray_depth)
 
     def apply_onehot(self, ids, weights, classes) -> "VoxelMap":
         """EMA-blend one frame's one-hot records into the map in place
@@ -131,16 +146,13 @@ class VoxelMap:
           upsampled to the ray grid).
         """
         h, w = rays.shape[0], rays.shape[1]
-        records = [self.contributions(rays, positions[t], float(yaws[t]),
-                                      float(elevations[t]), depths[t],
-                                      min_ray_depth, max_ray_depth)
-                   for t in range(positions.shape[0])]
-        classes = torch.stack([G.upsample_features(c[..., None], h, w)[
-            ..., 0].reshape(-1) for c in classes])
-        SP.splat_onehot_frames(self.data,
-                               torch.stack([i for i, _ in records]),
-                               torch.stack([wt for _, wt in records]),
-                               classes, self.geometry.interpolation_weight)
+        ids, weights = self.contributions_frames(
+            rays, positions, yaws, elevations, depths, min_ray_depth,
+            max_ray_depth)
+        classes = G.upsample_features(classes[..., None], h, w)[..., 0]
+        SP.splat_onehot_frames(self.data, ids, weights,
+                               classes.reshape(classes.shape[0], -1),
+                               self.geometry.interpolation_weight)
         return self
 
     # ------------------------------------------------------------------
@@ -295,13 +307,23 @@ class HostMapToWorld:
 
 def apply_onehot_group(vms, ids, weights, classes_list):
     """EMA-blend one frame's shared corner records into the group's
-    one-hot maps in place.  One map goes through the single-map splat
-    kernel; two to four maps of one grid are sorted once and splat in one
-    launch of the multi-map kernel (more raise)."""
+    one-hot maps (one grid) in place, sorted once for the group.  The maps
+    go to the splat kernels in chunks of at most four: two to four maps in
+    one launch of the multi-map kernel, one map in one launch of the
+    single-map kernel.  Each map equals its own single-map update bit for
+    bit, so the group equals per-map updates."""
     vms = list(vms)
-    if len(vms) == 1:
-        return [vms[0].apply_onehot(ids, weights, classes_list[0])]
-    SP.splat_onehot_multi([vm.data for vm in vms], ids, weights,
-                          [c.reshape(-1) for c in classes_list],
-                          [vm.geometry.interpolation_weight for vm in vms])
+    SP.check_voxels(max(vm.data.shape[0] for vm in vms))
+    records = SP.sorted_records_multi(
+        ids, weights, [c.reshape(-1) for c in classes_list])
+    for lo in range(0, len(vms), SP.MAX_MAPS):
+        chunk = vms[lo:lo + SP.MAX_MAPS]
+        classes = records.classes[lo:lo + len(chunk)]
+        iws = [vm.geometry.interpolation_weight for vm in chunk]
+        if len(chunk) == 1:
+            SP.apply_records(chunk[0].data, records._replace(
+                classes=classes[0]), iws[0])
+        else:
+            SP.apply_records_multi([vm.data for vm in chunk],
+                                   records._replace(classes=classes), iws)
     return vms

@@ -1,69 +1,88 @@
-// One-hot trilinear splat into one to four maps of one grid, for NVIDIA
-// Hopper (sm_90a).
+// One-hot trilinear splat for NVIDIA Hopper (sm_90a): one frame into one
+// to four maps of one grid, or T frames into one map in frame order.
 //
-// Replaces two TPU kernels of mass_tpu/ops/pallas_splat.py with one body
-// templated on the map count M:
+// Replaces the three TPU kernels of mass_tpu/ops/pallas_splat.py with one
+// body templated on the map count M and a frames flag:
 //   splat_onehot_cmajor (_kernel + _accumulate_and_blend)
 //       -> splat_onehot_launch, M = 1;
 //   splat_onehot_multi_cmajor (_multi_kernel)
 //       -> splat_onehot_multi_launch, M = 2..4 (one map is refused: it
-//          goes through splat_onehot_launch).
+//          goes through splat_onehot_launch);
+//   splat_onehot_frames_cmajor (_frames_kernel)
+//       -> splat_onehot_frames_launch, M = 1, T frames in one launch.
 // The TPU kernels walked fixed voxel-id spans in order and reduced each
-// span with one-hot matmuls.  Here one frame's records arrive stable-
-// sorted by voxel id (ops/splat.py:sorted_records[_multi]: ids int32
-// [R], weights [R], classes [M, R]) and the kernel finds the runs of
-// equal ids itself, so the host never learns their number:
+// span with one-hot matmuls (the frames kernel streamed a span through
+// VMEM once while every frame's blend applied in turn).  Here the records
+// arrive stable-sorted by voxel id (ops/splat.py: sorted_records[_multi]
+// for one frame, sorted_frame_records for T frames flattened frame-major,
+// which adds the int32 frame of each record) and the kernel finds the
+// runs of equal ids itself, so the host never learns their number:
 //
 //   W  = sum w,   S2 = sum w*w            (once, shared by the maps)
 //   T_m[f] = sum w*w*[cls_m == f]         (per map)
 //   row_m[f] = row_m[f] * (1 - iw_m*S2/W) + (iw_m/W) * T_m[f]
 //
-// Every sum runs over a voxel's records in sorted record order, with
+// For T frames a voxel's run keeps its records in frame order, and a
+// sub-run ends where the frame changes: there the lanes blend the row in
+// registers and start new sums, so the row is read once and written once
+// for all T frames.  A frame that does not touch the voxel has no sub-run
+// and no blend, which is what a single-map update does for it (W = 0).
+//
+// Every sum runs over a (sub-)run's records in sorted record order, with
 // round-to-nearest intrinsics (no FMA contraction), no atomics and no
 // tensor cores, and each touched row is read once and written once by
-// one warp: the maps equal the plain PyTorch version on the CPU bit for
+// the lanes that sum its run: the maps equal the plain PyTorch version on the CPU bit for
 // bit, map m of a group equals the single-map update on its own classes,
-// and two runs give the same bits.  A class outside [0, F_m) is dropped
-// for map m only (its weight still counts in W and S2).
+// T frames equal T single-map updates in a row, and two runs give the
+// same bits.  A class outside [0, F_m) is dropped for map m only (its
+// weight still counts in W and S2).
 //
 // Design:
 // - Persistent grid: at most as many blocks as fit on the card at once
-//   (SMs x resident blocks); block b walks tiles b, b + grid, ... of
-//   kTile records.
-// - Each tile's ids, weights and classes are staged into shared memory
-//   with cp.async (16 B per thread), double-buffered: tile i + grid
+//   (SMs x resident blocks, per instance); block b walks tiles b,
+//   b + grid, ... of kTile records.
+// - Each tile's ids, weights, classes (and frames) are staged into shared
+//   memory with cp.async (16 B per thread), double-buffered: tile i + grid
 //   loads while tile i is summed.  The staged ids carry the previous
 //   record's id, so a run start is a compare on shared memory; warp
 //   ballots and one warp's scan of their counts compact the starts in
 //   record order.
 // - A run is owned by the tile that holds its first record.  One warp
-//   sums one run: each lane reads every record's (w, class) from shared
-//   memory as a broadcast and keeps the classes lane, lane + 32, ... of
-//   every map in registers.  A run that reaches the tile's end is
-//   finished by its owner from global memory, 128 records per load, so
-//   runs of any length are right.
+//   (or half of one, below) sums one run: each lane reads every record's
+//   (w, class, frame) from shared memory as a broadcast and keeps its
+//   share of every map's classes in registers.  A run that reaches the
+//   tile's end is finished by its owner from global memory, 4 records per
+//   lane per load, frame changes included, so runs and sub-runs of any
+//   length are right.
 // - A warp loads the rows of its next run (every map's, the F = 1
-//   occupancy row included, one predicated load each) before it sums
-//   the current one, so the row latency overlaps the sums; each row is
-//   then written once.  Packing the F = 1 row into the idle lanes of the
-//   54-class row was not needed: with the prefetch it costs one
-//   predicated load and one store per run and no latency of its own.
+//   occupancy row included, one predicated load each) before it sums the
+//   current one, so row latency overlaps the sums; each row is then
+//   written once.
+// - T frames: one group of 8 bench.py frames touches about 1.3M voxels
+//   with about 2.2 records each, so the rows are the bytes, but row
+//   latency is not what limits: three runs ahead measured no faster than
+//   one.  The per-run work (the row's address, the blend's two IEEE
+//   divides, the loop) is issued once per run by every lane of its
+//   group, so where F is even and the map 8-byte aligned, half a warp (16 lanes,
+//   a float2 of neighbouring classes per lane and slot) sums a run, and a
+//   warp sums two runs at once; F odd takes the whole warp, a float per
+//   lane and slot.
 //
 // Bound: memory.  The work is a few operations per byte: per valid
-// record its int32 id, weight and M classes (8 + 4M B), per touched
-// voxel each map's row read and written once (2 * 4 * F_m B).  A run is
-// serial by its definition (sorted-order sums), so a frame whose records
-// crowd into few voxels is bounded by its longest run instead.
+// record its int32 id, weight, M classes and (T frames) its frame, per
+// touched voxel each map's row read and written once (2 * 4 * F_m B).  A
+// run is serial by its definition (sorted-order sums), so records that
+// crowd into few voxels are bounded by the longest run instead.
 //
-// Where the time goes (PERF.md): on a full 224x224 frame the per-record
-// sums are more than half of the kernel.  Each record costs every lane
-// of its warp about ten issued instructions (two shared loads, w*w, two
-// adds, and a compare and a predicated add per class slot and map), the
-// price of summing in record order with no atomics.  Smaller tiles, more
-// threads per block, handing runs to warps through a counter, and
-// staging records after a tile for the runs that cross its end all
-// measured slower or no faster, and so did giving each warp the runs
-// that start in its share of the tile instead of every kWarps-th run.
+// Where the time goes (PERF.md): for one frame the per-record sums are
+// more than half of the kernel.  Each record costs every lane of its warp
+// about ten issued instructions (two shared loads, w*w, two adds, and a
+// compare and a predicated add per class slot and map), the price of
+// summing in record order with no atomics.  Smaller tiles, more threads
+// per block, handing runs to warps through a counter, and staging records
+// after a tile for the runs that cross its end all measured slower or no
+// faster for one frame, and so did giving each warp the runs that start
+// in its share of the tile instead of every kWarps-th run.
 //
 // The launch goes on the caller's stream, allocates nothing and does not
 // synchronise; the entries return cudaGetLastError().
@@ -81,7 +100,9 @@ constexpr int kBallots = kPasses * kWarps;  // = kTile / 32
 constexpr int kHalo = 4;                   // id words staged before a tile
 constexpr int kMaxMaps = 4;
 constexpr int kMaxSlots = 4;               // F_m <= 32 * kMaxSlots
-constexpr int kChunks = 4;  // 32-record chunks per read past a tile
+constexpr int kChunks = 4;  // records per lane per read past a tile
+constexpr int kAhead = 1;  // runs whose rows load ahead of the one summed
+constexpr int kFramesGroup = 16;  // lanes per run for T frames, F even
 constexpr int kMaxDevices = 16;
 constexpr unsigned kAll = 0xffffffffu;
 
@@ -94,9 +115,10 @@ struct Maps {
   float iw[kMaxMaps];
 };
 
-// words of one stage: ids (after kHalo words), weights, M class rows
-__host__ __device__ constexpr int stage_words(int M) {
-  return kHalo + (2 + M) * kTile;
+// words of one stage: ids (after kHalo words), weights, M class rows,
+// frames
+__host__ __device__ constexpr int stage_words(int M, bool frames) {
+  return kHalo + (2 + M + (frames ? 1 : 0)) * kTile;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -133,11 +155,12 @@ __device__ __forceinline__ void stage4(int* dst, const void* src,
   }
 }
 
-template <int M>
+template <int M, bool FRAMES>
 __device__ __forceinline__ void load_tile(int* stage, int64_t tile,
                                           const int* ids,
                                           const float* weights,
-                                          const int* classes, int64_t R) {
+                                          const int* classes,
+                                          const int* frames, int64_t R) {
   const int64_t base = tile * kTile;
   const int64_t left = R - base;
   const int n = left < kTile ? (int)left : kTile;
@@ -148,69 +171,182 @@ __device__ __forceinline__ void load_tile(int* stage, int64_t tile,
     for (int m = 0; m < M; ++m)
       stage4(stage + kHalo + (2 + m) * kTile + i, classes + m * R + base + i,
              n - i);
+    if (FRAMES)
+      stage4(stage + kHalo + (2 + M) * kTile + i, frames + base + i, n - i);
   }
   if (threadIdx.x == 0 && base > 0)  // the previous record's id
     cp_async4(stage + kHalo - 1, ids + base - 1);
 }
 
-// one record into the sums; lane holds class lane + 32 s of each map in
-// slot s, so a class outside [0, 32 S) matches no slot
-template <int M, int S>
-__device__ __forceinline__ void add_record(float w, const int (&c)[M],
-                                           int lane, float& w_sum,
-                                           float& s2_sum, float (&t)[M][S]) {
-  const float w2 = __fmul_rn(w, w);
-  w_sum = __fadd_rn(w_sum, w);
-  s2_sum = __fadd_rn(s2_sum, w2);
+// A run is summed by a group of G lanes (the warp, or half of it, which
+// then sums two runs at once).  Lane g of the group holds, in slot s and
+// element j, class L * (g + G s) + j of each of M rows (L = 2: a float2
+// of neighbouring classes).
+template <int M, int S, int L>
+using Rows = float[M][S][L];
+
+// the sums of one run (one frame) or sub-run (T frames)
+template <int M, int S, int L>
+struct Sums {
+  float w, s2, t[M][S][L];
+
+  __device__ __forceinline__ void clear() {
+    w = s2 = 0.f;
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+#pragma unroll
+        for (int j = 0; j < L; ++j) t[m][s][j] = 0.f;
+  }
+
+  // one record; first = L * g, so a class outside [0, G L S) matches no
+  // slot
+  template <int G>
+  __device__ __forceinline__ void add(float wr, const int (&c)[M],
+                                      unsigned first) {
+    const float w2 = __fmul_rn(wr, wr);
+    w = __fadd_rn(w, wr);
+    s2 = __fadd_rn(s2, w2);
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const unsigned d = (unsigned)c[m] - first;
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+#pragma unroll
+        for (int j = 0; j < L; ++j)
+          if (d == (unsigned)(G * L * s + j))
+            t[m][s][j] = __fadd_rn(t[m][s][j], w2);
+    }
+  }
+};
+
+// row_m <- row_m * (1 - iw_m S2 / W) + (iw_m / W) T_m, in registers
+template <int M, int S, int L>
+__device__ __forceinline__ void blend(const Maps& maps,
+                                      const Sums<M, S, L>& sums,
+                                      Rows<M, S, L>& row) {
+  const float safe_w = fmaxf(sums.w, 1e-30f);
 #pragma unroll
   for (int m = 0; m < M; ++m) {
-    const unsigned d = (unsigned)c[m] - (unsigned)lane;
+    const float iw = maps.iw[m];
+    const float mult =
+        sums.w > 0.f
+            ? __fsub_rn(1.f, __fdiv_rn(__fmul_rn(iw, sums.s2), safe_w))
+            : 1.f;
+    const float scale = __fdiv_rn(iw, safe_w);
 #pragma unroll
     for (int s = 0; s < S; ++s)
-      if (d == 32u * s) t[m][s] = __fadd_rn(t[m][s], w2);
+#pragma unroll
+      for (int j = 0; j < L; ++j)
+        row[m][s][j] = __fadd_rn(__fmul_rn(row[m][s][j], mult),
+                                 __fmul_rn(scale, sums.t[m][s][j]));
   }
 }
 
-// the rest of voxel v's run from record r on, read from global memory
-template <int M, int S>
-__device__ void sum_past_tile(int v, int64_t r, const int* ids,
-                              const float* weights, const int* classes,
-                              int64_t R, int lane, float& w_sum,
-                              float& s2_sum, float (&t)[M][S]) {
-  for (;; r += 32 * kChunks) {
-    int id[kChunks], c[kChunks][M];
+// voxel v's rows (v < 0: none, zeros); g: the lane in its group
+template <int M, int S, int L, int G>
+__device__ __forceinline__ void load_rows(const Maps& maps, int v, int g,
+                                          Rows<M, S, L>& row) {
+  static_assert(L == 1 || L == 2, "one class or a float2 per slot");
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int F = maps.features[m];
+    const float* src = maps.data[m] + (int64_t)v * F;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int e = g + G * s;
+      const bool in = v >= 0 && L * e < F;
+      if constexpr (L == 1) {
+        row[m][s][0] = in ? src[e] : 0.f;
+      } else {
+        const float2 x = in ? reinterpret_cast<const float2*>(src)[e]
+                            : make_float2(0.f, 0.f);
+        row[m][s][0] = x.x;
+        row[m][s][1] = x.y;
+      }
+    }
+  }
+}
+
+template <int M, int S, int L, int G>
+__device__ __forceinline__ void store_rows(const Maps& maps, int v, int g,
+                                           const Rows<M, S, L>& row) {
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int F = maps.features[m];
+    float* dst = maps.data[m] + (int64_t)v * F;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int e = g + G * s;
+      if (L * e >= F) continue;
+      if constexpr (L == 1)
+        dst[e] = row[m][s][0];
+      else
+        reinterpret_cast<float2*>(dst)[e] =
+            make_float2(row[m][s][0], row[m][s][1]);
+    }
+  }
+}
+
+// The rest of voxel v's run from record r on, read from global memory by
+// the run's group of G lanes (g: the lane in it, mask: its lanes); for T
+// frames, a frame change blends the row and starts new sums.
+template <int M, int S, int L, int G, bool FRAMES>
+__device__ void sum_past_tile(const Maps& maps, int v, int64_t r,
+                              const int* ids, const float* weights,
+                              const int* classes, const int* frames,
+                              int64_t R, int g, unsigned mask,
+                              Sums<M, S, L>& sums, Rows<M, S, L>& row,
+                              int& frame) {
+  const int shift = __ffs(mask) - 1;  // the group's first lane
+  for (;; r += G * kChunks) {
+    int id[kChunks], c[kChunks][M], fr[kChunks];
     float w[kChunks];
 #pragma unroll
     for (int q = 0; q < kChunks; ++q) {
-      const int64_t x = r + 32 * q + lane;
+      const int64_t x = r + G * q + g;
       const bool in = x < R;
       id[q] = in ? ids[x] : -1;
       w[q] = in ? weights[x] : 0.f;
 #pragma unroll
       for (int m = 0; m < M; ++m) c[q][m] = in ? classes[m * R + x] : -1;
+      fr[q] = FRAMES && in ? frames[x] : 0;
     }
 #pragma unroll
     for (int q = 0; q < kChunks; ++q) {
       // ids are sorted: the run ends at the first record of another id
-      const unsigned stop = __ballot_sync(kAll, id[q] != v);
-      const int count = stop ? __ffs(stop) - 1 : 32;
+      const unsigned stop =
+          (__ballot_sync(mask, id[q] != v) & mask) >> shift;
+      const int count = stop ? __ffs(stop) - 1 : G;
       for (int k = 0; k < count; ++k) {
+        if (FRAMES) {
+          const int f = __shfl_sync(mask, fr[q], k, G);
+          if (f != frame) {
+            blend<M, S, L>(maps, sums, row);
+            sums.clear();
+            frame = f;
+          }
+        }
         int ck[M];
 #pragma unroll
-        for (int m = 0; m < M; ++m) ck[m] = __shfl_sync(kAll, c[q][m], k);
-        add_record<M, S>(__shfl_sync(kAll, w[q], k), ck, lane, w_sum, s2_sum,
-                         t);
+        for (int m = 0; m < M; ++m) ck[m] = __shfl_sync(mask, c[q][m], k, G);
+        sums.template add<G>(__shfl_sync(mask, w[q], k, G), ck, L * g);
       }
       if (stop) return;
     }
   }
 }
 
-template <int M, int S>
+template <int M, int S, int L, int G, bool FRAMES>
 __global__ void __launch_bounds__(kThreads)
     splat_onehot_kernel(Maps maps, int V, const int* __restrict__ ids,
                         const float* __restrict__ weights,
-                        const int* __restrict__ classes, int64_t R) {
+                        const int* __restrict__ classes,
+                        const int* __restrict__ frames, int64_t R) {
+  constexpr int kStage = stage_words(M, FRAMES);
+  constexpr int P = kAhead;
+  constexpr int kGroups = kWarps * (32 / G);  // runs summed at once
   extern __shared__ __align__(16) int smem[];
   __shared__ int starts[kTile];
   __shared__ unsigned ballots[kBallots];
@@ -219,17 +355,21 @@ __global__ void __launch_bounds__(kThreads)
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int g = lane % G;            // lane in its group
+  const int group = threadIdx.x / G;
+  const unsigned mask = (kAll >> (32 - G)) << (lane - g);  // group's lanes
   const int64_t num_tiles = (R + kTile - 1) / kTile;
 
   int64_t tile = blockIdx.x;
-  if (tile < num_tiles) load_tile<M>(smem, tile, ids, weights, classes, R);
+  if (tile < num_tiles)
+    load_tile<M, FRAMES>(smem, tile, ids, weights, classes, frames, R);
   cp_async_commit();
   for (int it = 0; tile < num_tiles; ++it, tile += gridDim.x) {
-    const int* stage = smem + (it & 1) * stage_words(M);
+    const int* stage = smem + (it & 1) * kStage;
     const int64_t next = tile + gridDim.x;
     if (next < num_tiles)
-      load_tile<M>(smem + ((it + 1) & 1) * stage_words(M), next, ids,
-                   weights, classes, R);
+      load_tile<M, FRAMES>(smem + ((it + 1) & 1) * kStage, next, ids,
+                           weights, classes, frames, R);
     cp_async_commit();  // an empty group keeps the count in step
     cp_async_wait_all_but_newest();
     __syncthreads();
@@ -240,6 +380,7 @@ __global__ void __launch_bounds__(kThreads)
     const int* sid = stage + kHalo;  // sid[-1]: the previous record's id
     const float* sw = reinterpret_cast<const float*>(stage + kHalo + kTile);
     const int* scls = stage + kHalo + 2 * kTile;
+    const int* sfr = stage + kHalo + (2 + M) * kTile;  // T frames only
 
     // 1. run starts: a record whose id differs from the one before it
 #pragma unroll
@@ -275,85 +416,75 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     const int runs = num_runs;
 
-    // 2. one warp per run, rows loaded one run ahead
+    // 2. one group per run, every kGroups-th run, with the rows of the
+    // next run in flight
     auto voxel_of = [&](int r) {
       if (r >= runs) return -1;
       const int v = sid[starts[r]];
       return v >= 0 && v < V ? v : -1;  // -1: none, or the discard id
     };
-    auto load_rows = [&](int v, float (&row)[M][S]) {
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const int F = maps.features[m];
-        const float* src = maps.data[m] + (int64_t)v * F;
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const int f = lane + 32 * s;
-          row[m][s] = v >= 0 && f < F ? src[f] : 0.f;
-        }
-      }
-    };
-    float row[M][S], row_next[M][S];
-    int v = voxel_of(warp);
-    load_rows(v, row);
-    for (int r = warp; r < runs; r += kWarps) {
-      const int v_next = voxel_of(r + kWarps);
-      load_rows(v_next, row_next);
-      if (v >= 0) {
-        float w_sum = 0.f, s2_sum = 0.f, t[M][S];
-#pragma unroll
-        for (int m = 0; m < M; ++m)
-#pragma unroll
-          for (int s = 0; s < S; ++s) t[m][s] = 0.f;
-        const int end = r + 1 < runs ? starts[r + 1] : n;
+    auto sum_run = [&](int r, int v, Rows<M, S, L>& row) {
+      if (v < 0) return;
+      Sums<M, S, L> sums;
+      sums.clear();
+      const int begin = starts[r];
+      const int end = r + 1 < runs ? starts[r + 1] : n;
+      int frame = FRAMES ? sfr[begin] : 0;
 #pragma unroll 4
-        for (int k = starts[r]; k < end; ++k) {
-          int c[M];
-#pragma unroll
-          for (int m = 0; m < M; ++m) c[m] = scls[m * kTile + k];
-          add_record<M, S>(sw[k], c, lane, w_sum, s2_sum, t);
-        }
-        // the tile's last run may go on past the tile
-        if (end == n && base + n < R)
-          sum_past_tile<M, S>(v, base + n, ids, weights, classes, R, lane,
-                              w_sum, s2_sum, t);
-
-        const float safe_w = fmaxf(w_sum, 1e-30f);
-#pragma unroll
-        for (int m = 0; m < M; ++m) {
-          const float iw = maps.iw[m];
-          const int F = maps.features[m];
-          const float mult =
-              w_sum > 0.f
-                  ? __fsub_rn(1.f, __fdiv_rn(__fmul_rn(iw, s2_sum), safe_w))
-                  : 1.f;
-          const float scale = __fdiv_rn(iw, safe_w);
-          float* dst = maps.data[m] + (int64_t)v * F;
-#pragma unroll
-          for (int s = 0; s < S; ++s) {
-            const int f = lane + 32 * s;
-            if (f < F)
-              dst[f] = __fadd_rn(__fmul_rn(row[m][s], mult),
-                                 __fmul_rn(scale, t[m][s]));
+      for (int k = begin; k < end; ++k) {
+        if (FRAMES) {
+          const int f = sfr[k];
+          if (f != frame) {  // the frame's sub-run ends: blend, go on
+            blend<M, S, L>(maps, sums, row);
+            sums.clear();
+            frame = f;
           }
         }
+        int c[M];
+#pragma unroll
+        for (int m = 0; m < M; ++m) c[m] = scls[m * kTile + k];
+        sums.template add<G>(sw[k], c, L * g);
       }
+      // the tile's last run may go on past the tile
+      if (end == n && base + n < R)
+        sum_past_tile<M, S, L, G, FRAMES>(maps, v, base + n, ids, weights,
+                                          classes, frames, R, g, mask, sums,
+                                          row, frame);
+      blend<M, S, L>(maps, sums, row);
+      store_rows<M, S, L, G>(maps, v, g, row);
+    };
+    // a ring of P + 1 row buffers and their voxels, indexed by constants
+    // once unrolled (no register moves wait on a row in flight); the loop
+    // bounds are the warp's, so a warp's groups stay in step
+    float rows[P + 1][M][S][L];
+    int voxels[P + 1];
+    const int first = warp * (32 / G);  // the warp's first group
 #pragma unroll
-      for (int m = 0; m < M; ++m)
+    for (int k = 0; k < P; ++k) {
+      voxels[k] = voxel_of(group + k * kGroups);
+      load_rows<M, S, L, G>(maps, voxels[k], g, rows[k]);
+    }
+    for (int r0 = first; r0 < runs; r0 += (P + 1) * kGroups) {
 #pragma unroll
-        for (int s = 0; s < S; ++s) row[m][s] = row_next[m][s];
-      v = v_next;
+      for (int k = 0; k <= P; ++k) {
+        const int r = r0 + (group - first) + k * kGroups;
+        const int ahead = (k + P) % (P + 1);
+        voxels[ahead] = voxel_of(r + P * kGroups);
+        load_rows<M, S, L, G>(maps, voxels[ahead], g, rows[ahead]);
+        sum_run(r, voxels[k], rows[k]);
+      }
     }
     __syncthreads();  // the stage and starts are reused
   }
 }
 
-template <int M, int S>
+template <int M, int S, int L, int G, bool FRAMES>
 int launch(const Maps& maps, int V, const void* ids, const void* weights,
-           const void* classes, int64_t R, cudaStream_t stream) {
-  const auto kernel = splat_onehot_kernel<M, S>;
-  const int smem = 2 * stage_words(M) * (int)sizeof(int);
-  static int grid_limit[kMaxDevices] = {};
+           const void* classes, const void* frames, int64_t R,
+           cudaStream_t stream) {
+  const auto kernel = splat_onehot_kernel<M, S, L, G, FRAMES>;
+  const int smem = 2 * stage_words(M, FRAMES) * (int)sizeof(int);
+  static int grid_limit[kMaxDevices] = {};  // one table per instance
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
@@ -376,27 +507,39 @@ int launch(const Maps& maps, int V, const void* ids, const void* weights,
   const int grid = tiles < 1 ? 1 : tiles < limit ? (int)tiles : limit;
   kernel<<<grid, kThreads, smem, stream>>>(
       maps, V, (const int*)ids, (const float*)weights, (const int*)classes,
-      R);
+      (const int*)frames, R);
   return (int)cudaGetLastError();
+}
+
+bool valid_sizes(const Maps& maps, int num_maps, int64_t V, int64_t R) {
+  for (int m = 0; m < num_maps; ++m)
+    if (maps.features[m] < 1 || maps.features[m] > 32 * kMaxSlots)
+      return false;
+  return V >= 0 && V <= INT32_MAX && R >= 0;
 }
 
 template <int M>
 int launch_maps(const Maps& maps, int64_t V, const void* ids,
                 const void* weights, const void* classes, int64_t R,
                 void* stream) {
+  if (!valid_sizes(maps, M, V, R)) return (int)cudaErrorInvalidValue;
   int widest = 0;
-  for (int m = 0; m < M; ++m) {
-    if (maps.features[m] < 1 || maps.features[m] > 32 * kMaxSlots)
-      return (int)cudaErrorInvalidValue;
+  for (int m = 0; m < M; ++m)
     if (maps.features[m] > widest) widest = maps.features[m];
-  }
-  if (V < 0 || V > INT32_MAX || R < 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch ((widest + 31) / 32) {
-    case 1: return launch<M, 1>(maps, (int)V, ids, weights, classes, R, s);
-    case 2: return launch<M, 2>(maps, (int)V, ids, weights, classes, R, s);
-    case 3: return launch<M, 3>(maps, (int)V, ids, weights, classes, R, s);
-    default: return launch<M, 4>(maps, (int)V, ids, weights, classes, R, s);
+    case 1:
+      return launch<M, 1, 1, 32, false>(maps, (int)V, ids, weights, classes,
+                                    nullptr, R, s);
+    case 2:
+      return launch<M, 2, 1, 32, false>(maps, (int)V, ids, weights, classes,
+                                    nullptr, R, s);
+    case 3:
+      return launch<M, 3, 1, 32, false>(maps, (int)V, ids, weights, classes,
+                                    nullptr, R, s);
+    default:
+      return launch<M, 4, 1, 32, false>(maps, (int)V, ids, weights, classes,
+                                    nullptr, R, s);
   }
 }
 
@@ -434,5 +577,52 @@ extern "C" int splat_onehot_multi_launch(int num_maps, void* const* datas,
     case 2: return launch_maps<2>(maps, V, ids, weights, classes, R, stream);
     case 3: return launch_maps<3>(maps, V, ids, weights, classes, R, stream);
     default: return launch_maps<4>(maps, V, ids, weights, classes, R, stream);
+  }
+}
+
+extern "C" int splat_onehot_frames_launch(void* data, int F, int64_t V,
+                                          const void* ids,
+                                          const void* weights,
+                                          const void* classes,
+                                          const void* frames, int64_t R,
+                                          float iw, void* stream) {
+  Maps maps = {};
+  maps.data[0] = (float*)data;
+  maps.features[0] = F;
+  maps.iw[0] = iw;
+  if (!valid_sizes(maps, 1, V, R)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int v = (int)V;
+  constexpr int G = kFramesGroup;
+  if (F % 2 == 0 && (reinterpret_cast<uintptr_t>(data) & 7) == 0) {
+    // every row 8-byte aligned: a float2 per lane and slot
+    switch ((F + 2 * G - 1) / (2 * G)) {
+      case 1:
+        return launch<1, 1, 2, G, true>(maps, v, ids, weights, classes,
+                                        frames, R, s);
+      case 2:
+        return launch<1, 2, 2, G, true>(maps, v, ids, weights, classes,
+                                        frames, R, s);
+      case 3:
+        return launch<1, 3, 2, G, true>(maps, v, ids, weights, classes,
+                                        frames, R, s);
+      default:
+        return launch<1, 4, 2, G, true>(maps, v, ids, weights, classes,
+                                        frames, R, s);
+    }
+  }
+  switch ((F + 31) / 32) {
+    case 1:
+      return launch<1, 1, 1, 32, true>(maps, v, ids, weights, classes,
+                                       frames, R, s);
+    case 2:
+      return launch<1, 2, 1, 32, true>(maps, v, ids, weights, classes,
+                                       frames, R, s);
+    case 3:
+      return launch<1, 3, 1, 32, true>(maps, v, ids, weights, classes,
+                                       frames, R, s);
+    default:
+      return launch<1, 4, 1, 32, true>(maps, v, ids, weights, classes,
+                                       frames, R, s);
   }
 }

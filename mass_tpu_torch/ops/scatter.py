@@ -44,19 +44,24 @@ def corner_contributions(points: BinnedPoints,
     """Expand binned pixels into their 8 voxel-corner records.
 
     Returns ``(ids, weights)``, both ``[8N]`` in corner-major order (the
-    pixel of record ``k`` is ``k % N``).  ``ids`` are flat voxel ids
+    pixel of record ``k`` is ``k % N``), or ``[T, 8N]`` for T frames of
+    points ``[T, h, w]``.  ``ids`` are flat voxel ids
     ``(row * W + col) * D + z`` (int64); invalid pixels get ``H*W*D``.
     Weights are ``1e-9 + w0 * w1 * w2`` in that association order.
     """
     size_h, size_w, size_d = sizes
     num_voxels = size_h * size_w * size_d
+    lead = points.valid.shape[:-2]   # (T,) for T frames
+
+    def flat(x):
+        return x.reshape(*lead, -1)
 
     (l0, u0), (wl0, wu0) = _corner_indices_and_weights(
-        points.ind_y.reshape(-1), points.ratio_y.reshape(-1), size_h)
+        flat(points.ind_y), flat(points.ratio_y), size_h)
     (l1, u1), (wl1, wu1) = _corner_indices_and_weights(
-        points.ind_x.reshape(-1), points.ratio_x.reshape(-1), size_w)
+        flat(points.ind_x), flat(points.ratio_x), size_w)
     (l2, u2), (wl2, wu2) = _corner_indices_and_weights(
-        points.ind_z.reshape(-1), points.ratio_z.reshape(-1), size_d)
+        flat(points.ind_z), flat(points.ratio_z), size_d)
 
     ids, weights = [], []
     for i0, w0 in ((l0, wl0), (u0, wu0)):
@@ -64,8 +69,9 @@ def corner_contributions(points: BinnedPoints,
             for i2, w2 in ((l2, wl2), (u2, wu2)):
                 ids.append((i0 * size_w + i1) * size_d + i2)
                 weights.append(1e-9 + w0 * w1 * w2)
-    ids = torch.stack(ids).reshape(-1)
-    weights = torch.stack(weights).reshape(-1)
-    valid = points.valid.reshape(-1).repeat(8)
+    ids = flat(torch.stack(ids, dim=len(lead)))
+    weights = flat(torch.stack(weights, dim=len(lead)))
+    valid = flat(flat(points.valid).unsqueeze(-2).expand(
+        *lead, 8, -1))
     ids = torch.where(valid, ids, torch.full_like(ids, num_voxels))
     return ids, weights

@@ -8,8 +8,8 @@ Replaces the three TPU kernels of ``mass_tpu/ops/pallas_splat.py``:
 - ``splat_onehot_multi_cmajor`` -> :func:`apply_records_multi` (the same
   kernel body, M = 2..4): the same frame into two to four maps of one
   grid, each with its own classes and EMA weight;
-- ``splat_onehot_frames_cmajor`` -> :func:`apply_frame_runs`
-  (``csrc/splat_onehot_frames.cu``): T frames folded into one map in
+- ``splat_onehot_frames_cmajor`` -> :func:`apply_frame_records` (the same
+  kernel body with frame sub-runs): T frames folded into one map in
   order, equal to T single-map updates in a row.
 
 Every map updates in place by the same rule::
@@ -17,14 +17,14 @@ Every map updates in place by the same rule::
     W_v = sum w,  S2_v = sum w^2,  T_v[f] = sum w^2 [class == f]
     row_v = row_v * (1 - iw * S2_v / W_v) + (iw / W_v) * T_v
 
-Preparation is plain PyTorch.  For one frame it is a stable sort of the
-records by voxel id and gathers (:func:`sorted_records`, once per frame
-for all maps of a group); the kernel finds the runs of equal ids itself,
-so nothing syncs with the host between the sort and the launch.  For T
-frames :func:`frame_runs` also cuts the sorted stream into one run per
-voxel and one sub-run per frame inside it.  The kernels sum each run in
-sorted order, so an update is deterministic (no float atomics) and
-equals its plain version on the CPU bit for bit.
+Preparation is plain PyTorch: a stable int32 sort of the records by
+voxel id and gathers (:func:`sorted_records`, once per frame for all
+maps of a group; :func:`sorted_frame_records` for T frames flattened
+frame-major, which also gives each record its frame).  The kernel finds
+the runs of equal ids, and inside them the frames' sub-runs, itself, so
+nothing syncs with the host between the sort and the launch.  The
+kernels sum each run in sorted order, so an update is deterministic (no
+float atomics) and equals its plain version on the CPU bit for bit.
 
 The kernels are built with ``nvcc`` for ``sm_90a`` into ``build/kernels/``
 at first use (one library per source, all at once, :func:`build`) and
@@ -47,18 +47,20 @@ import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-LIBRARIES = ("splat_onehot", "splat_onehot_frames")
+LIBRARIES = ("splat_onehot",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 MAX_MAPS = 4
-# the largest grid whose discard id V fits the kernel's int32 ids
+# the largest grid whose discard id V fits the kernel's int32 ids, and
+# the most records one launch takes
 MAX_VOXELS = 2**31 - 1
+MAX_RECORDS = 2**31 - 1
 
 # kernel launches made by the wrappers (read by chip_smoke.py to show
 # the main path went through each kernel)
 LAUNCHES = 0          # apply_records
 MULTI_LAUNCHES = 0    # apply_records_multi
-FRAMES_LAUNCHES = 0   # apply_frame_runs
+FRAMES_LAUNCHES = 0   # apply_frame_records
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -78,22 +80,18 @@ class Records(NamedTuple):
     classes: torch.Tensor
 
 
-class FrameRuns(NamedTuple):
-    """T frames' records in one voxel-sorted stream.
+class FrameRecords(NamedTuple):
+    """T frames' records in one stream, stable-sorted by voxel id.
 
-    Run ``u`` (voxel ``ids[u]``) holds sub-runs ``sub_starts[u]`` to
-    ``sub_starts[u + 1]``, one per frame that touched the voxel, in
-    frame order; sub-run ``s`` is the record range ``starts[s]`` to
-    ``starts[s + 1]`` of frame ``frames[s]``.  All index tensors are
-    int64; ``weights``/``classes`` are the sorted records.
+    ``ids``, ``weights`` and ``classes`` are ``[R]`` as in
+    :class:`Records`; ``frames [R]`` (int32) is each record's frame,
+    nondecreasing inside every voxel's run.
     """
 
     ids: torch.Tensor
-    sub_starts: torch.Tensor
-    starts: torch.Tensor
-    frames: torch.Tensor
     weights: torch.Tensor
     classes: torch.Tensor
+    frames: torch.Tensor
 
 
 def _cut(keys_sorted: torch.Tensor):
@@ -106,10 +104,10 @@ def _cut(keys_sorted: torch.Tensor):
     return keys_sorted[first], torch.cat([first, first.new_full((1,), n)])
 
 
-def sort_ids(ids: torch.Tensor, dtype: torch.dtype = torch.int32):
-    """Stable sort of voxel ids in ``dtype`` (ties keep record order):
+def sort_ids(ids: torch.Tensor):
+    """Stable sort of voxel ids as int32 (ties keep record order):
     ``(sorted ids, order)``."""
-    return torch.sort(ids.to(dtype), stable=True)
+    return torch.sort(ids.to(torch.int32), stable=True)
 
 
 def gather_records(ids_sorted: torch.Tensor, order: torch.Tensor,
@@ -140,39 +138,34 @@ def sorted_records(ids: torch.Tensor, weights: torch.Tensor,
     return records._replace(classes=records.classes[0])
 
 
-def gather_frames(order: torch.Tensor, weights: torch.Tensor,
-                  classes: torch.Tensor):
-    """T frames' weights and classes (``classes [T, N]``) in the sorted
-    order of their flattened ``[T * 8N]`` records."""
-    cls8 = classes.reshape(classes.shape[0], -1).to(torch.int32).repeat(1, 8)
-    return (weights.reshape(-1)[order].to(torch.float32).contiguous(),
-            cls8.reshape(-1)[order].contiguous())
+def gather_frame_records(ids_sorted: torch.Tensor, order: torch.Tensor,
+                         weights: torch.Tensor,
+                         classes: torch.Tensor) -> FrameRecords:
+    """T frames' records in the sorted order of their flattened
+    ``[T * 8N]`` records: weights, classes (record ``t * 8N + j`` has
+    ``classes[t, j % N]``, ``classes [T, N]``) and frames ``order //
+    8N``."""
+    num_frames = classes.shape[0]
+    per_frame = order.shape[0] // num_frames
+    pixels = classes.shape[-1]
+    frames = order // per_frame
+    cls = classes.reshape(-1).to(torch.int32)
+    return FrameRecords(
+        ids=ids_sorted,
+        weights=weights.reshape(-1).index_select(0, order).to(
+            torch.float32).contiguous(),
+        classes=cls.index_select(0, (order % pixels).add_(frames,
+                                                          alpha=pixels)),
+        frames=frames.to(torch.int32))
 
 
-def cut_frames(ids_sorted: torch.Tensor, order: torch.Tensor,
-               num_frames: int, weights_sorted: torch.Tensor,
-               classes_sorted: torch.Tensor) -> FrameRuns:
-    """Cut T frames' sorted records into one run per voxel and one
-    sub-run per (voxel, frame)."""
-    per_frame = ids_sorted.shape[0] // num_frames
-    # frame order within a voxel is nondecreasing, so (voxel, frame)
-    # keys are sorted too
-    sub_keys, starts = _cut(ids_sorted * num_frames + order // per_frame)
-    run_ids, sub_starts = _cut(sub_keys // num_frames)
-    return FrameRuns(ids=run_ids, sub_starts=sub_starts, starts=starts,
-                     frames=sub_keys % num_frames, weights=weights_sorted,
-                     classes=classes_sorted)
-
-
-def frame_runs(ids: torch.Tensor, weights: torch.Tensor,
-               classes: torch.Tensor) -> FrameRuns:
+def sorted_frame_records(ids: torch.Tensor, weights: torch.Tensor,
+                         classes: torch.Tensor) -> FrameRecords:
     """Records of T frames (``ids``/``weights [T, 8N]``, ``classes
-    [T, N]``) flattened frame-major and stable-sorted by voxel id, so
-    within a voxel they stay in frame order, then record order; cut into
-    one run per voxel and one sub-run per (voxel, frame)."""
-    ids_s, order = sort_ids(ids.reshape(-1), torch.int64)
-    return cut_frames(ids_s, order, ids.shape[0],
-                      *gather_frames(order, weights, classes))
+    [T, N]``) flattened frame-major and stable-sorted by voxel id (int32),
+    so within a voxel they stay in frame order, then record order."""
+    return gather_frame_records(*sort_ids(ids.reshape(-1)), weights,
+                                classes.reshape(ids.shape[0], -1))
 
 
 # ----------------------------------------------------------------------
@@ -248,24 +241,19 @@ def splat_onehot_multi_reference(datas: Sequence[torch.Tensor],
     return list(datas)
 
 
-def splat_onehot_frames_reference(data: torch.Tensor, runs: FrameRuns,
+def splat_onehot_frames_reference(data: torch.Tensor,
+                                  records: FrameRecords,
                                   interpolation_weight: float
                                   ) -> torch.Tensor:
     """Plain PyTorch version of the frames kernel:
     :func:`splat_onehot_reference` frame by frame, in frame order, on
-    each frame's sub-runs."""
-    sub_counts = runs.starts[1:] - runs.starts[:-1]
-    sub_ids = torch.repeat_interleave(
-        runs.ids, runs.sub_starts[1:] - runs.sub_starts[:-1])
-    record_frame = torch.repeat_interleave(runs.frames, sub_counts)
-    for t in torch.unique(runs.frames).tolist():
-        sel = runs.frames == t
-        rec = record_frame == t
-        counts = sub_counts[sel]
-        _splat_runs(data, sub_ids[sel],
-                    torch.cat([counts.new_zeros(1), counts.cumsum(0)]),
-                    runs.weights[rec], runs.classes[rec],
-                    interpolation_weight)
+    each frame's records (in sorted order they are that frame's
+    :func:`sorted_records`)."""
+    for t in torch.unique(records.frames).tolist():
+        sel = records.frames == t
+        splat_onehot_reference(data, Records(
+            records.ids[sel], records.weights[sel], records.classes[sel]),
+            interpolation_weight)
     return data
 
 
@@ -327,11 +315,10 @@ _ENTRIES = {
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
         ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_void_p]),
-    "splat_onehot_frames": ("splat_onehot_frames", [
+    "splat_onehot_frames": ("splat_onehot", [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_float,
-        ctypes.c_void_p]),
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_float, ctypes.c_void_p]),
 }
 KERNELS = tuple(_ENTRIES)
 
@@ -356,8 +343,8 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 def tile_records() -> int:
-    """Records per tile of the built single/multi-map kernel: a run
-    longer than this crosses a tile's end."""
+    """Records per tile of the built splat kernel: a run longer than
+    this crosses a tile's end."""
     return _library("splat_onehot").splat_onehot_tile()
 
 
@@ -372,34 +359,33 @@ def _check_map(kernel: str, data: torch.Tensor, max_features: int) -> None:
                          f"{max_features}")
 
 
-def _check_tensors(kernel: str, device, tensors, dims: Dict[str, int],
-                   dtypes: Dict[str, torch.dtype]) -> None:
-    """Every field of ``tensors`` is contiguous, on ``device``, of its
-    dtype (int64 unless named in ``dtypes``) and rank (1 unless named in
-    ``dims``)."""
-    for name in tensors._fields:
-        t = getattr(tensors, name)
-        dtype = dtypes.get(name, torch.int64)
-        if t.device != device or t.dtype != dtype or \
-                t.dim() != dims.get(name, 1) or not t.is_contiguous():
-            raise ValueError(
-                f"{kernel} kernel: {name} must be a contiguous "
-                f"{dims.get(name, 1)}-D {dtype} tensor on {device}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}")
-
-
 _RECORD_DTYPES = {"ids": torch.int32, "weights": torch.float32,
-                  "classes": torch.int32}
+                  "classes": torch.int32, "frames": torch.int32}
 
 
-def _check_records(kernel: str, device, records: Records,
-                   num_voxels: int, class_dim: int) -> None:
-    _check_tensors(kernel, device, records, {"classes": class_dim},
-                   _RECORD_DTYPES)
-    if not records.ids.shape[0] == records.weights.shape[0] == \
-            records.classes.shape[-1]:
+def _check_records(kernel: str, device, records, num_voxels: int,
+                   class_dim: int) -> None:
+    """Every field of ``records`` (:class:`Records` or
+    :class:`FrameRecords`) is a contiguous tensor on ``device`` of its
+    dtype, 1-D (``classes``: ``class_dim``-D) and of one length R below
+    ``MAX_RECORDS``; V fits the kernel's int32 ids."""
+    for name in records._fields:
+        t = getattr(records, name)
+        dims = class_dim if name == "classes" else 1
+        dtype = _RECORD_DTYPES[name]
+        if t.device != device or t.dtype != dtype or t.dim() != dims or \
+                not t.is_contiguous():
+            raise ValueError(
+                f"{kernel} kernel: {name} must be a contiguous {dims}-D "
+                f"{dtype} tensor on {device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    lengths = {t.shape[-1] for t in records}
+    if len(lengths) != 1:
         raise ValueError(f"{kernel} kernel: inconsistent record shapes "
                          f"{[tuple(t.shape) for t in records]}")
+    if lengths.pop() > MAX_RECORDS:
+        raise ValueError(f"{kernel} kernel: more than {MAX_RECORDS} "
+                         "records in one launch")
     check_voxels(num_voxels)
 
 
@@ -494,30 +480,24 @@ def apply_records_multi(datas: Sequence[torch.Tensor], records: Records,
     return datas
 
 
-def apply_frame_runs(data: torch.Tensor, runs: FrameRuns,
-                     interpolation_weight: float) -> torch.Tensor:
-    """Fold T frames' prepared runs into ``data [V, F]`` in place, in
+def apply_frame_records(data: torch.Tensor, records: FrameRecords,
+                        interpolation_weight: float) -> torch.Tensor:
+    """Fold T frames' sorted records into ``data [V, F]`` in place, in
     frame order: the CUDA kernel for a CUDA map, the plain version for a
     CPU map."""
     global FRAMES_LAUNCHES
     if _device_kind([data], "frames splat") == "cpu":
-        return splat_onehot_frames_reference(data, runs,
+        return splat_onehot_frames_reference(data, records,
                                              interpolation_weight)
-    lib = _library("splat_onehot_frames")
-    _check_map("frames splat", data,
-               lib.splat_onehot_frames_max_features())
-    _check_tensors("frames splat", data.device, runs, {},
-                   {"weights": torch.float32, "classes": torch.int32})
-    if runs.sub_starts.shape[0] != runs.ids.shape[0] + 1 or \
-            runs.starts.shape[0] != runs.frames.shape[0] + 1 or \
-            runs.weights.shape != runs.classes.shape:
-        raise ValueError("frames splat kernel: inconsistent run shapes")
+    lib = _library("splat_onehot")
+    _check_map("frames splat", data, lib.splat_onehot_max_features())
+    _check_records("frames splat", data.device, records, data.shape[0], 1)
     _raise_on(lib.splat_onehot_frames_launch(
         data.data_ptr(), data.shape[1], data.shape[0],
-        runs.ids.data_ptr(), runs.sub_starts.data_ptr(),
-        runs.starts.data_ptr(), runs.weights.data_ptr(),
-        runs.classes.data_ptr(), runs.ids.shape[0],
-        float(interpolation_weight), _stream(data.device)), "frames splat")
+        records.ids.data_ptr(), records.weights.data_ptr(),
+        records.classes.data_ptr(), records.frames.data_ptr(),
+        records.ids.shape[0], float(interpolation_weight),
+        _stream(data.device)), "frames splat")
     FRAMES_LAUNCHES += 1
     return data
 
@@ -550,5 +530,7 @@ def splat_onehot_frames(data: torch.Tensor, ids: torch.Tensor,
                         interpolation_weight: float) -> torch.Tensor:
     """T frames' records (``ids``/``weights [T, 8N]``, ``classes
     [T, N]``) into ``data [V, F]`` in place, in frame order."""
-    return apply_frame_runs(data, frame_runs(ids, weights, classes),
-                            interpolation_weight)
+    check_voxels(data.shape[0])
+    return apply_frame_records(
+        data, sorted_frame_records(ids, weights, classes),
+        interpolation_weight)

@@ -203,28 +203,30 @@ def test_kernel_on_more_tiles_than_blocks(cuda, num_maps):
 
 
 def test_frames_kernel_matches_plain_versions(cuda):
-    """Three frames in one launch equal three single-map launches in a
-    row and the plain version on the CPU, bit for bit."""
+    """Three frames' sorted records in one launch equal three single-map
+    launches in a row and the plain version on the CPU, bit for bit."""
     rng = np.random.RandomState(2)
     vm = _random_map(rng, 6)
     recs = [_records(rng, vm) for _ in range(3)]
     ids = torch.stack([i for i, _ in recs])
     w = torch.stack([x for _, x in recs])
     classes = torch.from_numpy(rng.randint(0, 6, (3, 99)).astype(np.int32))
-    cpu_runs = SP.frame_runs(ids, w, classes)
-    runs = SP.FrameRuns(*(t.to(cuda) for t in cpu_runs))
+    cpu_records = SP.sorted_frame_records(ids, w, classes)
+    records = SP.sorted_frame_records(ids.to(cuda), w.to(cuda),
+                                      classes.to(cuda))
+    for a, b in zip(records, cpu_records):
+        assert torch.equal(a.cpu(), b)
     data = vm.data.to(cuda)
     before = SP.FRAMES_LAUNCHES
-    out = SP.apply_frame_runs(data.clone(), runs, 0.5)
-    again = SP.apply_frame_runs(data.clone(), runs, 0.5)
-    plain = SP.splat_onehot_frames_reference(data.clone(), runs, 0.5)
+    out = SP.apply_frame_records(data.clone(), records, 0.5)
+    again = SP.apply_frame_records(data.clone(), records, 0.5)
+    plain = SP.splat_onehot_frames_reference(data.clone(), records, 0.5)
     seq = data.clone()
     for t in range(3):
-        SP.apply_records(seq, SP.Records(*(x.to(cuda) for x in
-                                           SP.sorted_records(
-                                               ids[t], w[t], classes[t]))),
-                         0.5)
-    cpu = SP.splat_onehot_frames_reference(vm.data.clone(), cpu_runs, 0.5)
+        SP.apply_records(seq, SP.sorted_records(ids[t].to(cuda),
+                                                w[t].to(cuda),
+                                                classes[t].to(cuda)), 0.5)
+    cpu = SP.splat_onehot_frames_reference(vm.data.clone(), cpu_records, 0.5)
     torch.cuda.synchronize()
     assert SP.FRAMES_LAUNCHES == before + 2
     assert torch.equal(out, again)
@@ -232,6 +234,53 @@ def test_frames_kernel_matches_plain_versions(cuda):
     assert (out - plain).abs().max().item() <= 1e-5
     assert torch.equal(out.cpu(), cpu)
     assert not torch.equal(out, data)
+    with pytest.raises(ValueError):             # int64 frames
+        SP.apply_frame_records(data, records._replace(
+            frames=records.frames.long()), 0.5)
+    with pytest.raises(ValueError):             # a short frames stream
+        SP.apply_frame_records(data, records._replace(
+            frames=records.frames[:-1]), 0.5)
+    assert SP.FRAMES_LAUNCHES == before + 2
+
+
+def _check_frame_stream(cuda, ids, w, classes, frames, data):
+    """The frames kernel on one stream: equal to the plain version on
+    the CPU bit for bit, the same bits twice."""
+    cpu = SP.FrameRecords(*(torch.from_numpy(a)
+                            for a in (ids, w, classes, frames)))
+    gpu = SP.FrameRecords(*(t.to(cuda) for t in cpu))
+    want = SP.splat_onehot_frames_reference(torch.from_numpy(data.copy()),
+                                            cpu, 0.5)
+    before = SP.FRAMES_LAUNCHES
+    outs = [SP.apply_frame_records(torch.from_numpy(data).to(cuda), gpu,
+                                   0.5) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert SP.FRAMES_LAUNCHES == before + 2
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0].cpu(), want)
+
+
+@pytest.mark.parametrize("num_features", [54, 7, 33, 128])
+@pytest.mark.parametrize("name", sorted(TS.FRAME_STREAMS))
+def test_frames_kernel_on_chosen_subruns(cuda, name, num_features):
+    """The frames kernel on tests/torch_streams.py's T-frame streams
+    (sub-runs of 1, 31, 32, 33 records, a frame change at a tile's end, a
+    sub-run across it, a run over two tiles with three frames, T = 1, a
+    frame of discard ids only, a voxel of frames 0 and 2 but not 1,
+    negative ids), with rows as float2 (F = 54, 128) and as one float
+    per class slot (F = 7, 33)."""
+    assert SP.tile_records() == TS.TILE_RECORDS
+    _check_frame_stream(cuda, *TS.frame_stream(name, num_features,
+                                               seed=num_features))
+
+
+def test_frames_kernel_on_more_tiles_than_blocks(cuda):
+    """A T-frame stream of three times as many tiles as the card can hold
+    blocks, with sub-runs across tile ends all along: equal to the plain
+    CPU version bit for bit."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _check_frame_stream(cuda, *TS.many_tile_frame_stream(
+        3 * sms * TS.MAX_BLOCKS_PER_SM, seed=3))
 
 
 def test_frozen_protocol_random_arm_on_card(cuda, tmp_path):

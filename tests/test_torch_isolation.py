@@ -31,8 +31,9 @@ SCRIPT = textwrap.dedent("""
     assert not leaked, leaked
     from mass_tpu_torch.core.voxelmap import VoxelMap, apply_onehot_group
     from mass_tpu_torch.ops import splat
-    for entry in ("apply_records", "apply_records_multi", "apply_frame_runs",
-                  "sorted_records_multi", "frame_runs",
+    for entry in ("apply_records", "apply_records_multi",
+                  "apply_frame_records", "sorted_records_multi",
+                  "sorted_frame_records",
                   "splat_onehot_multi_reference",
                   "splat_onehot_frames_reference"):
         assert callable(getattr(splat, entry)), entry
@@ -52,15 +53,17 @@ def test_port_imports_without_jax_or_mass_tpu():
 def test_kernel_sources_stand_alone():
     """Every kernel the port builds has its CUDA source in the package,
     with a plain C interface (no PyTorch or JAX header, so nvcc builds it
-    in seconds) and its launch and limit entry points.  The single-map
-    and multi-map kernels share one source and one library."""
+    in seconds) and its launch and limit entry points.  The single-map,
+    multi-map and frames kernels share one source and one library."""
     from mass_tpu_torch.ops import splat
 
     assert splat.KERNELS == ("splat_onehot", "splat_onehot_multi",
                              "splat_onehot_frames")
-    assert splat.LIBRARIES == ("splat_onehot", "splat_onehot_frames")
-    assert not os.path.exists(os.path.join(
-        REPO, "mass_tpu_torch", "csrc", "splat_onehot_multi.cu"))
+    assert splat.LIBRARIES == ("splat_onehot",)
+    assert {lib for lib, _ in splat._ENTRIES.values()} == {"splat_onehot"}
+    for gone in ("splat_onehot_multi.cu", "splat_onehot_frames.cu"):
+        assert not os.path.exists(os.path.join(
+            REPO, "mass_tpu_torch", "csrc", gone))
     for name in splat.LIBRARIES:
         source, library = splat._paths(name)
         with open(source) as f:

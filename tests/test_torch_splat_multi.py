@@ -180,13 +180,17 @@ def test_mapset_group_is_one_multi_splat():
     jmaps.reset_all(origin)
     tmaps.reset_all(origin)
     calls = []
-    real = SP.splat_onehot_multi
+    real = SP.apply_records_multi, SP.sorted_records_multi
 
     def counted(datas, *args):
         calls.append([tuple(d.shape) for d in datas])
-        return real(datas, *args)
+        return real[0](datas, *args)
+
+    def sorted_once(*args):
+        calls.append("sort")
+        return real[1](*args)
     rng = np.random.RandomState(8)
-    SP.splat_onehot_multi = counted
+    SP.apply_records_multi, SP.sorted_records_multi = counted, sorted_once
     try:
         for _ in range(3):
             obs = dict(depth=rng.uniform(0.05, 2.2, (cam, cam, 1)).astype(
@@ -198,8 +202,8 @@ def test_mapset_group_is_one_multi_splat():
             jmaps.update_group(["occupancy", "semantic0"], dict(obs))
             tmaps.update_group(["occupancy", "semantic0"], dict(obs))
     finally:
-        SP.splat_onehot_multi = real
-    assert calls == [[(2048, 1), (2048, 54)]] * 3
+        SP.apply_records_multi, SP.sorted_records_multi = real
+    assert calls == ["sort", [(2048, 1), (2048, 54)]] * 3
     for name in ("occupancy", "semantic0"):
         ref = np.asarray(jmaps[name].voxel_map.grid())
         assert np.abs(ref).max() > 0

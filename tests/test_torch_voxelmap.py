@@ -171,33 +171,51 @@ def _convert_round_trip(layout, geo):
     return data
 
 
-def test_apply_onehot_group_single_map_and_multi_raises():
-    """One map takes the single-map splat; two to four maps are sorted
-    once and each equals its own single-map update bit for bit; five
-    maps raise (the multi-map kernel takes at most four)."""
-    _, tvm = _pair(7)
-    v = tvm.geometry.num_voxels
-    before = tvm.data.clone()
-    other = dataclasses.replace(tvm, data=tvm.data.clone())
-    ids = torch.tensor([0, 5, 5, v, 3, 3, 9, 0])     # one pixel, 8 corners
-    w = torch.tensor([0.3, 0.2, 0.5, 0.1, 0.05, 0.4, 0.25, 0.15])
-    cls = torch.tensor([2])
-    [out] = apply_onehot_group([tvm], ids, w, [cls])
-    assert out is tvm and not torch.equal(tvm.data, before)
-    assert torch.equal(tvm.data, other.apply_onehot(ids, w, cls).data)
-    occ = VoxelMap.create(MapGeometry(**dict(GEO, feature_size=1)),
-                          ORIGIN, device="cpu")
-    group = [dataclasses.replace(tvm, data=before.clone()), occ]
-    singles = [dataclasses.replace(tvm, data=before.clone()).apply_onehot(
-        ids, w, cls), VoxelMap.create(occ.geometry, ORIGIN,
-                                      device="cpu").apply_onehot(
-        ids, w, torch.tensor([0]))]
-    got = apply_onehot_group(group, ids, w, [cls, torch.tensor([0])])
-    assert got[0] is group[0] and got[1] is occ
-    for a, b in zip(got, singles):
-        assert torch.equal(a.data, b.data)
-    with pytest.raises(ValueError, match="2-4 maps"):
-        apply_onehot_group([tvm] * 5, ids, w, [cls] * 5)
+# (features, EMA weight) of a group's maps, occupancy first
+GROUP_MAPS = ((1, 0.5), (6, 0.25), (6, 0.75), (3, 0.5), (6, 0.125))
+
+
+@pytest.mark.parametrize("num_maps", [1, 2, 5])
+def test_apply_onehot_group_equals_per_map_updates(num_maps):
+    """A group is sorted once and goes to the kernels in chunks of at
+    most four maps (two to four: the multi-map splat, one: the single-map
+    splat), so five maps are four and one.  Every map equals its own
+    single-map update bit for bit and mass_tpu's apply_onehot_group
+    (per-map updates) to atol 1e-5."""
+    from mass_tpu.core.voxelmap import apply_onehot_group as japply_group
+
+    rng = np.random.RandomState(7)
+    fr = _frames(7, n=1)[0]
+    rays = np.asarray(JG.camera_rays(CAM, CAM, 7.0, 7.0))
+    maps = GROUP_MAPS[:num_maps]
+    grids = [rng.rand(32, 16, 4, f).astype(np.float32) for f, _ in maps]
+    classes = [rng.randint(0, f, (CAM, CAM)).astype(np.int32)
+               for f, _ in maps]
+
+    def port_maps():
+        return [VoxelMap.create(MapGeometry(**dict(
+            GEO, feature_size=f, interpolation_weight=iw)), ORIGIN,
+            device="cpu").with_grid(_t(g)) for (f, iw), g in zip(maps, grids)]
+    group = port_maps()
+    ids, w = group[0].contributions(_t(rays), _t(fr["pos"]),
+                                    float(fr["yaw"]), float(fr["elev"]),
+                                    _t(fr["depth"]))
+    got = apply_onehot_group(group, ids, w, [_t(c) for c in classes])
+    assert all(a is b for a, b in zip(got, group))
+    jvms = [JVoxelMap.create(JMapGeometry(**dict(
+        GEO, feature_size=f, interpolation_weight=iw, layout="vmajor")),
+        ORIGIN).with_grid(jnp.asarray(g)) for (f, iw), g in zip(maps, grids)]
+    jax_group = japply_group(jvms, jnp.asarray(ids.numpy()),
+                             jnp.asarray(w.numpy()),
+                             [jnp.asarray(c) for c in classes])
+    for vm, single, cls, jvm, grid in zip(got, port_maps(), classes,
+                                          jax_group, grids):
+        assert torch.equal(vm.data, single.apply_onehot(ids, w,
+                                                        _t(cls)).data)
+        assert not np.array_equal(vm.grid().numpy(), grid)
+        np.testing.assert_allclose(vm.grid().numpy(),
+                                   np.asarray(jvm.grid()), atol=1e-5,
+                                   rtol=0)
 
 
 @pytest.mark.parametrize("kind", ["semantic", "occupancy"])

@@ -1,7 +1,7 @@
 """Sorted record streams with chosen run lengths for the port's splat
-kernel and its plain version, and a naive float32 loop of the same
-update.  No JAX: ``tests/test_torch_gpu.py`` runs on a machine that has
-only PyTorch.
+kernel and its plain version (one frame, and T frames with chosen
+sub-runs), and naive float32 loops of the same updates.  No JAX:
+``tests/test_torch_gpu.py`` runs on a machine that has only PyTorch.
 """
 
 import numpy as np
@@ -96,3 +96,100 @@ def naive_splat(datas, ids, weights, classes, iws):
             v = ids[run[0]]
             out[v] = (out[v] * mult).astype(f32) + (scale * t[m]).astype(f32)
     return outs
+
+
+T = TILE_RECORDS
+
+
+def _random_runs(num_frames: int, num_runs: int):
+    """Runs of about 19 records, each record of a random frame."""
+    rng = np.random.RandomState(8)
+    return tuple(
+        tuple(zip(*np.unique(rng.randint(0, num_frames, n),
+                             return_counts=True)))
+        for n in rng.geometric(1 / 19, num_runs))
+
+
+# T-frame streams: (frames, runs of negative ids, runs of valid voxels,
+# the discard run); a run is its sub-runs as (frame, records) pairs in
+# frame order
+FRAME_STREAMS = {
+    "subruns_1_31_32_33": (4, (), (((0, 1), (1, 31), (2, 32), (3, 33)),
+                                   ((0, 33), (2, 32)), ((1, 31), (3, 1)),
+                                   ((3, 32),)), ((0, 2), (2, 3))),
+    # the second run's frame 1 starts at record T exactly
+    "frame_change_at_tile_end": (2, (), (((0, T - 5),), ((0, 5), (1, 20)),
+                                         ((1, 3),)), ((1, 4),)),
+    # frame 1's sub-run covers records T - 30 .. T + 29
+    "subrun_straddles_tile": (3, (), (((0, T - 40),),
+                                      ((0, 10), (1, 60), (2, 5)),
+                                      ((2, 7),)), ((0, 1),)),
+    "run_over_two_tiles_three_frames": (3, (), (
+        ((1, 3),), ((0, 700), (1, 1200), (2, 900)), ((0, 2), (2, 2))),
+        ((0, 5),)),
+    "one_frame": (1, (), (((0, 1),), ((0, 31),), ((0, 32),), ((0, 33),),
+                          ((0, T + 5),)), ((0, 9),)),
+    "frame_of_discards_only": (3, (), (((0, 4), (2, 6)), ((0, 40),),
+                                       ((2, 1),)),
+                               ((0, 3), (1, 50), (2, 2))),
+    "skips_frame_1": (3, (), (((0, 5), (2, 7)), ((1, 9),),
+                              ((0, 3), (1, 2), (2, 4)),
+                              ((0, 12), (2, 33))), ((1, 3),)),
+    "negative_ids": (2, (((0, 3),), ((0, 2), (1, T + 5))),
+                     (((0, 33), (1, 2)), ((1, 4),)), ((0, 1), (1, 3))),
+    "many_runs": (8, (), _random_runs(8, 400), ((3, T + 1),)),
+}
+
+
+def _frame_records(runs):
+    """(frames, records per run) of runs given as sub-run pairs."""
+    frames = [np.repeat([f for f, _ in run], [c for _, c in run])
+              for run in runs]
+    return frames, [len(f) for f in frames]
+
+
+def frame_stream(name: str, num_features: int = 54, seed: int = 0):
+    """One T-frame stream as numpy: sorted int32 ids ``[R]``, float32
+    weights ``[R]``, int32 classes ``[R]`` (a few outside ``[0, F)``),
+    int32 frames ``[R]`` (nondecreasing inside each run) and a map
+    ``[V, F]`` of random values."""
+    rng = np.random.RandomState(seed)
+    _, negative, runs, discarded = FRAME_STREAMS[name]
+    voxels = np.sort(rng.choice(NUM_VOXELS, len(runs), replace=False))
+    neg_frames, neg_lengths = _frame_records(negative)
+    frames, lengths = _frame_records(runs)
+    disc_frames, [num_discarded] = _frame_records([discarded])
+    ids = np.concatenate([
+        np.repeat(np.arange(-len(negative), 0), neg_lengths),
+        np.repeat(voxels, lengths),
+        np.full(num_discarded, NUM_VOXELS)]).astype(np.int32)
+    frames = np.concatenate(neg_frames + frames + disc_frames).astype(
+        np.int32)
+    weights = rng.uniform(1e-9, 1.0, ids.shape[0]).astype(np.float32)
+    classes = rng.randint(-1, num_features + 1, ids.shape[0]).astype(
+        np.int32)
+    data = rng.rand(NUM_VOXELS, num_features).astype(np.float32)
+    return ids, weights, classes, frames, data
+
+
+def many_tile_frame_stream(num_tiles: int, num_frames: int = 8,
+                           seed: int = 0):
+    """:func:`many_tile_stream`'s one-map records with random frames in
+    ``[0, num_frames)``, sorted inside each run, so sub-runs cross tile
+    ends all along: ``(ids, weights, classes, frames, data)``."""
+    ids, weights, classes, [data] = many_tile_stream(num_tiles, 1, seed)
+    frames = np.random.RandomState(seed).randint(
+        0, num_frames, ids.shape[0]).astype(np.int32)
+    order = np.lexsort((frames, ids))
+    return ids, weights, classes[0], frames[order], data
+
+
+def naive_frames_splat(data, ids, weights, classes, frames, iw):
+    """T frames in frame order, each a :func:`naive_splat` of that
+    frame's records: what T single-map updates in a row compute."""
+    out = data
+    for t in np.unique(frames):
+        sel = frames == t
+        [out] = naive_splat([out], ids[sel], weights[sel],
+                            classes[None, sel], [iw])
+    return out
