@@ -47,26 +47,28 @@
 //   record's id, so a run start is a compare on shared memory; warp
 //   ballots and one warp's scan of their counts compact the starts in
 //   record order.
-// - A run is owned by the tile that holds its first record.  One warp
-//   (or half of one, below) sums one run: each lane reads every record's
-//   (w, class, frame) from shared memory as a broadcast and keeps its
-//   share of every map's classes in registers.  A run that reaches the
-//   tile's end is finished by its owner from global memory, 4 records per
-//   lane per load, frame changes included, so runs and sub-runs of any
-//   length are right.
-// - A warp loads the rows of its next run (every map's, the F = 1
+// - A run is owned by the tile that holds its first record.  A group of
+//   lanes sums one run: each lane reads every record's (w, class, frame)
+//   from shared memory as a broadcast and keeps its share of every map's
+//   classes in registers.  Only a tile's last run can go on past the
+//   tile; a whole warp finishes it from global memory, 128 records per
+//   load, frame changes included, so runs and sub-runs of any length are
+//   right.
+// - A group loads the rows of its next run (every map's, the F = 1
 //   occupancy row included, one predicated load each) before it sums the
 //   current one, so row latency overlaps the sums; each row is then
 //   written once.
-// - T frames: one group of 8 bench.py frames touches about 1.3M voxels
-//   with about 2.2 records each, so the rows are the bytes, but row
-//   latency is not what limits: three runs ahead measured no faster than
-//   one.  The per-run work (the row's address, the blend's two IEEE
-//   divides, the loop) is issued once per run by every lane of its
-//   group, so where F is even and the map 8-byte aligned, half a warp (16 lanes,
-//   a float2 of neighbouring classes per lane and slot) sums a run, and a
-//   warp sums two runs at once; F odd takes the whole warp, a float per
-//   lane and slot.
+// - One frame: a group is the whole warp.  T frames: one group of 8
+//   bench.py frames touches about 1.3M voxels with about 2.2 records
+//   each, so the rows are the bytes, but row latency is not what limits:
+//   three runs ahead measured no faster than one.  The per-run work (the
+//   row's address, the blend's two IEEE divides, the loop) is issued once
+//   per run by every lane of its group, so where F is even and the map
+//   8-byte aligned, 8 lanes sum a run (16 for F > 64), each with a float2
+//   of neighbouring classes in each of 4 slots, and a warp sums four runs
+//   at once.  The tile's last run goes to a whole warp first, which
+//   reads on past the tile 128 records per load.  F odd takes the whole
+//   warp, a float per lane and slot.
 //
 // Bound: memory.  The work is a few operations per byte: per valid
 // record its int32 id, weight, M classes and (T frames) its frame, per
@@ -74,15 +76,22 @@
 // run is serial by its definition (sorted-order sums), so records that
 // crowd into few voxels are bounded by the longest run instead.
 //
-// Where the time goes (PERF.md): for one frame the per-record sums are
-// more than half of the kernel.  Each record costs every lane of its warp
-// about ten issued instructions (two shared loads, w*w, two adds, and a
-// compare and a predicated add per class slot and map), the price of
-// summing in record order with no atomics.  Smaller tiles, more threads
-// per block, handing runs to warps through a counter, and staging records
-// after a tile for the runs that cross its end all measured slower or no
-// faster for one frame, and so did giving each warp the runs that start
-// in its share of the tile instead of every kWarps-th run.
+// Where the time goes (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W): for one
+// frame the per-record sums are more than half of the kernel.  Each
+// record costs every lane of its warp about ten issued instructions (two
+// shared loads, w*w, two adds, and a compare and a predicated add per
+// class slot and map), the price of summing in record order with no
+// atomics.  Smaller tiles, more threads per block, handing runs to warps
+// through a counter, and staging records after a tile for the runs that
+// cross its end all measured slower or no faster for one frame, and so
+// did giving each warp the runs that start in its share of the tile
+// instead of every kWarps-th run.  For 8 bench.py frames (bound 0.178 ms)
+// one run measured 0.467 ms with a warp per run, 0.358 ms with 16 lanes
+// and 0.296 ms with 8; the kernel as built took 0.280 ms.  The per-run
+// work issued sets the time, not the rows in flight: more runs ahead, or
+// fewer registers for more resident blocks, measured no faster.  Records
+// that crowd into few voxels stay serial per run: 8 frames of a wall
+// 0.3 m ahead, runs of up to 9,430 records, take 1.9 ms.
 //
 // The launch goes on the caller's stream, allocates nothing and does not
 // synchronise; the entries return cudaGetLastError().
@@ -100,9 +109,8 @@ constexpr int kBallots = kPasses * kWarps;  // = kTile / 32
 constexpr int kHalo = 4;                   // id words staged before a tile
 constexpr int kMaxMaps = 4;
 constexpr int kMaxSlots = 4;               // F_m <= 32 * kMaxSlots
-constexpr int kChunks = 4;  // records per lane per read past a tile
-constexpr int kAhead = 1;  // runs whose rows load ahead of the one summed
-constexpr int kFramesGroup = 16;  // lanes per run for T frames, F even
+constexpr int kChunks = 4;  // 32-record chunks per read past a tile
+constexpr int kFramesSlots = 4;  // float2 slots per lane, T frames, F even
 constexpr int kMaxDevices = 16;
 constexpr unsigned kAll = 0xffffffffu;
 
@@ -178,8 +186,8 @@ __device__ __forceinline__ void load_tile(int* stage, int64_t tile,
     cp_async4(stage + kHalo - 1, ids + base - 1);
 }
 
-// A run is summed by a group of G lanes (the warp, or half of it, which
-// then sums two runs at once).  Lane g of the group holds, in slot s and
+// A run is summed by a group of G lanes (the warp, or a part of it that
+// sums its own run beside the others).  Lane g of the group holds, in slot s and
 // element j, class L * (g + G s) + j of each of M rows (L = 2: a float2
 // of neighbouring classes).
 template <int M, int S, int L>
@@ -289,53 +297,95 @@ __device__ __forceinline__ void store_rows(const Maps& maps, int v, int g,
   }
 }
 
-// The rest of voxel v's run from record r on, read from global memory by
-// the run's group of G lanes (g: the lane in it, mask: its lanes); for T
-// frames, a frame change blends the row and starts new sums.
-template <int M, int S, int L, int G, bool FRAMES>
-__device__ void sum_past_tile(const Maps& maps, int v, int64_t r,
-                              const int* ids, const float* weights,
-                              const int* classes, const int* frames,
-                              int64_t R, int g, unsigned mask,
-                              Sums<M, S, L>& sums, Rows<M, S, L>& row,
-                              int& frame) {
-  const int shift = __ffs(mask) - 1;  // the group's first lane
-  for (;; r += G * kChunks) {
+// The tile's staged records and the stream they come from.
+struct Tile {
+  const int* sid;      // sid[-1]: the previous record's id
+  const float* sw;
+  const int* scls;
+  const int* sfr;      // T frames only
+  int64_t base;        // the tile's first record
+  int n;               // its records
+  const int* ids;      // the whole stream
+  const float* weights;
+  const int* classes;
+  const int* frames;
+  int64_t R;
+};
+
+// A frame change inside a run ends a sub-run: blend the row, start anew.
+template <int M, int S, int L>
+__device__ __forceinline__ void next_frame(const Maps& maps, int f,
+                                           int& frame, Sums<M, S, L>& sums,
+                                           Rows<M, S, L>& row) {
+  if (f != frame) {
+    blend<M, S, L>(maps, sums, row);
+    sums.clear();
+    frame = f;
+  }
+}
+
+// The rest of voxel v's run from record r on, read by the whole warp from
+// global memory, 128 records per load.
+template <int M, int S, int L, bool FRAMES>
+__device__ void sum_past_tile(const Maps& maps, const Tile& t, int v,
+                              int64_t r, int lane, Sums<M, S, L>& sums,
+                              Rows<M, S, L>& row, int& frame) {
+  for (;; r += 32 * kChunks) {
     int id[kChunks], c[kChunks][M], fr[kChunks];
     float w[kChunks];
 #pragma unroll
     for (int q = 0; q < kChunks; ++q) {
-      const int64_t x = r + G * q + g;
-      const bool in = x < R;
-      id[q] = in ? ids[x] : -1;
-      w[q] = in ? weights[x] : 0.f;
+      const int64_t x = r + 32 * q + lane;
+      const bool in = x < t.R;
+      id[q] = in ? t.ids[x] : -1;
+      w[q] = in ? t.weights[x] : 0.f;
 #pragma unroll
-      for (int m = 0; m < M; ++m) c[q][m] = in ? classes[m * R + x] : -1;
-      fr[q] = FRAMES && in ? frames[x] : 0;
+      for (int m = 0; m < M; ++m) c[q][m] = in ? t.classes[m * t.R + x] : -1;
+      fr[q] = FRAMES && in ? t.frames[x] : 0;
     }
 #pragma unroll
     for (int q = 0; q < kChunks; ++q) {
       // ids are sorted: the run ends at the first record of another id
-      const unsigned stop =
-          (__ballot_sync(mask, id[q] != v) & mask) >> shift;
-      const int count = stop ? __ffs(stop) - 1 : G;
+      const unsigned stop = __ballot_sync(kAll, id[q] != v);
+      const int count = stop ? __ffs(stop) - 1 : 32;
       for (int k = 0; k < count; ++k) {
-        if (FRAMES) {
-          const int f = __shfl_sync(mask, fr[q], k, G);
-          if (f != frame) {
-            blend<M, S, L>(maps, sums, row);
-            sums.clear();
-            frame = f;
-          }
-        }
+        if (FRAMES)
+          next_frame<M, S, L>(maps, __shfl_sync(kAll, fr[q], k), frame,
+                              sums, row);
         int ck[M];
 #pragma unroll
-        for (int m = 0; m < M; ++m) ck[m] = __shfl_sync(mask, c[q][m], k, G);
-        sums.template add<G>(__shfl_sync(mask, w[q], k, G), ck, L * g);
+        for (int m = 0; m < M; ++m) ck[m] = __shfl_sync(kAll, c[q][m], k);
+        sums.template add<32>(__shfl_sync(kAll, w[q], k), ck, L * lane);
       }
       if (stop) return;
     }
   }
+}
+
+// Voxel v's run, records begin..end of the tile, summed by a group of G
+// lanes (g: the lane in it) into its rows, then blended and stored.  A
+// whole warp also sums what goes on past the tile.
+template <int M, int S, int L, int G, bool FRAMES>
+__device__ __forceinline__ void sum_run(const Maps& maps, const Tile& t,
+                                        int begin, int end, int v, int g,
+                                        Rows<M, S, L>& row) {
+  Sums<M, S, L> sums;
+  sums.clear();
+  int frame = FRAMES ? t.sfr[begin] : 0;
+#pragma unroll 4
+  for (int k = begin; k < end; ++k) {
+    if (FRAMES) next_frame<M, S, L>(maps, t.sfr[k], frame, sums, row);
+    int c[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) c[m] = t.scls[m * kTile + k];
+    sums.template add<G>(t.sw[k], c, L * g);
+  }
+  if constexpr (G == 32)
+    if (end == t.n && t.base + t.n < t.R)
+      sum_past_tile<M, S, L, FRAMES>(maps, t, v, t.base + t.n, g, sums, row,
+                                     frame);
+  blend<M, S, L>(maps, sums, row);
+  store_rows<M, S, L, G>(maps, v, g, row);
 }
 
 template <int M, int S, int L, int G, bool FRAMES>
@@ -345,8 +395,9 @@ __global__ void __launch_bounds__(kThreads)
                         const int* __restrict__ classes,
                         const int* __restrict__ frames, int64_t R) {
   constexpr int kStage = stage_words(M, FRAMES);
-  constexpr int P = kAhead;
   constexpr int kGroups = kWarps * (32 / G);  // runs summed at once
+  constexpr int S32 = S * G / 32;             // slots of a whole warp
+  static_assert(32 % G == 0 && S * G % 32 == 0, "groups tile the warp");
   extern __shared__ __align__(16) int smem[];
   __shared__ int starts[kTile];
   __shared__ unsigned ballots[kBallots];
@@ -355,9 +406,9 @@ __global__ void __launch_bounds__(kThreads)
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int g = lane % G;            // lane in its group
+  const int g = lane % G;             // lane in its group
   const int group = threadIdx.x / G;
-  const unsigned mask = (kAll >> (32 - G)) << (lane - g);  // group's lanes
+  const int first = warp * (32 / G);  // the warp's first group
   const int64_t num_tiles = (R + kTile - 1) / kTile;
 
   int64_t tile = blockIdx.x;
@@ -377,10 +428,12 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t base = tile * kTile;
     const int64_t left = R - base;
     const int n = left < kTile ? (int)left : kTile;
-    const int* sid = stage + kHalo;  // sid[-1]: the previous record's id
-    const float* sw = reinterpret_cast<const float*>(stage + kHalo + kTile);
-    const int* scls = stage + kHalo + 2 * kTile;
-    const int* sfr = stage + kHalo + (2 + M) * kTile;  // T frames only
+    const Tile t = {stage + kHalo,
+                    reinterpret_cast<const float*>(stage + kHalo + kTile),
+                    stage + kHalo + 2 * kTile,
+                    stage + kHalo + (2 + M) * kTile,
+                    base, n, ids, weights, classes, frames, R};
+    const int* sid = t.sid;
 
     // 1. run starts: a record whose id differs from the one before it
 #pragma unroll
@@ -415,63 +468,47 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
     const int runs = num_runs;
-
-    // 2. one group per run, every kGroups-th run, with the rows of the
-    // next run in flight
-    auto voxel_of = [&](int r) {
-      if (r >= runs) return -1;
+    auto voxel = [&](int r) {  // -1: the discard id or a negative id
       const int v = sid[starts[r]];
-      return v >= 0 && v < V ? v : -1;  // -1: none, or the discard id
+      return v >= 0 && v < V ? v : -1;
     };
-    auto sum_run = [&](int r, int v, Rows<M, S, L>& row) {
-      if (v < 0) return;
-      Sums<M, S, L> sums;
-      sums.clear();
-      const int begin = starts[r];
-      const int end = r + 1 < runs ? starts[r + 1] : n;
-      int frame = FRAMES ? sfr[begin] : 0;
-#pragma unroll 4
-      for (int k = begin; k < end; ++k) {
-        if (FRAMES) {
-          const int f = sfr[k];
-          if (f != frame) {  // the frame's sub-run ends: blend, go on
-            blend<M, S, L>(maps, sums, row);
-            sums.clear();
-            frame = f;
-          }
+
+    // 2. With groups smaller than a warp, the tile's last run, which may
+    // go on past the tile, is summed first by the last warp as a whole;
+    // the groups take the others.
+    int group_runs = runs;
+    if constexpr (G < 32) {
+      if (runs > 0 && base + n < R) {
+        group_runs = runs - 1;
+        const int v = voxel(runs - 1);
+        if (warp == kWarps - 1 && v >= 0) {
+          float row[M][S32][L];
+          load_rows<M, S32, L, 32>(maps, v, lane, row);
+          sum_run<M, S32, L, 32, FRAMES>(maps, t, starts[runs - 1], n, v,
+                                         lane, row);
         }
-        int c[M];
-#pragma unroll
-        for (int m = 0; m < M; ++m) c[m] = scls[m * kTile + k];
-        sums.template add<G>(sw[k], c, L * g);
       }
-      // the tile's last run may go on past the tile
-      if (end == n && base + n < R)
-        sum_past_tile<M, S, L, G, FRAMES>(maps, v, base + n, ids, weights,
-                                          classes, frames, R, g, mask, sums,
-                                          row, frame);
-      blend<M, S, L>(maps, sums, row);
-      store_rows<M, S, L, G>(maps, v, g, row);
-    };
-    // a ring of P + 1 row buffers and their voxels, indexed by constants
-    // once unrolled (no register moves wait on a row in flight); the loop
-    // bounds are the warp's, so a warp's groups stay in step
-    float rows[P + 1][M][S][L];
-    int voxels[P + 1];
-    const int first = warp * (32 / G);  // the warp's first group
-#pragma unroll
-    for (int k = 0; k < P; ++k) {
-      voxels[k] = voxel_of(group + k * kGroups);
-      load_rows<M, S, L, G>(maps, voxels[k], g, rows[k]);
     }
-    for (int r0 = first; r0 < runs; r0 += (P + 1) * kGroups) {
+
+    // 3. one group per run, every kGroups-th run, the rows of the next in
+    // flight: a ring of two row buffers and their voxels, indexed by
+    // constants once unrolled (no register move waits on a row in flight);
+    // the loop bounds are the warp's, so its groups stay in step
+    auto voxel_of = [&](int r) { return r < group_runs ? voxel(r) : -1; };
+    auto run_end = [&](int r) { return r + 1 < runs ? starts[r + 1] : n; };
+    float rows[2][M][S][L];
+    int voxels[2];
+    voxels[0] = voxel_of(group);
+    load_rows<M, S, L, G>(maps, voxels[0], g, rows[0]);
+    for (int r0 = first; r0 < group_runs; r0 += 2 * kGroups) {
 #pragma unroll
-      for (int k = 0; k <= P; ++k) {
+      for (int k = 0; k < 2; ++k) {
         const int r = r0 + (group - first) + k * kGroups;
-        const int ahead = (k + P) % (P + 1);
-        voxels[ahead] = voxel_of(r + P * kGroups);
-        load_rows<M, S, L, G>(maps, voxels[ahead], g, rows[ahead]);
-        sum_run(r, voxels[k], rows[k]);
+        voxels[k ^ 1] = voxel_of(r + kGroups);
+        load_rows<M, S, L, G>(maps, voxels[k ^ 1], g, rows[k ^ 1]);
+        if (voxels[k] >= 0)
+          sum_run<M, S, L, G, FRAMES>(maps, t, starts[r], run_end(r),
+                                      voxels[k], g, rows[k]);
       }
     }
     __syncthreads();  // the stage and starts are reused
@@ -593,36 +630,16 @@ extern "C" int splat_onehot_frames_launch(void* data, int F, int64_t V,
   if (!valid_sizes(maps, 1, V, R)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int v = (int)V;
-  constexpr int G = kFramesGroup;
+  constexpr int S = kFramesSlots;
   if (F % 2 == 0 && (reinterpret_cast<uintptr_t>(data) & 7) == 0) {
-    // every row 8-byte aligned: a float2 per lane and slot
-    switch ((F + 2 * G - 1) / (2 * G)) {
-      case 1:
-        return launch<1, 1, 2, G, true>(maps, v, ids, weights, classes,
-                                        frames, R, s);
-      case 2:
-        return launch<1, 2, 2, G, true>(maps, v, ids, weights, classes,
-                                        frames, R, s);
-      case 3:
-        return launch<1, 3, 2, G, true>(maps, v, ids, weights, classes,
-                                        frames, R, s);
-      default:
-        return launch<1, 4, 2, G, true>(maps, v, ids, weights, classes,
-                                        frames, R, s);
-    }
+    // every row 8-byte aligned: a float2 per lane and slot, 8 lanes for
+    // up to 64 classes, 16 for up to 128
+    if (F <= 2 * S * 8)
+      return launch<1, S, 2, 8, true>(maps, v, ids, weights, classes, frames,
+                                      R, s);
+    return launch<1, S, 2, 16, true>(maps, v, ids, weights, classes, frames,
+                                     R, s);
   }
-  switch ((F + 31) / 32) {
-    case 1:
-      return launch<1, 1, 1, 32, true>(maps, v, ids, weights, classes,
-                                       frames, R, s);
-    case 2:
-      return launch<1, 2, 1, 32, true>(maps, v, ids, weights, classes,
-                                       frames, R, s);
-    case 3:
-      return launch<1, 3, 1, 32, true>(maps, v, ids, weights, classes,
-                                       frames, R, s);
-    default:
-      return launch<1, 4, 1, 32, true>(maps, v, ids, weights, classes,
-                                       frames, R, s);
-  }
+  return launch<1, kMaxSlots, 1, 32, true>(maps, v, ids, weights, classes,
+                                           frames, R, s);
 }
