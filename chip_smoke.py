@@ -114,9 +114,7 @@ def kernel_device_ms(fn, iters: int, flush: torch.Tensor) -> float:
             flush.zero_()
             fn()
         torch.cuda.synchronize()
-    total = sum(getattr(e, "device_time_total", None)
-                or getattr(e, "cuda_time_total", 0.0)
-                for e in prof.key_averages()
+    total = sum(e.device_time_total for e in prof.key_averages()
                 if "splat_onehot_kernel" in e.key)
     return total / 1e3 / iters
 
