@@ -72,25 +72,26 @@ def check(cond, message: str) -> None:
 
 
 def cuda_ms(fn, iters: int, flush: torch.Tensor) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, each timed with
+    """Median device time of ``fn`` over ``iters`` calls, each timed with
     CUDA events after writing ``flush`` (larger than L2) so every call
     starts with a cold cache, as it does between frames.  A device-side
     sleep after the flush keeps the card busy while the host enqueues
     ``fn``, so the events bracket the device's work rather than the
     host's launch latency (a ``fn`` that synchronises inside, as the
-    plain version does, still includes its host time)."""
-    total = 0.0
+    plain version does, still includes its host time); the median keeps
+    out the calls where a stall of the shared host outlasted the sleep."""
+    times = []
     for _ in range(iters):
         flush.zero_()
-        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
         torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def host_ms(fn, iters: int) -> float:
