@@ -16,7 +16,14 @@ on the card at a small geometry (and on the CPU, which must give equal results),
 then both episodes at full width (384x384x96 voxels x 54 classes,
 224x224 camera) through ``python -m mass_tpu_torch.agent.cli``'s entry
 point, with the kernels' launch counts set to 0 before each path and
-read after it.
+read after it.  Then the lockstep fleet: ``FleetMaps`` of 8 full-width
+episodes (three families in [8V, F] buffers, 49 GB) through an
+unmasked and a mixed-mask step, held bit for bit against single-map
+kernel updates of two episodes' slabs; B = 2 fleets of the small
+episodes on the card and the CPU against the sequential agent; and
+``--fleet-size 8`` (default) and ``--fleet-size 2`` (compat) at full
+width through the CLI, whose task 2 must equal the sequential full-width
+episode, with every group splat accounted for by one kernel launch.
 
 Exits non-zero when there is no CUDA card, when a kernel fails to build,
 launch or agree, or when any phase fails.  The line before the last is
@@ -130,14 +137,14 @@ def bound(bytes_moved: int, flops: int) -> dict:
                 bytes=bytes_moved, flops=flops)
 
 
-def room_frame(camera: int, rng: np.random.RandomState):
+def room_frame(camera: int, rng: np.random.RandomState, yaw: float = 0.3):
     """Depth of a 6 m x 6 m walled room with a floor 1.5 m below the
     camera, seen from its centre looking down 30 degrees, plus random
     class ids (the splat treats every pixel alike)."""
     from mass_tpu_torch.core import geometry as G
 
     f = camera / 2.0      # 90 degree field of view
-    yaw, elevation = 0.3, -np.pi / 6
+    elevation = -np.pi / 6
     rays = G.orient_rays(G.camera_rays(camera, camera, f, f), yaw,
                          elevation).numpy().astype(np.float64)
     t = np.full(rays.shape[:2], np.inf)
@@ -649,15 +656,12 @@ def phase_wall_frames(dev) -> dict:
                 **frames_bound(stats, geo.feature_size))
 
 
-def small_episode(device: str, compat: bool = False):
-    """One two-phase episode at the JAX test suite's episode geometry
-    (80x80x24 at 0.125 m, camera 48); with ``compat`` the settings of
-    tests/test_reference_compat.py's compat episode.  Returns (results,
-    actions)."""
-    from mass_tpu_torch.agent.loop import RearrangementAgent
+def small_config(compat: bool):
+    """The JAX test suite's episode geometry (80x80x24 at 0.125 m, camera
+    48); with ``compat`` the settings of tests/test_reference_compat.py's
+    compat episode."""
     from mass_tpu_torch.config import (AgentConfig, CameraConfig,
                                        MatchConfig, NavConfig)
-    from mass_tpu_torch.env.rearrange import GridWorldTaskSampler
 
     cam = CameraConfig(height=48, width=48)
     geo = dict(camera=cam, map_height=80, map_width=80, map_depth=24,
@@ -681,10 +685,17 @@ def small_episode(device: str, compat: bool = False):
                           map_slice_start=0, map_slice_stop=12,
                           max_goal_steps=80),
             exploration_budget_one=2, exploration_budget_two=2, **geo)
-    sampler = GridWorldTaskSampler([2], camera=cam, max_steps=250,
+    return cfg
+
+
+def small_sampler(cfg, seed: int, actions: list):
+    """A sampler of the one task ``seed`` that appends every action its
+    tasks take to ``actions``."""
+    from mass_tpu_torch.env.rearrange import GridWorldTaskSampler
+
+    sampler = GridWorldTaskSampler([seed], camera=cfg.camera, max_steps=250,
                                    num_objects=2, num_misplaced=1,
                                    num_opened=0)
-    actions = []
     next_task = sampler.next_task
 
     def recording_next_task():
@@ -697,9 +708,22 @@ def small_episode(device: str, compat: bool = False):
         task.step = recorded
         return task
     sampler.next_task = recording_next_task
+    return sampler
+
+
+def small_episode(device: str, compat: bool = False, seed: int = 2,
+                  rng_seed=None):
+    """One two-phase episode of task ``seed`` at :func:`small_config`'s
+    settings.  Returns (results, actions)."""
+    from mass_tpu_torch.agent.loop import RearrangementAgent
+
+    cfg = small_config(compat)
+    actions = []
+    if rng_seed is None:
+        rng_seed = 1 if compat else 0
     agent = RearrangementAgent(
-        cfg, sampler, rng=np.random.RandomState(1 if compat else 0),
-        device=device)
+        cfg, small_sampler(cfg, seed, actions),
+        rng=np.random.RandomState(rng_seed), device=device)
     return agent.run_task(0), actions
 
 
@@ -734,7 +758,8 @@ def phase_small_episodes(compat: bool = False) -> dict:
     check(gpu_actions == cpu_actions, "cuda and cpu action sequences differ")
     check_launches(single, multi, updates, compat)
     return dict(results_equal=True, actions=len(gpu_actions),
-                launches=single, multi_launches=multi, map_updates=updates,
+                action_list=gpu_actions, launches=single,
+                multi_launches=multi, map_updates=updates,
                 cuda_s=gpu_s, cpu_s=cpu_s,
                 metrics={k: v for k, v in gpu.items() if k != "timing"})
 
@@ -770,6 +795,306 @@ def phase_full_episode(compat: bool = False) -> dict:
                 timing=results["timing"],
                 metrics={k: v for k, v in results.items()
                          if k != "timing"})
+
+
+# ----------------------------------------------------------------------
+# the lockstep fleet (parallel/fleet.py, parallel/evaluator.py)
+# ----------------------------------------------------------------------
+
+FLEET = 8
+FLEET_FAMILIES = {"semantic0": 54, "semantic1": 54, "occupancy": 1}
+# the stage times: the sequential agent's and the fleet's
+FLEET_KEYS = ("timing", "fleet_timing")
+
+
+def outcome(results: dict) -> dict:
+    return {k: v for k, v in results.items() if k not in FLEET_KEYS}
+
+
+class SplatCounter:
+    """Counts the fleet's group splats by their number of families (a
+    wrapper of ``parallel.fleet.apply_onehot_group``, which launches the
+    kernels and counts the launches itself) and each fleet's frames folded
+    per episode."""
+
+    def __enter__(self):
+        from mass_tpu_torch.parallel import evaluator as EV
+        from mass_tpu_torch.parallel import fleet as TF
+
+        self.splats, self.map_updates = [], []
+        self._apply, self._run = TF.apply_onehot_group, EV.FleetEvaluator.run
+
+        def apply(vms, *args):
+            self.splats.append(len(vms))
+            return self._apply(vms, *args)
+
+        def run(evaluator):
+            results = self._run(evaluator)
+            self.map_updates.append([ep.map_updates
+                                     for ep in evaluator.episodes])
+            return results
+        TF.apply_onehot_group, EV.FleetEvaluator.run = apply, run
+        return self
+
+    def __exit__(self, *exc):
+        from mass_tpu_torch.parallel import evaluator as EV
+        from mass_tpu_torch.parallel import fleet as TF
+
+        TF.apply_onehot_group, EV.FleetEvaluator.run = self._apply, self._run
+
+    def check(self, single: int, multi: int, compat: bool) -> dict:
+        """Every group splat of the fleet launched one kernel: the
+        single-map kernel for one family, the multi-map kernel for two or
+        three; under --reference-compat phase one's pair took the latter."""
+        one = sum(1 for n in self.splats if n == 1)
+        many = len(self.splats) - one
+        check(single == one and multi == many,
+              f"{single} single-map + {multi} multi-map launches for {one} "
+              f"one-family and {many} multi-family fleet splats")
+        check((multi > 0) == compat, f"{multi} multi-map launches in a "
+              f"{'compat' if compat else 'default'} fleet")
+        return dict(launches=single, multi_launches=multi,
+                    group_splats=len(self.splats),
+                    map_updates=sum(sum(u) for u in self.map_updates),
+                    episode_map_updates=self.map_updates)
+
+
+def fleet_room_frames(seed: int, origins):
+    """One room frame per fleet episode, seen from the episode's origin at
+    yaws 0.7 rad apart, with random classes for both semantic families."""
+    rng = np.random.RandomState(seed)
+    frames = [room_frame(CAMERA, rng, yaw=0.3 + 0.7 * e)
+              for e in range(len(origins))]
+    return dict(positions=np.asarray(origins, np.float32),
+                yaws=np.asarray([y for y, _, _, _ in frames], np.float32),
+                elevations=np.asarray([e for _, e, _, _ in frames],
+                                      np.float32),
+                depths=np.stack([d for _, _, d, _ in frames]),
+                classes={name: rng.randint(
+                    0, 54, (len(origins), CAMERA, CAMERA)).astype(np.int32)
+                    for name in ("semantic0", "semantic1")})
+
+
+def digest(fleet) -> list:
+    """Per episode and family, the sum of the slab's float bits as
+    integers: equal digests after two runs mean the same bits (barring a
+    cancelling change)."""
+    V = fleet.episode_voxels
+    out = []
+    for name, buf in fleet.buffers.items():
+        for e in range(fleet.batch):
+            slab = buf[e * V:(e + 1) * V].view(torch.int32)
+            out.append(sum(int(chunk.to(torch.int64).sum())
+                           for chunk in slab.split(1 << 22)))
+    return out
+
+
+def phase_fleet_maps(dev) -> dict:
+    """FleetMaps at full width: 8 episodes of 384x384x96 voxels, semantic0
+    and semantic1 at 54 classes and occupancy at 1 (one [8V, F] buffer
+    each), room frames from 8 origins.  An unmasked step (one multi-map
+    launch, M = 3) and a step with the compat fleet's mixed masks (one
+    multi-map launch for semantic0 + occupancy, one single-map launch for
+    semantic1); episodes 0 and 7 equal single-map kernel updates of
+    clones of their slabs bit for bit; a second run from the reset gives
+    the same bits; the step's host time beside 8 MapSet.update_group
+    calls."""
+    from mass_tpu_torch.config import CameraConfig, MapGeometry
+    from mass_tpu_torch.core.voxelmap import VoxelMap
+    from mass_tpu_torch.maps import MapSet, OccupancyMap, SemanticMap
+    from mass_tpu_torch.ops import splat as SP
+    from mass_tpu_torch.parallel.fleet import FleetMaps
+
+    cam = CameraConfig(height=CAMERA, width=CAMERA)
+    geo = MapGeometry(**{k: v for k, v in FULL_MAP.items()
+                         if k != "feature_size"})
+    origins = [(0.37 * e, -0.21 * e, 0.05 * e) for e in range(FLEET)]
+    half = FLEET // 2
+    mixed = {"semantic0": np.arange(FLEET) < half,
+             "occupancy": np.arange(FLEET) < half,
+             "semantic1": np.arange(FLEET) >= half}
+    torch.cuda.reset_peak_memory_stats()
+    fleet = FleetMaps(FLEET, cam, geo, FLEET_FAMILIES, device=dev)
+
+    def start():
+        for e in range(FLEET):
+            fleet.reset(e, origins[e])
+        fleet.update_batch(**fleet_room_frames(0, origins))   # warm maps
+
+    def single_updates(slabs, e, fr, active):
+        """Each family's slab of episode e, as the single-map kernel
+        updates it (unchanged where the family is masked out)."""
+        for name, data in slabs.items():
+            if active is not None and not active[name][e]:
+                continue
+            vm = VoxelMap(data, fleet.bins_x[e], fleet.bins_y[e],
+                          fleet.bins_z[e], fleet.view(name, e).geometry)
+            cls = fr["classes"].get(name, np.zeros((FLEET, CAMERA, CAMERA),
+                                                   np.int32))[e]
+            vm.update_classes(fleet.rays,
+                              torch.as_tensor(fr["positions"][e], device=dev),
+                              float(fr["yaws"][e]), float(fr["elevations"][e]),
+                              torch.as_tensor(fr["depths"][e], device=dev),
+                              torch.as_tensor(cls, device=dev))
+
+    start()
+    steps, equal = {}, True
+    for key, seed, active, want in (("unmasked", 1, None, (0, 1)),
+                                    ("mixed", 2, mixed, (1, 1))):
+        fr = fleet_room_frames(seed, origins)
+        clones = {e: {name: fleet.view(name, e).data.clone()
+                      for name in FLEET_FAMILIES} for e in (0, FLEET - 1)}
+        torch.cuda.synchronize()
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = 0
+        fleet.update_batch(**fr, active=active)
+        torch.cuda.synchronize()
+        launches = (SP.LAUNCHES, SP.MULTI_LAUNCHES)
+        check(launches == want, f"fleet {key} step: {launches} (single, "
+              f"multi) launches, want {want}")
+        for e, slabs in clones.items():
+            single_updates(slabs, e, fr, active)
+            for name, data in slabs.items():
+                same = bool(torch.equal(fleet.view(name, e).data, data))
+                equal &= same
+                check(same, f"fleet {key} step: episode {e}'s {name} slab "
+                      "differs from single-map kernel updates")
+        del clones
+        steps[key] = dict(launches=launches[0], multi_launches=launches[1],
+                          records=8 * FLEET * CAMERA * CAMERA)
+    first = digest(fleet)
+    start()
+    for seed, active in ((1, None), (2, mixed)):
+        fleet.update_batch(**fleet_room_frames(seed, origins), active=active)
+    identical = digest(fleet) == first
+    check(identical, "two fleet runs differ")
+    peak = torch.cuda.max_memory_allocated()
+
+    # the step's host time beside 8 sequential grouped updates of one
+    # episode-sized map set (the work of 8 sequential agents' step)
+    fr = fleet_room_frames(3, origins)
+    step_ms = host_ms(lambda: fleet.update_batch(**fr), 5)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    kernel_ms = kernel_device_ms(lambda: fleet.update_batch(**fr), 5, flush)
+    del flush
+    geo_kw = {k: v for k, v in FULL_MAP.items() if k != "feature_size"}
+    maps = MapSet(semantic0=SemanticMap(cam, 54, device=dev, **geo_kw),
+                  semantic1=SemanticMap(cam, 54, device=dev, **geo_kw),
+                  occupancy=OccupancyMap(cam, device=dev, **geo_kw))
+    observations = [dict(position=fr["positions"][e], yaw=fr["yaws"][e],
+                         elevation=fr["elevations"][e],
+                         depth=fr["depths"][e],
+                         semantic=fr["classes"]["semantic0"][e])
+                    for e in range(FLEET)]
+    sequential_ms = host_ms(lambda: [
+        maps.update_group(list(FLEET_FAMILIES), o) for o in observations], 5)
+    del maps, fleet
+    torch.cuda.empty_cache()
+    return dict(batch=FLEET, families=FLEET_FAMILIES, steps=steps,
+                bitwise_equal_single_kernel=equal, runs_identical=identical,
+                buffer_bytes=sum(FLEET * geo.num_voxels * 4 * f
+                                 for f in FLEET_FAMILIES.values()),
+                peak_memory_bytes=peak, step_ms=step_ms,
+                step_kernel_device_ms=kernel_ms,
+                sequential_update_group_ms=sequential_ms)
+
+
+def small_fleet(device: str, compat: bool, tasks, rng_seeds):
+    """A fleet of the small episodes of ``tasks``; (results, actions per
+    episode)."""
+    from mass_tpu_torch.parallel.evaluator import FleetEvaluator
+
+    cfg = small_config(compat)
+    actions = [[] for _ in tasks]
+    evaluator = FleetEvaluator(
+        cfg, [small_sampler(cfg, s, a) for s, a in zip(tasks, actions)],
+        seeds=list(rng_seeds), device=device)
+    return evaluator.run(), actions
+
+
+def phase_small_fleet(compat: bool, small: dict) -> dict:
+    """B = 2 small episodes (tasks 2 and 3) through the fleet on the card
+    and on the CPU, each equal to the sequential port agent: task 2 to
+    the small-episode phase's run (the same rng seed), task 3 to a
+    sequential run on the card."""
+    from mass_tpu_torch.ops import splat as SP
+
+    tasks = (2, 3)
+    base = 1 if compat else 0                      # task 2's rng seed
+    rng_seeds = [base + s - tasks[0] for s in tasks]
+    with SplatCounter() as counter:
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = 0        # fleet path starts here
+        t0 = time.perf_counter()
+        gpu, gpu_actions = small_fleet("cuda", compat, tasks, rng_seeds)
+        gpu_s = time.perf_counter() - t0
+        counts = counter.check(SP.LAUNCHES, SP.MULTI_LAUNCHES, compat)
+    t0 = time.perf_counter()
+    cpu, cpu_actions = small_fleet("cpu", compat, tasks, rng_seeds)
+    cpu_s = time.perf_counter() - t0
+    seq3, seq3_actions = small_episode("cuda", compat, seed=3,
+                                       rng_seed=rng_seeds[1])
+    want = [(small["metrics"], small["action_list"]),
+            (outcome(seq3), seq3_actions)]
+    for k, (task, (sequential, sequential_actions)) in enumerate(
+            zip(tasks, want)):
+        check(outcome(gpu[k]) == outcome(cpu[k]) == sequential,
+              f"fleet task {task}: cuda, cpu and sequential results differ")
+        check(gpu_actions[k] == cpu_actions[k] == sequential_actions,
+              f"fleet task {task}: cuda, cpu and sequential actions differ")
+    check(counts["episode_map_updates"] == [[
+        small["map_updates"], seq3["timing"]["mapping"]["count"]]],
+        f"fleet map updates {counts['episode_map_updates']} differ from "
+        "the sequential episodes'")
+    return dict(tasks=tasks, rng_seeds=rng_seeds, results_equal=True,
+                actions=[len(a) for a in gpu_actions], cuda_s=gpu_s,
+                cpu_s=cpu_s, fleet_timing=gpu[0]["fleet_timing"], **counts)
+
+
+def phase_full_fleet(size: int, compat: bool, sequential: dict) -> dict:
+    """``--fleet-size size --total-tasks size`` through the CLI at full
+    width (tasks 2 onwards, the full-width flags and budgets), with
+    ``--seed -2`` so task 2 draws the sequential full-width episode's rng
+    seed 0: that episode's outcome must come back."""
+    from mass_tpu_torch.agent import cli
+    from mass_tpu_torch.ops import splat as SP
+
+    logdir = os.path.join("build", "chip_smoke", f"fleet{size}"
+                          + ("_compat" if compat else ""))
+    flags = ["--reference-compat"] if compat else []
+    argv = (FULL_ARGS + FULL_BUDGETS + flags
+            + ["--fleet-size", str(size), "--total-tasks", str(size),
+               "--seed", "-2", "--logdir", logdir])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with SplatCounter() as counter:
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = 0        # fleet path starts here
+        t0 = time.perf_counter()
+        metrics = cli.main(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = counter.check(SP.LAUNCHES, SP.MULTI_LAUNCHES, compat)
+    check(len(metrics) == size, f"the fleet ran {len(metrics)} episodes")
+    written = []
+    for k in range(size):
+        with open(os.path.join(logdir, "results", f"{2 + k}.json")) as f:
+            results = json.load(f)
+        written.append(results)
+        check(results["task_id"] == 2 + k, "results file mismatch")
+        check(results["walkthrough/observed_cells"] > 0
+              and results["unshuffle/observed_cells"] > 0,
+              f"task {2 + k}: the full-width maps stayed empty")
+        check(0.0 <= results["unshuffle/prop_fixed"] <= 1.0,
+              "prop_fixed out of range")
+    same = outcome(written[0]) == sequential["metrics"]
+    check(same, "fleet task 2 differs from the sequential full-width episode")
+    check(counts["episode_map_updates"][0][0] == sequential["map_updates"],
+          "fleet task 2's map updates differ from the sequential episode's")
+    return dict(size=size, argv=argv, wall_s=wall_s,
+                episode_s=wall_s / size, sequential_episode_s=
+                sequential["wall_s"], task2_equals_sequential=same,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                fleet_timing=written[0]["fleet_timing"],
+                prop_fixed=[m["unshuffle/prop_fixed"] for m in written],
+                **counts)
 
 
 def kernel_line(name: str, replaces: str, launches: int,
@@ -928,6 +1253,53 @@ def main() -> int:
     compat = phase_full_episode(compat=True)
     report["full_compat_episode"] = compat
     print_episode("compat 384x384x96x54", compat)
+
+    maps = report["fleet_maps"] = phase_fleet_maps(dev)
+    print(f"[fleet maps] B={maps['batch']} at 384x384x96, families "
+          f"{maps['families']} ({maps['buffer_bytes'] / 1e9:.1f} GB of "
+          f"buffers, peak {maps['peak_memory_bytes'] / 2**30:.2f} GiB), room "
+          f"frames, {maps['steps']['unmasked']['records']} records a step")
+    print(f"[fleet maps] unmasked step: {maps['steps']['unmasked']} "
+          f"launches; mixed-mask step: {maps['steps']['mixed']} launches; "
+          f"episodes 0 and {FLEET - 1} equal single-map kernel updates of "
+          f"clones of their slabs bit for bit: "
+          f"{maps['bitwise_equal_single_kernel']}; two runs identical: "
+          f"{maps['runs_identical']}")
+    print(f"[fleet maps] unmasked step {maps['step_ms']:.2f} ms (host clock, "
+          f"card synced; splat kernel device time "
+          f"{maps['step_kernel_device_ms']:.3f} ms) against "
+          f"{maps['sequential_update_group_ms']:.2f} ms for {FLEET} "
+          f"MapSet.update_group calls of the same frames")
+    for flag, key in ((False, "small_episodes"),
+                      (True, "small_compat_episodes")):
+        small = phase_small_fleet(flag, report[key])
+        report[f"fleet_{key}"] = small
+        print(f"[fleet 80x80x24] {'compat' if flag else 'default'}, B=2 "
+              f"(tasks {small['tasks']}, rng seeds {small['rng_seeds']}): "
+              f"cuda {small['cuda_s']:.1f} s, cpu {small['cpu_s']:.1f} s, "
+              f"{small['actions']} actions; cuda == cpu == the sequential "
+              f"agent per episode; launches splat_onehot {small['launches']}"
+              f", splat_onehot_multi {small['multi_launches']} for "
+              f"{small['group_splats']} group splats, "
+              f"{small['map_updates']} episode map updates")
+    for size, flag, sequential in ((FLEET, False, full), (2, True, compat)):
+        fleet = phase_full_fleet(size, flag, sequential)
+        tag = f"fleet 384x384x96x54{' compat' if flag else ''}"
+        report[f"full_fleet{'_compat' if flag else ''}"] = fleet
+        print(f"[{tag}] {' '.join(fleet['argv'])}")
+        print(f"[{tag}] {size} episodes in {fleet['wall_s']:.1f} s: "
+              f"{fleet['episode_s']:.2f} s per episode against "
+              f"{fleet['sequential_episode_s']:.1f} s for the sequential "
+              f"episode; peak memory "
+              f"{fleet['peak_memory_bytes'] / 2**30:.2f} GiB; task 2 equals "
+              f"the sequential episode: {fleet['task2_equals_sequential']}; "
+              f"prop_fixed {fleet['prop_fixed']}")
+        print(f"[{tag}] launches: splat_onehot {fleet['launches']}, "
+              f"splat_onehot_multi {fleet['multi_launches']}, for "
+              f"{fleet['group_splats']} group splats and "
+              f"{fleet['map_updates']} episode map updates "
+              f"{fleet['episode_map_updates']}")
+        print(f"[{tag}] fleet_timing {json.dumps(fleet['fleet_timing'])}")
 
     kernels = [
         kernel_line("splat_onehot", "mass_tpu/ops/pallas_splat.py:756",

@@ -4,7 +4,10 @@
 Takes ``mass_tpu.agent.cli``'s flags with the same names and defaults
 and writes the same ``results/{id}.json``.  Flags whose code arrives in
 a later slice of the port stop with an error naming that slice.  The
-episode runs on ``--device`` (default ``cuda``).
+episode runs on ``--device`` (default ``cuda``); ``--fleet-size B``
+above 1 runs the tasks B at a time in lockstep over shared fleet maps
+(``parallel/evaluator.py``), each task with the rng seed ``--seed`` +
+task.
 
     python -m mass_tpu_torch.agent.cli --backend gridworld \\
         --ground-truth-segmentation --ground-truth-disagreement \\
@@ -130,7 +133,6 @@ def unported_flags(args) -> Optional[str]:
         (args.revisit_exploration, "--revisit-exploration", 2),
         (args.use_feature_matching, "--use-feature-matching", 3),
         (args.one_phase, "--one-phase", 2),
-        (args.fleet_size > 1, "--fleet-size > 1", 2),
         (args.shard_map > 1, "--shard-map", 4),
         (args.videos, "--videos", 3),
         (args.snapshot_maps, "--snapshot-maps", 3),
@@ -186,10 +188,13 @@ def config_from_args(args) -> AgentConfig:
         total_tasks=args.total_tasks, resume=args.resume)
 
 
-def make_sampler(args, config: AgentConfig):
+def make_sampler(args, config: AgentConfig, seeds=None):
+    """The grid-world task sampler over ``seeds`` (default: the task
+    range the flags name)."""
     from mass_tpu_torch.env.rearrange import GridWorldTaskSampler
-    seeds = range(args.start_task,
-                  args.start_task + args.total_tasks * args.every_tasks + 1)
+    if seeds is None:
+        seeds = range(args.start_task, args.start_task
+                      + args.total_tasks * args.every_tasks + 1)
     return GridWorldTaskSampler(
         list(seeds), camera=config.camera, max_steps=args.max_steps,
         num_objects=args.num_objects, num_misplaced=args.num_misplaced,
@@ -197,6 +202,41 @@ def make_sampler(args, config: AgentConfig):
         duplicate_class_pairs=args.duplicate_class_pairs,
         room=(args.room_size, 2.5, args.room_size),
         num_rooms=args.num_rooms)
+
+
+def run_fleet(args, config: AgentConfig, device: str):
+    """Lockstep fleet evaluation over the task range: batches of
+    ``--fleet-size`` episodes, each from a sampler of its own task's seed
+    with the rng seed ``--seed`` + task, so an episode equals the
+    sequential agent's on that sampler and seed."""
+    from mass_tpu_torch.agent import metrics as M
+    from mass_tpu_torch.parallel.evaluator import FleetEvaluator
+
+    tasks = [args.start_task + k * args.every_tasks
+             for k in range(args.total_tasks)]
+
+    def run_batch(batch):
+        evaluator = FleetEvaluator(
+            config, [make_sampler(args, config, [s]) for s in batch],
+            seeds=[args.seed + s for s in batch], device=device)
+        results = evaluator.run()
+        for task, ep, result in zip(batch, evaluator.episodes, results):
+            if not config.logdir:
+                continue
+            M.write_task_metrics(config.logdir, task, result)
+            if config.record_found_objects:
+                for phase, track in (("walkthrough", ep.walk_track),
+                                     ("unshuffle", ep.unshuffle_track)):
+                    M.write_found_objects(
+                        config.logdir, task, phase, track,
+                        ep.found_positions, ep.found_types)
+        return results
+
+    results = []
+    for lo in range(0, len(tasks), args.fleet_size):
+        # one batch's fleet buffers are freed before the next is made
+        results.extend(run_batch(tasks[lo:lo + args.fleet_size]))
+    return results
 
 
 def resolve_device_flags(args) -> str:
@@ -224,6 +264,8 @@ def main(argv=None):
     config = config_from_args(args)
 
     def run():
+        if args.fleet_size > 1:
+            return run_fleet(args, config, device)
         agent = RearrangementAgent(
             config, make_sampler(args, config),
             rng=np.random.RandomState(args.seed), device=device)

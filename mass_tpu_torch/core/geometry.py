@@ -16,7 +16,9 @@ CUDA run bin every pixel identically.
 Batches: :func:`orient_rays`, :func:`bin_rays` and
 ``ops/scatter.corner_contributions`` also take T frames with a leading
 ``[T]`` dimension (the JAX package vmaps them), each frame equal bit for
-bit to its own one-frame call.
+bit to its own one-frame call.  The bins are one set ``[n + 1]`` per
+axis shared by the frames, or one set per frame ``[T, n + 1]`` (a fleet
+of episodes, each on its own grid).
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ def camera_rotation(yaw: float, elevation: float) -> np.ndarray:
     return np.stack([right, up, -eye], axis=-1)
 
 
-def _to_device(host: torch.Tensor, device) -> torch.Tensor:
+def to_device(host: torch.Tensor, device) -> torch.Tensor:
     """A host tensor on ``device``, copied to a card without a host sync
     (from pinned memory)."""
     if torch.device(device).type != "cuda":
@@ -86,7 +88,7 @@ def orient_rays(rays: torch.Tensor, yaw, elevation) -> torch.Tensor:
     else:
         rots = np.stack([camera_rotation(y, e)
                          for y, e in zip(yaw, elevation)])
-        rot_t = _to_device(torch.from_numpy(rots), rays.device)[
+        rot_t = to_device(torch.from_numpy(rots), rays.device)[
             :, None, None]
 
         def coef(i, j):
@@ -107,32 +109,44 @@ def uniform_bins(origin: float, num_cells: int, resolution: float,
     return lo + i * float(np.float32(resolution))
 
 
+def _per_grid(value: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-grid value (``[]`` for one set of bins, ``[G]`` for G sets)
+    shaped to broadcast against ``x [G, ...]``."""
+    return value.reshape(value.shape + (1,) * (x.dim() - value.dim()))
+
+
 def _edge(bins: torch.Tensor, idx: torch.Tensor,
           resolution=None) -> torch.Tensor:
     """World position of edge ``idx``: recomputed analytically with the
     construction resolution (bit-identical to ``bins[idx]``), else
-    gathered."""
+    gathered (``bins [G, n]`` against ``idx [G, ...]`` row by row)."""
     if resolution is None:
-        return bins[idx]
-    return bins[0] + idx.to(torch.float32) * float(np.float32(resolution))
+        if bins.dim() == 1:
+            return bins[idx]
+        return torch.gather(bins, 1, idx.reshape(bins.shape[0], -1)
+                            ).reshape(idx.shape)
+    return _per_grid(bins[..., 0], idx) + idx.to(torch.float32) * float(
+        np.float32(resolution))
 
 
 def bucketize(x: torch.Tensor, bins: torch.Tensor,
               resolution=None) -> torch.Tensor:
     """Index ``i`` with ``bins[i] <= x < bins[i+1]``; -1 below and
-    ``len(bins)-1`` at or above the last edge (int64).
+    ``len(bins)-1`` at or above the last edge (int64).  ``bins [G, n]``
+    holds one grid's edges per leading index of ``x [G, ...]``.
 
     Analytic division plus a one-step correction against the true edges
     — the JAX package's rule, which equals
     ``torch.bucketize(x, bins, right=True) - 1`` on uniform bins but is
     not computed that way.
     """
-    n = bins.shape[0]
-    res = (bins[1] - bins[0]) if resolution is None \
+    n = bins.shape[-1]
+    lo = _per_grid(bins[..., 0], x)
+    res = (_per_grid(bins[..., 1], x) - lo) if resolution is None \
         else float(np.float32(resolution))
     # clamp while still float: the int conversion of an out-of-range
     # float is undefined in torch (XLA saturates)
-    idx = torch.floor((x - bins[0]) / res).clamp(-1, n - 1).to(torch.int64)
+    idx = torch.floor((x - lo) / res).clamp(-1, n - 1).to(torch.int64)
     safe = idx.clamp(0, n - 1)
     below = x < _edge(bins, safe, resolution)
     above = x >= _edge(bins, (idx + 1).clamp(0, n - 1), resolution)
@@ -164,7 +178,8 @@ def bin_rays(bins_x, bins_y, bins_z, origin, rays, depth,
     cells with validity masking; the y index is flipped
     (``len(bins_y) - 2 - ind_y``) and its ratio reversed.  One frame:
     ``origin [3]``, ``rays [h, w, 3]``, ``depth [h, w, 1]``; T frames add
-    a leading ``[T]`` to each."""
+    a leading ``[T]`` to each, and to the bins when each frame has its
+    own grid."""
     points = origin[..., None, None, :] + rays * depth
     px, py, pz = points[..., 0], points[..., 1], points[..., 2]
 
@@ -174,12 +189,12 @@ def bin_rays(bins_x, bins_y, bins_z, origin, rays, depth,
 
     d = depth[..., 0]
     valid = ((d >= min_ray_depth) & (d <= max_ray_depth) &
-             (ind_x >= 0) & (ind_x < bins_x.shape[0] - 1) &
-             (ind_y >= 0) & (ind_y < bins_y.shape[0] - 1) &
-             (ind_z >= 0) & (ind_z < bins_z.shape[0] - 1))
+             (ind_x >= 0) & (ind_x < bins_x.shape[-1] - 1) &
+             (ind_y >= 0) & (ind_y < bins_y.shape[-1] - 1) &
+             (ind_z >= 0) & (ind_z < bins_z.shape[-1] - 1))
 
     def _ratio(p, ind, bins):
-        safe = ind.clamp(0, bins.shape[0] - 2)
+        safe = ind.clamp(0, bins.shape[-1] - 2)
         left = _edge(bins, safe, resolution)
         right = _edge(bins, safe + 1, resolution)
         return (p - left) / (right - left)
@@ -192,7 +207,7 @@ def bin_rays(bins_x, bins_y, bins_z, origin, rays, depth,
     half = torch.full_like(ratio_x, 0.5)
     return BinnedPoints(
         ind_x=torch.where(valid, ind_x, zero),
-        ind_y=torch.where(valid, bins_y.shape[0] - 2 - ind_y, zero),
+        ind_y=torch.where(valid, bins_y.shape[-1] - 2 - ind_y, zero),
         ind_z=torch.where(valid, ind_z, zero),
         ratio_x=torch.where(valid, ratio_x, half),
         ratio_y=torch.where(valid, 1.0 - ratio_y, half),

@@ -92,15 +92,8 @@ class VoxelMap:
         grid.  With host arrays ``yaw``/``elevation [T]`` (``position
         [T, 3]``, ``depth [T, h, w, 1]``) it bins T frames as one batch:
         ``[T, 8N]`` records, frame t equal to its own one-frame call."""
-        g = self.geometry
-        oriented = G.orient_rays(rays, yaw, elevation)
-        points = G.bin_rays(self.bins_x, self.bins_y, self.bins_z,
-                            position, oriented, depth,
-                            min_ray_depth=min_ray_depth,
-                            max_ray_depth=max_ray_depth,
-                            resolution=g.grid_resolution)
-        return S.corner_contributions(
-            points, (g.map_height, g.map_width, g.map_depth))
+        return contributions(rays, self.bins, self.geometry, position, yaw,
+                             elevation, depth, min_ray_depth, max_ray_depth)
 
     def contributions_frames(self, rays, positions, yaws, elevations,
                              depths, min_ray_depth: float = 0.0,
@@ -109,11 +102,9 @@ class VoxelMap:
         reach the host once (one sync on a card), where the T rotations
         are built as for one frame.  Returns ``[T, 8N]`` ids and
         weights."""
-        yaws, elevations = torch.stack([torch.as_tensor(yaws),
-                                        torch.as_tensor(elevations)]).cpu()
-        return self.contributions(rays, positions, yaws.numpy(),
-                                  elevations.numpy(), depths,
-                                  min_ray_depth, max_ray_depth)
+        return contributions_frames(rays, self.bins, self.geometry,
+                                    positions, yaws, elevations, depths,
+                                    min_ray_depth, max_ray_depth)
 
     def apply_onehot(self, ids, weights, classes) -> "VoxelMap":
         """EMA-blend one frame's one-hot records into the map in place
@@ -187,13 +178,9 @@ class VoxelMap:
     # coordinate transforms
     # ------------------------------------------------------------------
 
-    def _world_lower_upper(self):
-        bx, by, bz = self.bins_x, self.bins_y, self.bins_z
-        lower = torch.stack([(bx[0] + bx[1]) / 2, (by[0] + by[1]) / 2,
-                             (bz[0] + bz[1]) / 2])
-        upper = torch.stack([(bx[-1] + bx[-2]) / 2, (by[-1] + by[-2]) / 2,
-                             (bz[-1] + bz[-2]) / 2])
-        return lower, upper
+    @property
+    def bins(self):
+        return self.bins_x, self.bins_y, self.bins_z
 
     def _tensor(self, coords, dtype=None) -> torch.Tensor:
         t = coords if isinstance(coords, torch.Tensor) \
@@ -204,10 +191,7 @@ class VoxelMap:
     def clamp_to_world(self, coords) -> torch.Tensor:
         """Clamp world xyz (or xy) into the span of voxel-centre
         extrema."""
-        coords = self._tensor(coords, torch.float32)
-        lower, upper = self._world_lower_upper()
-        k = coords.shape[-1]
-        return torch.minimum(torch.maximum(coords, lower[:k]), upper[:k])
+        return _clamp_to_world(self.bins, self._tensor(coords, torch.float32))
 
     def clamp_to_map(self, coords) -> torch.Tensor:
         """Clamp map xyz (or xy) cell coordinates into the grid."""
@@ -242,14 +226,63 @@ class VoxelMap:
 
     def world_to_map(self, coords) -> torch.Tensor:
         """World xyz (or xy) -> integer map cell coords, y flipped."""
-        coords = self.clamp_to_world(coords)
-        ix = G.bucketize(coords[..., 0], self.bins_x)
-        iy = (self.bins_y.shape[0] - 2 -
-              G.bucketize(coords[..., 1], self.bins_y))
-        out = [ix, iy]
-        if coords.shape[-1] == 3:
-            out.append(G.bucketize(coords[..., 2], self.bins_z))
-        return torch.stack(out, dim=-1)
+        return world_to_cells(self.bins, self._tensor(coords, torch.float32))
+
+
+def contributions(rays, bins, geometry: MapGeometry, position, yaw,
+                  elevation, depth, min_ray_depth: float = 0.0,
+                  max_ray_depth: float = 10.0):
+    """:meth:`VoxelMap.contributions` on a grid's ``bins`` (x, y, z):
+    ``[n]`` edges each, or ``[T, n]`` when each of T frames (host
+    ``yaw``/``elevation [T]``) bins against its own grid."""
+    g = geometry
+    oriented = G.orient_rays(rays, yaw, elevation)
+    points = G.bin_rays(*bins, position, oriented, depth,
+                        min_ray_depth=min_ray_depth,
+                        max_ray_depth=max_ray_depth,
+                        resolution=g.grid_resolution)
+    return S.corner_contributions(
+        points, (g.map_height, g.map_width, g.map_depth))
+
+
+def contributions_frames(rays, bins, geometry: MapGeometry, positions, yaws,
+                         elevations, depths, min_ray_depth: float = 0.0,
+                         max_ray_depth: float = 10.0):
+    """:func:`contributions` of T frames as one batch, with the poses
+    copied to the host once (no copy for host poses)."""
+    yaws, elevations = torch.stack([torch.as_tensor(yaws),
+                                    torch.as_tensor(elevations)]).cpu()
+    return contributions(rays, bins, geometry, positions, yaws.numpy(),
+                         elevations.numpy(), depths, min_ray_depth,
+                         max_ray_depth)
+
+
+def _clamp_to_world(bins, coords: torch.Tensor) -> torch.Tensor:
+    bx, by, bz = bins
+    lower = torch.stack([(bx[..., 0] + bx[..., 1]) / 2,
+                         (by[..., 0] + by[..., 1]) / 2,
+                         (bz[..., 0] + bz[..., 1]) / 2], dim=-1)
+    upper = torch.stack([(bx[..., -1] + bx[..., -2]) / 2,
+                         (by[..., -1] + by[..., -2]) / 2,
+                         (bz[..., -1] + bz[..., -2]) / 2], dim=-1)
+    k = coords.shape[-1]
+    return torch.minimum(torch.maximum(coords, lower[..., :k]),
+                         upper[..., :k])
+
+
+def world_to_cells(bins, coords: torch.Tensor) -> torch.Tensor:
+    """World xyz (or xy) ``coords [..., k]`` (float32, on the bins'
+    device) -> integer map cells, y flipped, clamped into the grid.
+    ``bins`` are the (x, y, z) edges of one grid (``[n]`` each), or of G
+    grids (``[G, n]`` each) against ``coords [G, k]``."""
+    bx, by, bz = bins
+    coords = _clamp_to_world(bins, coords)
+    ix = G.bucketize(coords[..., 0], bx)
+    iy = by.shape[-1] - 2 - G.bucketize(coords[..., 1], by)
+    out = [ix, iy]
+    if coords.shape[-1] == 3:
+        out.append(G.bucketize(coords[..., 2], bz))
+    return torch.stack(out, dim=-1)
 
 
 class HostMapToWorld:

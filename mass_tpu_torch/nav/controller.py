@@ -286,26 +286,21 @@ class NavigationController:
                          if update_navigation_grid else None))
         return self.decide_from_plan(observations, goal, plan_out)
 
-    def decide_from_plan(self, observations: Dict, goal,
-                         plan_out) -> Optional[int]:
+    def decide_from_plan(self, observations: Dict, goal, plan_out,
+                         host=None) -> Optional[int]:
         """Adopt the planned mesh, backtrack the field into a path and
-        apply the heading rule."""
+        apply the heading rule.  ``host`` is the plan's
+        :func:`~mass_tpu_torch.nav.grid.plan_to_host` arrays when the
+        caller already copied a batch of plans to the host at once (the
+        fleet); the mesh itself stays on the map's device."""
         goal = np.asarray(goal, np.float32)
         grid, dist, tgt, agent_cell, _ = plan_out
         with self.timer.stage("planning"):
             self.nav_grid = grid
-            # ONE device-to-host copy of everything the backtrack reads
-            ny, nx = dist.shape
-            n = ny * nx
-            host = torch.cat([
-                dist.reshape(-1).to(torch.int64), tgt.to(torch.int64),
-                agent_cell.to(torch.int64),
-                grid.edge_right.reshape(-1).to(torch.int64),
-                grid.edge_down.reshape(-1).to(torch.int64)]).cpu().numpy()
-            dist_h = host[:n].reshape(ny, nx)
-            tgt_h, agent_h = host[n:n + 2], host[n + 2:n + 4]
-            er = host[n + 4:2 * n + 4].reshape(ny, nx) > 0
-            ed = host[2 * n + 4:].reshape(ny, nx) > 0
+            if host is None:
+                # ONE device-to-host copy of everything the backtrack reads
+                host = NG.plan_to_host(grid, dist, tgt, agent_cell)
+            dist_h, tgt_h, agent_h, er, ed = host
             host_grid = grid._replace(edge_right=er, edge_down=ed)
             path = self._path_from_field(dist_h, tgt_h, agent_h,
                                          grid=host_grid)

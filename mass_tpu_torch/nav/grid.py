@@ -9,19 +9,33 @@ state recomputes from the current navigable mask on refresh, while
 failed-action prunes stay sticky in ``NavGrid.pruned``; ``monotone=True``
 keeps the reference's only-ever-remove rule.  Path extraction backtracks
 the distance field on the host.
+
+Every mesh function also takes a batch of G meshes (masks ``[G, ny,
+nx]``, offsets a ``[G]`` tensor; :func:`stack_grids`), which
+:func:`plan_batch` plans at once for a fleet of episodes; each mesh of a
+batch gets exactly what it gets alone.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from mass_tpu_torch.core.voxelmap import VoxelMap
+from mass_tpu_torch.core import geometry as G
+from mass_tpu_torch.core.voxelmap import VoxelMap, world_to_cells
 from mass_tpu_torch.ops.pool import max_pool2d_same
 
 INF = 1 << 28
+
+
+def _navigable(occupied: torch.Tensor, blocked, padding: int) -> torch.Tensor:
+    if blocked is not None:
+        occupied = occupied | blocked
+    if padding > 0:
+        occupied = max_pool2d_same(occupied, padding)
+    return ~occupied
 
 
 def navigable_area(vm: VoxelMap, padding: int = 3, z_start: int = 0,
@@ -30,34 +44,66 @@ def navigable_area(vm: VoxelMap, padding: int = 3, z_start: int = 0,
     """``[H, W]`` bool — cells with no occupied voxel in the z slice,
     eroded by ``padding`` cells around obstacles; ``blocked`` cells
     (collision evidence) count as obstacles."""
-    occ = vm.occupancy_mask(z_start, z_stop, obstacle_threshold)
-    if blocked is not None:
-        occ = occ | blocked
-    if padding > 0:
-        occ = max_pool2d_same(occ, padding)
-    return ~occ
+    return _navigable(vm.occupancy_mask(z_start, z_stop, obstacle_threshold),
+                      blocked, padding)
 
 
 class NavGrid(NamedTuple):
     """Navigation mesh state.  Node ``(i, j)`` sits at map cell
     ``(y, x) = (off_y + i*step, off_x + j*step)``; ``edge_right[i, j]``
     joins (i, j)-(i, j+1) and ``edge_down[i, j]`` joins (i, j)-(i+1, j).
-    The masks are ``[ny, nx]`` bool tensors; the offsets host ints."""
+    The masks are ``[ny, nx]`` bool tensors and the offsets host ints;
+    a batch of G meshes has ``[G, ny, nx]`` masks and ``[G]`` int64
+    offsets on the masks' device."""
 
     alive: torch.Tensor
     edge_right: torch.Tensor
     edge_down: torch.Tensor
-    off_x: int
-    off_y: int
+    off_x: Union[int, torch.Tensor]
+    off_y: Union[int, torch.Tensor]
     pruned: torch.Tensor   # sticky failed-action node removals
 
 
-def _node_cells(nav_h: int, nav_w: int, ny: int, nx: int, off_x: int,
-                off_y: int, step: int, device):
-    ys = off_y + torch.arange(ny, dtype=torch.int64, device=device) * step
-    xs = off_x + torch.arange(nx, dtype=torch.int64, device=device) * step
-    in_bounds = (ys[:, None] < nav_h) & (xs[None, :] < nav_w)
+def stack_grids(grids: Sequence[NavGrid]) -> NavGrid:
+    """G meshes of one shape as one batch (offsets sent to the masks'
+    device without a host sync)."""
+    dev = grids[0].alive.device
+    offsets = G.to_device(torch.tensor(
+        [[g.off_x for g in grids], [g.off_y for g in grids]],
+        dtype=torch.int64), dev)
+
+    def stack(name):
+        return torch.stack([getattr(g, name) for g in grids])
+    return NavGrid(alive=stack("alive"), edge_right=stack("edge_right"),
+                   edge_down=stack("edge_down"), off_x=offsets[0],
+                   off_y=offsets[1], pruned=stack("pruned"))
+
+
+def _node_axis(off, n: int, step: int, device) -> torch.Tensor:
+    """Map coordinates of the nodes along one axis: ``[n]`` for a host
+    offset, ``[G, n]`` for a batch's offsets."""
+    steps = torch.arange(n, dtype=torch.int64, device=device) * step
+    if isinstance(off, torch.Tensor):
+        return off[:, None] + steps
+    return int(off) + steps
+
+
+def _node_cells(nav_h: int, nav_w: int, ny: int, nx: int, off_x, off_y,
+                step: int, device):
+    ys = _node_axis(off_y, ny, step, device)
+    xs = _node_axis(off_x, nx, step, device)
+    in_bounds = (ys[..., :, None] < nav_h) & (xs[..., None, :] < nav_w)
     return ys, xs, in_bounds
+
+
+def _at(table: torch.Tensor, rows: torch.Tensor,
+        cols: torch.Tensor) -> torch.Tensor:
+    """``table[rows, cols]`` of a ``[h, w]`` table, or of each of a
+    batch's ``[G, h, w]`` tables."""
+    if table.dim() == 2:
+        return table[rows, cols]
+    batch = torch.arange(table.shape[0], device=table.device)[:, None, None]
+    return table[batch, rows, cols]
 
 
 def _corridor_masks(navigable: torch.Tensor, ys, xs, in_bounds,
@@ -65,33 +111,33 @@ def _corridor_masks(navigable: torch.Tensor, ys, xs, in_bounds,
     """Edge masks: the (step+1)-cell corridor between adjacent nodes
     must be fully navigable (window-all tests via integer cumsums)."""
     nav = navigable.to(torch.int32)
-    h, w = navigable.shape
-    cs_x = torch.nn.functional.pad(torch.cumsum(nav, dim=1), (1, 0))
-    cs_y = torch.nn.functional.pad(torch.cumsum(nav, dim=0), (0, 0, 1, 0))
+    h, w = navigable.shape[-2:]
+    cs_x = torch.nn.functional.pad(torch.cumsum(nav, dim=-1), (1, 0))
+    cs_y = torch.nn.functional.pad(torch.cumsum(nav, dim=-2), (0, 0, 1, 0))
 
     def window_all_x(y_idx, x_idx):
-        x0 = x_idx[None, :]
+        x0 = x_idx[..., None, :]
         hi = (x0 + step + 1).clamp(0, w)
         lo = x0.clamp(0, w)
-        rows = y_idx[:, None]
-        total = cs_x[rows, hi] - cs_x[rows, lo]
+        rows = y_idx[..., :, None]
+        total = _at(cs_x, rows, hi) - _at(cs_x, rows, lo)
         return total >= hi - lo
 
     def window_all_y(y_idx, x_idx):
-        y0 = y_idx[:, None]
+        y0 = y_idx[..., :, None]
         hi = (y0 + step + 1).clamp(0, h)
         lo = y0.clamp(0, h)
-        cols = x_idx[None, :]
-        total = cs_y[hi, cols] - cs_y[lo, cols]
+        cols = x_idx[..., None, :]
+        total = _at(cs_y, hi, cols) - _at(cs_y, lo, cols)
         return total >= hi - lo
 
-    ny, nx = ys.shape[0], xs.shape[0]
+    ny, nx = ys.shape[-1], xs.shape[-1]
     right_ok = window_all_x(ys.clamp(0, h - 1), xs)
     down_ok = window_all_y(ys, xs.clamp(0, w - 1))
-    has_right = in_bounds & torch.roll(in_bounds, -1, dims=1)
-    has_right[:, nx - 1] = False
-    has_down = in_bounds & torch.roll(in_bounds, -1, dims=0)
-    has_down[ny - 1, :] = False
+    has_right = in_bounds & torch.roll(in_bounds, -1, dims=-1)
+    has_right[..., :, nx - 1] = False
+    has_down = in_bounds & torch.roll(in_bounds, -1, dims=-2)
+    has_down[..., ny - 1, :] = False
     return right_ok & has_right, down_ok & has_down
 
 
@@ -120,12 +166,12 @@ def refresh_nav_grid(grid: NavGrid, navigable: torch.Tensor,
     """Refresh the mesh from the current navigable mask: node cells and
     corridors recompute (the EMA map can clear), failed-action prunes
     stay.  ``monotone=True`` only ever removes nodes and edges."""
-    h, w = navigable.shape
-    ny, nx = grid.alive.shape
+    h, w = navigable.shape[-2:]
+    ny, nx = grid.alive.shape[-2:]
     ys, xs, in_bounds = _node_cells(h, w, ny, nx, grid.off_x, grid.off_y,
                                     step, navigable.device)
-    node_ok = navigable[ys.clamp(0, h - 1)[:, None],
-                        xs.clamp(0, w - 1)[None, :]] & in_bounds
+    node_ok = _at(navigable, ys.clamp(0, h - 1)[..., :, None],
+                  xs.clamp(0, w - 1)[..., None, :]) & in_bounds
     er, ed = _corridor_masks(navigable, ys, xs, in_bounds, step)
     if monotone:
         return grid._replace(alive=grid.alive & node_ok,
@@ -137,24 +183,25 @@ def refresh_nav_grid(grid: NavGrid, navigable: torch.Tensor,
 
 def distance_field_from_seeds(grid: NavGrid,
                               seeds: torch.Tensor) -> torch.Tensor:
-    """BFS hop distances (int32 ``[ny, nx]``) from a seed node set over
-    alive nodes and intact edges; ``INF`` where unreachable.  Relaxes 8
-    hops between host convergence checks (hops past the fixpoint change
-    nothing)."""
+    """BFS hop distances (int32 ``[ny, nx]``, or ``[G, ny, nx]`` for a
+    batch) from a seed node set over alive nodes and intact edges;
+    ``INF`` where unreachable.  Relaxes 8 hops between host convergence
+    checks, one check for the whole batch (hops past a mesh's fixpoint
+    change nothing)."""
     alive = grid.alive
-    er = grid.edge_right & alive & torch.roll(alive, -1, dims=1)
-    ed = grid.edge_down & alive & torch.roll(alive, -1, dims=0)
-    er_l = torch.roll(er, 1, dims=1)
-    er_l[:, 0] = False
-    ed_u = torch.roll(ed, 1, dims=0)
-    ed_u[0, :] = False
+    er = grid.edge_right & alive & torch.roll(alive, -1, dims=-1)
+    ed = grid.edge_down & alive & torch.roll(alive, -1, dims=-2)
+    er_l = torch.roll(er, 1, dims=-1)
+    er_l[..., :, 0] = False
+    ed_u = torch.roll(ed, 1, dims=-2)
+    ed_u[..., 0, :] = False
     inf = torch.full_like(alive, INF, dtype=torch.int32)
 
     def relax(dist):
-        from_left = torch.where(er_l, torch.roll(dist, 1, dims=1) + 1, inf)
-        from_right = torch.where(er, torch.roll(dist, -1, dims=1) + 1, inf)
-        from_up = torch.where(ed_u, torch.roll(dist, 1, dims=0) + 1, inf)
-        from_down = torch.where(ed, torch.roll(dist, -1, dims=0) + 1, inf)
+        from_left = torch.where(er_l, torch.roll(dist, 1, dims=-1) + 1, inf)
+        from_right = torch.where(er, torch.roll(dist, -1, dims=-1) + 1, inf)
+        from_up = torch.where(ed_u, torch.roll(dist, 1, dims=-2) + 1, inf)
+        from_down = torch.where(ed, torch.roll(dist, -1, dims=-2) + 1, inf)
         best = torch.minimum(torch.minimum(from_left, from_right),
                              torch.minimum(from_up, from_down))
         return torch.where(alive, torch.minimum(dist, best), inf)
@@ -176,15 +223,21 @@ def distance_field(grid: NavGrid, src_j: int, src_i: int) -> torch.Tensor:
     return distance_field_from_seeds(grid, seeds)
 
 
+def _node_xy(grid: NavGrid, step: int):
+    """Map x ``[..., 1, nx]`` and y ``[..., ny, 1]`` of every node."""
+    ny, nx = grid.alive.shape[-2:]
+    dev = grid.alive.device
+    return (_node_axis(grid.off_x, nx, step, dev)[..., None, :],
+            _node_axis(grid.off_y, ny, step, dev)[..., :, None])
+
+
 def seeds_near_cell(grid: NavGrid, cell_xy: torch.Tensor, step: int,
                     radius_cells: int) -> torch.Tensor:
-    """Alive nodes within a Chebyshev map-cell radius of (x, y)."""
-    ny, nx = grid.alive.shape
-    dev = grid.alive.device
-    node_y = grid.off_y + torch.arange(ny, device=dev)[:, None] * step
-    node_x = grid.off_x + torch.arange(nx, device=dev)[None, :] * step
-    near = ((node_x - cell_xy[0]).abs() <= radius_cells) & \
-        ((node_y - cell_xy[1]).abs() <= radius_cells)
+    """Alive nodes within a Chebyshev map-cell radius of (x, y)
+    (``cell_xy [2]``, or ``[G, 2]`` for a batch)."""
+    node_x, node_y = _node_xy(grid, step)
+    near = ((node_x - cell_xy[..., 0, None, None]).abs() <= radius_cells) & \
+        ((node_y - cell_xy[..., 1, None, None]).abs() <= radius_cells)
     return near & grid.alive
 
 
@@ -192,17 +245,37 @@ def nearest_node(grid: NavGrid, dist: torch.Tensor, cell_xy, step: int,
                  reachable_only: bool = True) -> torch.Tensor:
     """Index ``(j, i)`` of the nearest (euclidean, in map cells) node to
     map cell (x, y), restricted to BFS-reachable nodes when asked; ties
-    go to the first node in row-major order."""
-    ny, nx = grid.alive.shape
-    dev = grid.alive.device
-    node_y = grid.off_y + torch.arange(ny, device=dev)[:, None] * step
-    node_x = grid.off_x + torch.arange(nx, device=dev)[None, :] * step
-    d2 = ((node_x - cell_xy[0]) ** 2 +
-          (node_y - cell_xy[1]) ** 2).to(torch.float32)
+    go to the first node in row-major order.  ``[2]``, or ``[G, 2]`` for
+    a batch."""
+    nx = grid.alive.shape[-1]
+    node_x, node_y = _node_xy(grid, step)
+    d2 = ((node_x - cell_xy[..., 0, None, None]) ** 2 +
+          (node_y - cell_xy[..., 1, None, None]) ** 2).to(torch.float32)
     ok = grid.alive & (dist < INF) if reachable_only else grid.alive
     d2 = torch.where(ok, d2, torch.full_like(d2, float("inf")))
-    k = torch.argmin(d2.reshape(-1))
-    return torch.stack([k % nx, k // nx])
+    k = torch.argmin(d2.flatten(-2), dim=-1)
+    return torch.stack([k % nx, k // nx], dim=-1)
+
+
+def _plan(grid: NavGrid, navigable, bins, agent_world: torch.Tensor,
+          goal_world: torch.Tensor, step: int, monotone: bool):
+    """:func:`plan` of one mesh or a batch, given the navigable mask of a
+    refresh (None: no refresh) and the grids' bins."""
+    if navigable is not None:
+        grid = refresh_nav_grid(grid, navigable, step=step, monotone=monotone)
+    agent_cell = world_to_cells(bins, agent_world[..., :2])
+    goal_cell = world_to_cells(bins, goal_world[..., :2])
+    seeds = seeds_near_cell(grid, agent_cell, step, radius_cells=2 * step)
+    src = nearest_node(grid, torch.zeros_like(grid.alive, dtype=torch.int32),
+                       agent_cell, step, reachable_only=False)
+    ny, nx = grid.alive.shape[-2:]
+    node = torch.arange(ny * nx, device=grid.alive.device).view(ny, nx)
+    fallback = node == (src[..., 1] * nx + src[..., 0])[..., None, None]
+    seeds = torch.where(seeds.flatten(-2).any(-1)[..., None, None], seeds,
+                        fallback)
+    dist = distance_field_from_seeds(grid, seeds)
+    tgt = nearest_node(grid, dist, goal_cell, step, reachable_only=True)
+    return grid, dist, tgt, agent_cell, goal_cell
 
 
 def plan(grid: NavGrid, occ_vm: VoxelMap, agent_world: torch.Tensor,
@@ -214,21 +287,51 @@ def plan(grid: NavGrid, occ_vm: VoxelMap, agent_world: torch.Tensor,
     neighbourhood was pruned), and snap the goal to the nearest
     reachable node.  Returns ``(grid, dist, target_ji, agent_cell,
     goal_cell)`` as device tensors."""
+    nav = (navigable_area(occ_vm, padding, z_start, z_stop, threshold,
+                          blocked=blocked) if refresh else None)
+    return _plan(grid, nav, occ_vm.bins, agent_world, goal_world, step,
+                 monotone)
+
+
+def plan_batch(grids: NavGrid, occ_vms: Sequence[VoxelMap],
+               agent_worlds: torch.Tensor, goal_worlds: torch.Tensor, *,
+               step: int, padding: int, z_start: int, z_stop: int,
+               threshold: float, refresh: bool, monotone: bool = False,
+               blocked=None):
+    """:func:`plan` for G episodes at once (the fleet's planner): a
+    batch of meshes (:func:`stack_grids`), each episode's map
+    (``occ_vms``, views of a fleet buffer), world agents and goals
+    ``[G, >=2]`` and collision evidence ``[G, H, W]``.  A refresh reduces each map's
+    ``z_start:z_stop`` slice in place, so no map is copied; the BFS
+    checks convergence once per 8 hops for the whole batch.  Returns
+    :func:`plan`'s tuple with a leading ``[G]``, each episode's entries
+    equal to its own :func:`plan`."""
+    bins = tuple(torch.stack(axis) for axis in zip(*(vm.bins
+                                                     for vm in occ_vms)))
+    nav = None
     if refresh:
-        nav = navigable_area(occ_vm, padding, z_start, z_stop, threshold,
-                             blocked=blocked)
-        grid = refresh_nav_grid(grid, nav, step=step, monotone=monotone)
-    agent_cell = occ_vm.world_to_map(agent_world[:2])
-    goal_cell = occ_vm.world_to_map(goal_world[:2])
-    seeds = seeds_near_cell(grid, agent_cell, step, radius_cells=2 * step)
-    src = nearest_node(grid, torch.zeros_like(grid.alive, dtype=torch.int32),
-                       agent_cell, step, reachable_only=False)
-    fallback = torch.zeros_like(grid.alive)
-    fallback[src[1], src[0]] = True
-    seeds = torch.where(seeds.any(), seeds, fallback)
-    dist = distance_field_from_seeds(grid, seeds)
-    tgt = nearest_node(grid, dist, goal_cell, step, reachable_only=True)
-    return grid, dist, tgt, agent_cell, goal_cell
+        nav = _navigable(torch.stack([
+            vm.occupancy_mask(z_start, z_stop, threshold) for vm in occ_vms]),
+            blocked, padding)
+    return _plan(grids, nav, bins, agent_worlds, goal_worlds, step,
+                 monotone)
+
+
+def plan_to_host(grid: NavGrid, dist: torch.Tensor, tgt: torch.Tensor,
+                 agent_cell: torch.Tensor):
+    """What the host backtrack reads of one plan, or of a batch of plans
+    (leading ``[G]``), in one device-to-host copy: ``(dist, target,
+    agent_cell)`` as int64 and the edge masks as bool numpy arrays."""
+    parts = (dist, tgt, agent_cell, grid.edge_right, grid.edge_down)
+    lead = dist.shape[:-2]
+    flat = [p.reshape(*lead, -1).to(torch.int64) for p in parts]
+    host = torch.cat(flat, dim=-1).cpu().numpy()
+    out, lo = [], 0
+    for p, f in zip(parts, flat):
+        out.append(host[..., lo:lo + f.shape[-1]].reshape(p.shape))
+        lo += f.shape[-1]
+    dist_h, tgt_h, agent_h, er, ed = out
+    return dist_h, tgt_h, agent_h, er > 0, ed > 0
 
 
 def extract_path(grid: NavGrid, dist: np.ndarray, target_ji,

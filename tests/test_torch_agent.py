@@ -155,7 +155,6 @@ def test_failed_actions_match_jax():
     (["--revisit-exploration"], 2),
     (["--use-feature-matching"], 3),
     (["--one-phase"], 2),
-    (["--fleet-size", "4"], 2),
     (["--shard-map", "8"], 4),
     (["--snapshot-maps"], 3),
     (["--videos"], 3),

@@ -311,3 +311,122 @@ def test_frozen_protocol_random_arm_on_card(cuda, tmp_path):
     drift = {k: (committed[k], fresh.get(k)) for k in committed
              if k != "timing" and fresh.get(k) != committed[k]}
     assert not drift
+
+
+def _fleet_frames(seed, batch, camera):
+    rng = np.random.RandomState(seed)
+    return dict(
+        positions=rng.uniform(-0.4, 0.4, (batch, 3)).astype(np.float32)
+        + np.asarray([[2.0, 2.0, 0.8]], np.float32),
+        yaws=rng.uniform(-np.pi, np.pi, batch).astype(np.float32),
+        elevations=rng.uniform(-0.6, 0.0, batch).astype(np.float32),
+        depths=rng.uniform(0.2, 3.0, (batch, camera, camera, 1)).astype(
+            np.float32),
+        classes={name: rng.randint(0, 54, (batch, camera, camera)).astype(
+            np.int32) for name in ("semantic0", "semantic1")})
+
+
+def test_fleet_maps_equal_single_kernel_updates(cuda):
+    """A three-family fleet of 3 episodes on the card, one unmasked step
+    (one multi-map launch) and one step with the compat phases' masks
+    (one multi-map launch for semantic0 + occupancy, one single-map
+    launch for semantic1): every slab equals the single-map kernel's
+    updates of that episode's own map and the CPU fleet, bit for bit."""
+    from mass_tpu_torch.config import CameraConfig
+    from mass_tpu_torch.parallel.fleet import FleetMaps
+
+    batch, camera = 3, 12
+    geo = MapGeometry(map_height=24, map_width=24, map_depth=8,
+                      grid_resolution=0.25)
+    families = {"semantic0": 54, "semantic1": 54, "occupancy": 1}
+    origins = [(2.0, 2.0, 0.8), (2.25, 1.7, 0.8), (1.6, 2.4, 0.7)]
+    fleets = {dev: FleetMaps(batch, CameraConfig(height=camera,
+                                                 width=camera), geo,
+                             families, device=dev)
+              for dev in (cuda, "cpu")}
+    singles = {name: [VoxelMap.create(MapGeometry(
+        feature_size=f, map_height=24, map_width=24, map_depth=8,
+        grid_resolution=0.25), origins[e], device=cuda)
+        for e in range(batch)] for name, f in families.items()}
+    for fleet in fleets.values():
+        for e in range(batch):
+            fleet.reset(e, origins[e])
+    phases = {"semantic0": np.asarray([True, True, False]),
+              "occupancy": np.asarray([True, True, False]),
+              "semantic1": np.asarray([False, False, True])}
+    for step, active in enumerate((None, phases)):
+        fr = _fleet_frames(step, batch, camera)
+        before = (SP.LAUNCHES, SP.MULTI_LAUNCHES)
+        fleets[cuda].update_batch(**fr, active=active)
+        assert (SP.LAUNCHES - before[0], SP.MULTI_LAUNCHES - before[1]) == (
+            (0, 1) if active is None else (1, 1))
+        fleets["cpu"].update_batch(**fr, active=active)
+        for name, maps in singles.items():
+            for e, vm in enumerate(maps):
+                if active is not None and not active[name][e]:
+                    continue
+                cls = fr["classes"].get(
+                    name, np.zeros((batch, camera, camera), np.int32))[e]
+                vm.update_classes(fleets[cuda].rays,
+                                  torch.from_numpy(fr["positions"][e]).to(
+                                      cuda), float(fr["yaws"][e]),
+                                  float(fr["elevations"][e]),
+                                  torch.from_numpy(fr["depths"][e]).to(cuda),
+                                  torch.from_numpy(cls).to(cuda))
+    torch.cuda.synchronize()
+    for name, maps in singles.items():
+        for e, vm in enumerate(maps):
+            got = fleets[cuda].view(name, e).data
+            assert torch.equal(got, vm.data), (name, e)
+            assert torch.equal(got.cpu(), fleets["cpu"].view(name, e).data)
+            assert bool(got.any())
+
+
+@pytest.mark.parametrize("compat", [False, True], ids=["default", "compat"])
+def test_fleet_episodes_on_card_equal_cpu(cuda, compat):
+    """B = 2 fleet episodes at the episode tests' geometry on the card
+    equal the same fleet on the CPU and the sequential agent on the card:
+    results apart from timing, and every map update a splat launch."""
+    from mass_tpu_torch.agent.loop import RearrangementAgent
+    from mass_tpu_torch.config import (AgentConfig, CameraConfig,
+                                       MatchConfig, NavConfig)
+    from mass_tpu_torch.env.rearrange import GridWorldTaskSampler
+    from mass_tpu_torch.parallel.evaluator import FleetEvaluator
+
+    cam = CameraConfig(height=48, width=48)
+    cfg = AgentConfig(
+        camera=cam, map_height=80, map_width=80, map_depth=24,
+        grid_resolution=0.125,
+        nav=NavConfig(step_size=2, obstacle_padding=2, map_slice_start=0,
+                      map_slice_stop=12, graph_update_interval=5,
+                      max_goal_steps=0 if compat else 60,
+                      reference_compat=compat),
+        match=MatchConfig(contour_padding=0, confidence_threshold=0.1,
+                          distance_threshold=0.2, max_instances=8),
+        navigate_on_semantic=not compat, exploration_budget_one=1,
+        exploration_budget_two=1, ground_truth_segmentation=True,
+        ground_truth_disagreement=True, start_task=0, total_tasks=1)
+    seeds = [2, 4]
+
+    def sampler(seed):
+        return GridWorldTaskSampler([seed], camera=cam, max_steps=120,
+                                    num_objects=2, num_misplaced=1,
+                                    num_opened=0)
+
+    def fleet(device):
+        return FleetEvaluator(cfg, [sampler(s) for s in seeds],
+                              seeds=[100 + s for s in seeds],
+                              device=device).run()
+
+    SP.LAUNCHES = SP.MULTI_LAUNCHES = 0
+    gpu = fleet(cuda)
+    launches = (SP.LAUNCHES, SP.MULTI_LAUNCHES)
+    cpu = fleet("cpu")
+    assert launches[0] > 0 and (launches[1] > 0) == compat
+    for s, g, c in zip(seeds, gpu, cpu):
+        want = RearrangementAgent(cfg, sampler(s),
+                                  rng=np.random.RandomState(100 + s),
+                                  device=cuda).run_task(0)
+        for k in want:
+            if k != "timing":
+                assert g[k] == c[k] == want[k], (s, k)

@@ -38,6 +38,14 @@ SCRIPT = textwrap.dedent("""
                   "splat_onehot_frames_reference"):
         assert callable(getattr(splat, entry)), entry
     assert callable(VoxelMap.update_classes_frames)
+    from mass_tpu_torch.nav.grid import plan_batch, stack_grids
+    from mass_tpu_torch.parallel.evaluator import FleetEvaluator
+    from mass_tpu_torch.parallel.fleet import FleetMaps
+    assert "mass_tpu_torch.parallel.fleet" in names
+    assert "mass_tpu_torch.parallel.evaluator" in names
+    for entry in (plan_batch, stack_grids, FleetEvaluator.run,
+                  FleetMaps.update_batch):
+        assert callable(entry), entry
     print(len(names))
 """)
 
