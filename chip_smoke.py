@@ -804,11 +804,11 @@ def phase_full_episode(compat: bool = False) -> dict:
 FLEET = 8
 FLEET_FAMILIES = {"semantic0": 54, "semantic1": 54, "occupancy": 1}
 # the stage times: the sequential agent's and the fleet's
-FLEET_KEYS = ("timing", "fleet_timing")
+TIMING_KEYS = ("timing", "fleet_timing")
 
 
 def outcome(results: dict) -> dict:
-    return {k: v for k, v in results.items() if k not in FLEET_KEYS}
+    return {k: v for k, v in results.items() if k not in TIMING_KEYS}
 
 
 class SplatCounter:

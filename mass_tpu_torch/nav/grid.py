@@ -301,8 +301,9 @@ def plan_batch(grids: NavGrid, occ_vms: Sequence[VoxelMap],
     """:func:`plan` for G episodes at once (the fleet's planner): a
     batch of meshes (:func:`stack_grids`), each episode's map
     (``occ_vms``, views of a fleet buffer), world agents and goals
-    ``[G, >=2]`` and collision evidence ``[G, H, W]``.  A refresh reduces each map's
-    ``z_start:z_stop`` slice in place, so no map is copied; the BFS
+    ``[G, >=2]`` and collision evidence ``[G, H, W]``.  A refresh
+    reduces each map's ``z_start:z_stop`` slice in place, so no map is
+    copied; the BFS
     checks convergence once per 8 hops for the whole batch.  Returns
     :func:`plan`'s tuple with a leading ``[G]``, each episode's entries
     equal to its own :func:`plan`."""
