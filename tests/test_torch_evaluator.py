@@ -16,6 +16,17 @@ from tests.test_torch_agent import jax_node_memo_held
 
 SEEDS = [2, 4]
 GEO = dict(map_height=80, map_width=80, map_depth=24, grid_resolution=0.125)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Episodes of these small maps run faster on one CPU thread, and
+    several test workers on one host would otherwise each spread their
+    small ops over every core."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 # the fleet's stage times (on episode 0's results)
 FLEET_KEYS = ("fleet_timing",)
 
