@@ -24,6 +24,14 @@ episodes on the card and the CPU against the sequential agent; and
 ``--fleet-size 8`` (default) and ``--fleet-size 2`` (compat) at full
 width through the CLI, whose task 2 must equal the sequential full-width
 episode, with every group splat accounted for by one kernel launch.
+Then the goal heads: one policy goal at full width by part (``[policy]``:
+max over depth, the five convs against their bound, the Gumbel-max draw,
+the inhibited decode); A (frontier + revisit), B (the conditioned policy
+with inhibition) and C (one-phase with the plain policy) small on the
+card and the CPU (equal results; C launches twice a step while it
+explores) and at full width through the CLI; B = 2 small fleets of each;
+and a full-width ``--fleet-size 2`` fleet of B whose task 2 must equal
+the sequential B episode.
 
 Exits non-zero when there is no CUDA card, when a kernel fails to build,
 launch or agree, or when any phase fails.  The line before the last is
@@ -34,6 +42,7 @@ Details also go to ``build/chip_smoke/report.json``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -656,10 +665,47 @@ def phase_wall_frames(dev) -> dict:
                 **frames_bound(stats, geo.feature_size))
 
 
-def small_config(compat: bool):
+# the goal heads: A, frontier walkthrough and revisit unshuffle; B, the
+# conditioned policy on both phases with inhibition; C, one-phase with the
+# plain policy and Gumbel-max sampling (the committed .pth checkpoints)
+HEAD_FLAGS = {
+    "A": ["--frontier-exploration", "--revisit-exploration"],
+    "B": ["--frontier-exploration", "--semantic-search-walkthrough",
+          "--semantic-search-unshuffle", "--policy-checkpoint",
+          "mass_tpu_torch/checkpoints/policy-conditioned-multiroom.pth",
+          "--policy-inhibition-radius", "8"],
+    "C": ["--one-phase", "--semantic-search-unshuffle", "--policy-checkpoint",
+          "mass_tpu_torch/checkpoints/policy-gridworld.pth"],
+}
+HEAD_FIELDS = ("frontier_exploration", "revisit_exploration", "one_phase",
+               "semantic_search_walkthrough", "semantic_search_unshuffle",
+               "policy_inhibition_radius")
+
+
+def head_fields(head: str):
+    """The head's config fields, read from its CLI flags the way
+    ``python -m mass_tpu_torch.agent.cli`` reads them."""
+    from mass_tpu_torch.agent import cli
+
+    config = cli.config_from_args(cli.build_parser().parse_args(
+        HEAD_FLAGS[head]))
+    return {f: getattr(config, f) for f in HEAD_FIELDS}
+
+
+def head_policy(head, device: str):
+    """The head's search policy on ``device`` (None without one)."""
+    from mass_tpu_torch.agent import cli
+
+    if head is None:
+        return None
+    args = cli.build_parser().parse_args(HEAD_FLAGS[head])
+    return cli.load_policy(args.policy_checkpoint, device)
+
+
+def small_config(compat: bool, head=None):
     """The JAX test suite's episode geometry (80x80x24 at 0.125 m, camera
     48); with ``compat`` the settings of tests/test_reference_compat.py's
-    compat episode."""
+    compat episode; with ``head`` that goal head's fields."""
     from mass_tpu_torch.config import (AgentConfig, CameraConfig,
                                        MatchConfig, NavConfig)
 
@@ -685,6 +731,8 @@ def small_config(compat: bool):
                           map_slice_start=0, map_slice_stop=12,
                           max_goal_steps=80),
             exploration_budget_one=2, exploration_budget_two=2, **geo)
+    if head is not None:
+        cfg = dataclasses.replace(cfg, **head_fields(head))
     return cfg
 
 
@@ -694,8 +742,8 @@ def small_sampler(cfg, seed: int, actions: list):
     from mass_tpu_torch.env.rearrange import GridWorldTaskSampler
 
     sampler = GridWorldTaskSampler([seed], camera=cfg.camera, max_steps=250,
-                                   num_objects=2, num_misplaced=1,
-                                   num_opened=0)
+                                   one_phase=cfg.one_phase, num_objects=2,
+                                   num_misplaced=1, num_opened=0)
     next_task = sampler.next_task
 
     def recording_next_task():
@@ -712,18 +760,19 @@ def small_sampler(cfg, seed: int, actions: list):
 
 
 def small_episode(device: str, compat: bool = False, seed: int = 2,
-                  rng_seed=None):
-    """One two-phase episode of task ``seed`` at :func:`small_config`'s
-    settings.  Returns (results, actions)."""
+                  rng_seed=None, head=None):
+    """One episode of task ``seed`` at :func:`small_config`'s settings
+    (with ``head``'s goal head and policy).  Returns (results, actions)."""
     from mass_tpu_torch.agent.loop import RearrangementAgent
 
-    cfg = small_config(compat)
+    cfg = small_config(compat, head)
+    policy = head_policy(head, device)
     actions = []
     if rng_seed is None:
         rng_seed = 1 if compat else 0
     agent = RearrangementAgent(
         cfg, small_sampler(cfg, seed, actions),
-        rng=np.random.RandomState(rng_seed), device=device)
+        rng=np.random.RandomState(rng_seed), device=device, policy=policy)
     return agent.run_task(0), actions
 
 
@@ -764,26 +813,135 @@ def phase_small_episodes(compat: bool = False) -> dict:
                 metrics={k: v for k, v in gpu.items() if k != "timing"})
 
 
-def phase_full_episode(compat: bool = False) -> dict:
+def conv_flops(height: int, width: int, in_channels: int) -> int:
+    """Multiply-adds (counted as two operations) of the policy's five 3x3
+    convs on one ``height`` x ``width`` map; the norms add under 1%."""
+    macs = 9 * (in_channels * 64 + 3 * 64 * 64 + 64)
+    return 2 * height * width * macs
+
+
+def phase_policy_goal(dev) -> dict:
+    """One policy goal at full width, by part, for the plain (54-channel)
+    and the conditioned (108-channel) checkpoint: the first call in the
+    process (cuDNN's set-up included), the max-over-depth read of one
+    map, the five convs against their float32 bound, the Gumbel-max draw
+    (threefry on the card), the float64 inhibited decode on the host, and
+    the whole ``GoalHeads.policy_goal`` as the agent calls it."""
+    from mass_tpu_torch.agent.loop import GoalHeads
+    from mass_tpu_torch.config import AgentConfig, CameraConfig
+    from mass_tpu_torch.maps import SemanticMap
+    from mass_tpu_torch.search import policy as P
+    from mass_tpu_torch.search import prng
+    from mass_tpu_torch.utils.profiling import StageTimer
+
+    cam = CameraConfig(height=CAMERA, width=CAMERA)
+    geo_kw = {k: v for k, v in FULL_MAP.items() if k != "feature_size"}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    maps = {}
+    for name in ("semantic0", "semantic1"):
+        layer = maps[name] = SemanticMap(cam, 54, device=dev, **geo_kw)
+        data = layer.voxel_map.data
+        for rows in data.split(1 << 21):      # sparse random class mass
+            rows.copy_(torch.rand(rows.shape, device=dev, generator=gen)
+                       * (torch.rand(rows.shape[0], 1, device=dev,
+                                     generator=gen) < 0.02))
+    h, w = FULL_MAP["map_height"], FULL_MAP["map_width"]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    vm = maps["semantic1"].voxel_map
+    out = dict(max_over_depth_ms=cuda_ms(vm.max_over_depth, 10, flush),
+               **{f"max_over_depth_{k}": v for k, v in bound(
+                   vm.data.numel() * 4 + h * w * 54 * 4, 0).items()})
+    for head, channels in (("C", 54), ("B", 108)):
+        fields = head_fields(head)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        policy = head_policy(head, str(dev))
+        x = torch.rand((1, h, w, channels), device=dev, generator=gen)
+        P.goal_logits(policy, x)
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        logits = P.goal_logits(policy, x)
+        key = prng.PRNGKey(3, device=dev)
+        prior = [np.asarray([40 * k, 30 * k]) for k in range(1, 6)]
+        heads = GoalHeads(
+            AgentConfig(policy_inhibition_radius=fields[
+                "policy_inhibition_radius"]), np.random.RandomState(0),
+            policy, dev)
+        timer = StageTimer(dev)
+        out[head] = dict(
+            channels=channels, load_and_first_call_ms=first_ms,
+            convs_ms=cuda_ms(lambda: P.goal_logits(policy, x), 10, flush),
+            **{f"convs_{k}": v for k, v in bound(
+                x.numel() * 4 + h * w * 4,
+                conv_flops(h, w, channels)).items()},
+            categorical_ms=host_ms(lambda: prng.categorical(key, logits),
+                                   10),
+            inhibited_decode_ms=host_ms(lambda: P.inhibited_sample_cell(
+                logits[0], h, w, prior, 8.0, key), 5),
+            policy_goal_ms=host_ms(lambda: heads.policy_goal(
+                maps, "semantic1", timer), 5),
+            inhibition=fields["policy_inhibition_radius"])
+    del maps
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_small_heads(head: str) -> dict:
+    """A small episode of the goal head on the card and on the CPU:
+    equal results and actions, and one launch per group splat (two a step
+    while a one-phase episode explores)."""
+    from mass_tpu_torch.ops import splat as SP
+
+    with SplatCounter() as counter:
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = 0         # head path starts here
+        t0 = time.perf_counter()
+        gpu, gpu_actions = small_episode("cuda", head=head)
+        gpu_s = time.perf_counter() - t0
+        single, multi = SP.LAUNCHES, SP.MULTI_LAUNCHES  # and ends here
+    updates = gpu["timing"]["mapping"]["count"]
+    counts = counter.check_sequential(single, multi, updates,
+                                      head_fields(head)["one_phase"])
+    t0 = time.perf_counter()
+    cpu, cpu_actions = small_episode("cpu", head=head)
+    cpu_s = time.perf_counter() - t0
+    check(outcome(gpu) == outcome(cpu),
+          f"head {head}: cuda and cpu episodes differ: "
+          f"{outcome(gpu)} against {outcome(cpu)}")
+    check(gpu_actions == cpu_actions,
+          f"head {head}: cuda and cpu action sequences differ")
+    return dict(head=head, flags=HEAD_FLAGS[head], results_equal=True,
+                actions=len(gpu_actions), action_list=gpu_actions,
+                cuda_s=gpu_s, cpu_s=cpu_s, metrics=outcome(gpu),
+                timing=gpu["timing"], **counts)
+
+
+def phase_full_episode(compat: bool = False, head=None) -> dict:
     from mass_tpu_torch.agent import cli
     from mass_tpu_torch.ops import splat as SP
 
-    logdir = os.path.join("build", "chip_smoke",
-                          "episode_compat" if compat else "episode")
-    flags = ["--reference-compat"] if compat else []
+    name = f"episode_{head}" if head else \
+        "episode_compat" if compat else "episode"
+    logdir = os.path.join("build", "chip_smoke", name)
+    flags = (HEAD_FLAGS[head] if head else
+             ["--reference-compat"] if compat else [])
     torch.cuda.reset_peak_memory_stats()
-    SP.LAUNCHES = SP.MULTI_LAUNCHES = 0   # main path starts here
-    t0 = time.perf_counter()
-    metrics = cli.main(FULL_ARGS + FULL_BUDGETS + flags
-                       + ["--logdir", logdir])
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    single, multi = SP.LAUNCHES, SP.MULTI_LAUNCHES   # main path ends here
+    with SplatCounter() as counter:
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = 0   # main path starts here
+        t0 = time.perf_counter()
+        metrics = cli.main(FULL_ARGS + FULL_BUDGETS + flags
+                           + ["--logdir", logdir])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        single, multi = SP.LAUNCHES, SP.MULTI_LAUNCHES  # main path ends here
     check(len(metrics) == 1, "the CLI ran no episode")
     with open(os.path.join(logdir, "results", "2.json")) as f:
         results = json.load(f)
     updates = results["timing"]["mapping"]["count"]
-    check_launches(single, multi, updates, compat)
+    if head:
+        counter.check_sequential(single, multi, updates,
+                                 head_fields(head)["one_phase"])
+    else:
+        check_launches(single, multi, updates, compat)
     check(results["walkthrough/observed_cells"] > 0
           and results["unshuffle/observed_cells"] > 0,
           "the full-width maps stayed empty")
@@ -791,6 +949,7 @@ def phase_full_episode(compat: bool = False) -> dict:
           "prop_fixed out of range")
     return dict(budgets=FULL_BUDGETS + flags, wall_s=wall_s,
                 launches=single, multi_launches=multi, map_updates=updates,
+                group_splats=len(counter.splats),
                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
                 timing=results["timing"],
                 metrics={k: v for k, v in results.items()
@@ -812,17 +971,21 @@ def outcome(results: dict) -> dict:
 
 
 class SplatCounter:
-    """Counts the fleet's group splats by their number of families (a
-    wrapper of ``parallel.fleet.apply_onehot_group``, which launches the
-    kernels and counts the launches itself) and each fleet's frames folded
-    per episode."""
+    """Counts group splats by their number of families (wrappers of the
+    fleet's and the map layers' ``apply_onehot_group``, which launches the
+    kernels and counts the launches itself), each fleet's frames folded
+    per episode, and the sequential agent's ``MapSet.update_group`` calls
+    by the maps they name (a one-phase step makes two: the live maps,
+    then the goal-fed ones)."""
 
     def __enter__(self):
+        from mass_tpu_torch.maps import layers as L
         from mass_tpu_torch.parallel import evaluator as EV
         from mass_tpu_torch.parallel import fleet as TF
 
-        self.splats, self.map_updates = [], []
+        self.splats, self.map_updates, self.update_groups = [], [], []
         self._apply, self._run = TF.apply_onehot_group, EV.FleetEvaluator.run
+        self._update_group = L.MapSet.update_group
 
         def apply(vms, *args):
             self.splats.append(len(vms))
@@ -833,14 +996,46 @@ class SplatCounter:
             self.map_updates.append([ep.map_updates
                                      for ep in evaluator.episodes])
             return results
-        TF.apply_onehot_group, EV.FleetEvaluator.run = apply, run
+
+        def update_group(maps, names, observation):
+            self.update_groups.append(tuple(n for n in names if n in maps))
+            return self._update_group(maps, names, observation)
+        TF.apply_onehot_group = L.apply_onehot_group = apply
+        EV.FleetEvaluator.run = run
+        L.MapSet.update_group = update_group
         return self
 
     def __exit__(self, *exc):
+        from mass_tpu_torch.maps import layers as L
         from mass_tpu_torch.parallel import evaluator as EV
         from mass_tpu_torch.parallel import fleet as TF
 
-        TF.apply_onehot_group, EV.FleetEvaluator.run = self._apply, self._run
+        TF.apply_onehot_group = L.apply_onehot_group = self._apply
+        EV.FleetEvaluator.run = self._run
+        L.MapSet.update_group = self._update_group
+
+    def check_sequential(self, single: int, multi: int, updates: int,
+                         one_phase: bool) -> dict:
+        """A sequential episode's launches: one group splat per
+        ``update_group`` call, each one launch (single-map for one map);
+        one call per map update, and in a one-phase episode one more,
+        for the goal-fed map, on every exploration step."""
+        one = sum(1 for n in self.splats if n == 1)
+        check(single == one and multi == len(self.splats) - one,
+              f"{single} single-map + {multi} multi-map launches for "
+              f"{len(self.splats)} group splats")
+        calls = [names for names in self.update_groups if names]
+        check(len(calls) == len(self.splats),
+              f"{len(self.splats)} group splats for {len(calls)} "
+              "update_group calls")
+        goal_fed = sum(1 for names in calls if one_phase
+                       and names == ("semantic0",))
+        check(len(calls) == updates + goal_fed and (goal_fed > 0) ==
+              one_phase, f"{len(calls)} update_group calls for {updates} "
+              f"map updates and {goal_fed} goal-fed updates")
+        return dict(launches=single, multi_launches=multi,
+                    group_splats=len(self.splats), map_updates=updates,
+                    goal_fed_updates=goal_fed)
 
     def check(self, single: int, multi: int, compat: bool) -> dict:
         """Every group splat of the fleet launched one kernel: the
@@ -998,24 +1193,25 @@ def phase_fleet_maps(dev) -> dict:
                 sequential_update_group_ms=sequential_ms)
 
 
-def small_fleet(device: str, compat: bool, tasks, rng_seeds):
-    """A fleet of the small episodes of ``tasks``; (results, actions per
-    episode)."""
+def small_fleet(device: str, compat: bool, tasks, rng_seeds, head=None):
+    """A fleet of the small episodes of ``tasks`` (with ``head``'s goal
+    head); (results, actions per episode)."""
     from mass_tpu_torch.parallel.evaluator import FleetEvaluator
 
-    cfg = small_config(compat)
+    cfg = small_config(compat, head)
+    policy = head_policy(head, device)
     actions = [[] for _ in tasks]
     evaluator = FleetEvaluator(
         cfg, [small_sampler(cfg, s, a) for s, a in zip(tasks, actions)],
-        seeds=list(rng_seeds), device=device)
+        seeds=list(rng_seeds), device=device, policy=policy)
     return evaluator.run(), actions
 
 
-def phase_small_fleet(compat: bool, small: dict) -> dict:
-    """B = 2 small episodes (tasks 2 and 3) through the fleet on the card
-    and on the CPU, each equal to the sequential port agent: task 2 to
-    the small-episode phase's run (the same rng seed), task 3 to a
-    sequential run on the card."""
+def phase_small_fleet(compat: bool, small: dict, head=None) -> dict:
+    """B = 2 small episodes (tasks 2 and 3, with ``head``'s goal head)
+    through the fleet on the card and on the CPU, each equal to the
+    sequential port agent: task 2 to the small-episode phase's run (the
+    same rng seed), task 3 to a sequential run on the card."""
     from mass_tpu_torch.ops import splat as SP
 
     tasks = (2, 3)
@@ -1024,14 +1220,15 @@ def phase_small_fleet(compat: bool, small: dict) -> dict:
     with SplatCounter() as counter:
         SP.LAUNCHES = SP.MULTI_LAUNCHES = 0        # fleet path starts here
         t0 = time.perf_counter()
-        gpu, gpu_actions = small_fleet("cuda", compat, tasks, rng_seeds)
+        gpu, gpu_actions = small_fleet("cuda", compat, tasks, rng_seeds,
+                                       head)
         gpu_s = time.perf_counter() - t0
         counts = counter.check(SP.LAUNCHES, SP.MULTI_LAUNCHES, compat)
     t0 = time.perf_counter()
-    cpu, cpu_actions = small_fleet("cpu", compat, tasks, rng_seeds)
+    cpu, cpu_actions = small_fleet("cpu", compat, tasks, rng_seeds, head)
     cpu_s = time.perf_counter() - t0
     seq3, seq3_actions = small_episode("cuda", compat, seed=3,
-                                       rng_seed=rng_seeds[1])
+                                       rng_seed=rng_seeds[1], head=head)
     want = [(small["metrics"], small["action_list"]),
             (outcome(seq3), seq3_actions)]
     for k, (task, (sequential, sequential_actions)) in enumerate(
@@ -1049,17 +1246,21 @@ def phase_small_fleet(compat: bool, small: dict) -> dict:
                 cpu_s=cpu_s, fleet_timing=gpu[0]["fleet_timing"], **counts)
 
 
-def phase_full_fleet(size: int, compat: bool, sequential: dict) -> dict:
+def phase_full_fleet(size: int, compat: bool, sequential: dict,
+                     head=None) -> dict:
     """``--fleet-size size --total-tasks size`` through the CLI at full
-    width (tasks 2 onwards, the full-width flags and budgets), with
-    ``--seed -2`` so task 2 draws the sequential full-width episode's rng
-    seed 0: that episode's outcome must come back."""
+    width (tasks 2 onwards, the full-width flags and budgets, ``head``'s
+    goal-head flags), with ``--seed -2`` so task 2 draws the sequential
+    full-width episode's rng seed 0: that episode's outcome must come
+    back."""
     from mass_tpu_torch.agent import cli
     from mass_tpu_torch.ops import splat as SP
 
     logdir = os.path.join("build", "chip_smoke", f"fleet{size}"
-                          + ("_compat" if compat else ""))
-    flags = ["--reference-compat"] if compat else []
+                          + ("_compat" if compat else "")
+                          + (f"_{head}" if head else ""))
+    flags = (["--reference-compat"] if compat else []) + (
+        HEAD_FLAGS[head] if head else [])
     argv = (FULL_ARGS + FULL_BUDGETS + flags
             + ["--fleet-size", str(size), "--total-tasks", str(size),
                "--seed", "-2", "--logdir", logdir])
@@ -1148,7 +1349,12 @@ def print_episode(tag: str, full: dict) -> None:
     print(f"[{tag}] wall {full['wall_s']:.1f} s, peak memory "
           f"{full['peak_memory_bytes'] / 2**30:.2f} GiB, launches: "
           f"splat_onehot {full['launches']}, splat_onehot_multi "
-          f"{full['multi_launches']}, for {full['map_updates']} map updates")
+          f"{full['multi_launches']}, for {full['map_updates']} map updates "
+          f"({full['group_splats']} group splats)")
+    policy = full["timing"].get("search_policy")
+    if policy:
+        print(f"[{tag}] search_policy {policy['mean_ms']:.2f} ms per goal "
+              f"({policy['count']} goals)")
     print(f"[{tag}] timing {json.dumps(full['timing'])}")
     print(f"[{tag}] metrics {json.dumps(full['metrics'])}")
 
@@ -1162,7 +1368,7 @@ def main() -> int:
     dev = torch.device("cuda")
     report = {}
 
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     report["build_s"] = SP.build()
     built = ", ".join(f"{k}.cu {v:.2f} s"
                       for k, v in report["build_s"].items())
@@ -1301,6 +1507,63 @@ def main() -> int:
               f"{fleet['episode_map_updates']}")
         print(f"[{tag}] fleet_timing {json.dumps(fleet['fleet_timing'])}")
 
+    goal = report["policy_goal"] = phase_policy_goal(dev)
+    print(f"[policy] full width: max over depth of one map "
+          f"{goal['max_over_depth_ms']:.3f} ms (bound "
+          f"{goal['max_over_depth_bound_ms']:.3f} ms by bytes)")
+    for head in ("C", "B"):
+        g = goal[head]
+        print(f"[policy] {head}, {g['channels']} channels: load and first "
+              f"call {g['load_and_first_call_ms']:.1f} ms; five convs "
+              f"{g['convs_ms']:.3f} ms (bound {g['convs_bound_ms']:.3f} ms "
+              f"by {g['convs_bound_by']}: {g['convs_flops'] / 1e9:.1f} "
+              f"GFLOP at 67 TFLOP/s fp32); Gumbel-max draw "
+              f"{g['categorical_ms']:.3f} ms, inhibited decode "
+              f"{g['inhibited_decode_ms']:.3f} ms (host clock, card "
+              f"synced); whole policy goal (inhibition "
+              f"{g['inhibition']}) {g['policy_goal_ms']:.3f} ms")
+    heads = {}
+    for head in HEAD_FLAGS:
+        small = heads[head] = phase_small_heads(head)
+        report[f"small_heads_{head}"] = small
+        print(f"[heads 80x80x24] {head} ({' '.join(HEAD_FLAGS[head])}): cuda"
+              f" {small['cuda_s']:.1f} s, cpu {small['cpu_s']:.1f} s, "
+              f"{small['actions']} actions, results equal; launches "
+              f"splat_onehot {small['launches']}, splat_onehot_multi "
+              f"{small['multi_launches']} for {small['group_splats']} group "
+              f"splats: {small['map_updates']} map updates + "
+              f"{small['goal_fed_updates']} goal-fed; prop_fixed "
+              f"{small['metrics']['unshuffle/prop_fixed']}")
+    full_heads = {}
+    for head in HEAD_FLAGS:
+        full_head = full_heads[head] = phase_full_episode(head=head)
+        report[f"full_heads_{head}"] = full_head
+        print_episode(f"heads 384x384x96x54 {head}", full_head)
+    for head in HEAD_FLAGS:
+        small = phase_small_fleet(False, heads[head], head)
+        report[f"fleet_small_heads_{head}"] = small
+        print(f"[fleet heads] {head}, B=2 (tasks {small['tasks']}): cuda "
+              f"{small['cuda_s']:.1f} s, cpu {small['cpu_s']:.1f} s, "
+              f"{small['actions']} actions; cuda == cpu == the sequential "
+              f"agent per episode; launches splat_onehot "
+              f"{small['launches']}, splat_onehot_multi "
+              f"{small['multi_launches']} for {small['group_splats']} group "
+              f"splats, {small['map_updates']} episode map updates")
+    fleet = report["full_fleet_heads_B"] = phase_full_fleet(
+        2, False, full_heads["B"], head="B")
+    tag = "fleet heads 384x384x96x54 B"
+    print(f"[{tag}] {' '.join(fleet['argv'])}")
+    print(f"[{tag}] 2 episodes in {fleet['wall_s']:.1f} s: "
+          f"{fleet['episode_s']:.2f} s per episode against "
+          f"{fleet['sequential_episode_s']:.1f} s for the sequential "
+          f"episode; peak memory {fleet['peak_memory_bytes'] / 2**30:.2f} "
+          f"GiB; task 2 equals the sequential episode: "
+          f"{fleet['task2_equals_sequential']}; prop_fixed "
+          f"{fleet['prop_fixed']}; launches splat_onehot {fleet['launches']}"
+          f" for {fleet['group_splats']} group splats and "
+          f"{fleet['map_updates']} episode map updates")
+    print(f"[{tag}] fleet_timing {json.dumps(fleet['fleet_timing'])}")
+
     kernels = [
         kernel_line("splat_onehot", "mass_tpu/ops/pallas_splat.py:756",
                     full["launches"], kernel),
@@ -1310,9 +1573,11 @@ def main() -> int:
                     "mass_tpu/ops/pallas_splat.py:445", frames["launches"],
                     frames)]
     report["kernels"] = kernels
+    report["total_s"] = time.perf_counter() - start
     os.makedirs(os.path.join("build", "chip_smoke"), exist_ok=True)
     with open(os.path.join("build", "chip_smoke", "report.json"), "w") as f:
         json.dump(report, f, indent=2)
+    print(f"[total] {report['total_s']:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

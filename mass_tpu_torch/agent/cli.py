@@ -128,11 +128,7 @@ def unported_flags(args) -> Optional[str]:
         (args.backend == "thor", "--backend thor", 3),
         (not args.ground_truth_segmentation,
          "learned segmentation (no --ground-truth-segmentation)", 3),
-        (args.policy_checkpoint is not None, "--policy-checkpoint", 2),
-        (args.frontier_exploration, "--frontier-exploration", 2),
-        (args.revisit_exploration, "--revisit-exploration", 2),
         (args.use_feature_matching, "--use-feature-matching", 3),
-        (args.one_phase, "--one-phase", 2),
         (args.shard_map > 1, "--shard-map", 4),
         (args.videos, "--videos", 3),
         (args.snapshot_maps, "--snapshot-maps", 3),
@@ -181,8 +177,11 @@ def config_from_args(args) -> AgentConfig:
         ground_truth_semantic_search=args.ground_truth_semantic_search,
         semantic_search_walkthrough=args.semantic_search_walkthrough,
         semantic_search_unshuffle=args.semantic_search_unshuffle,
+        frontier_exploration=args.frontier_exploration,
+        revisit_exploration=args.revisit_exploration,
         policy_inhibition_radius=args.policy_inhibition_radius,
         record_found_objects=args.record_found_objects,
+        one_phase=args.one_phase,
         logdir=args.logdir, stage=args.stage,
         start_task=args.start_task, every_tasks=args.every_tasks,
         total_tasks=args.total_tasks, resume=args.resume)
@@ -197,6 +196,7 @@ def make_sampler(args, config: AgentConfig, seeds=None):
                       + args.total_tasks * args.every_tasks + 1)
     return GridWorldTaskSampler(
         list(seeds), camera=config.camera, max_steps=args.max_steps,
+        one_phase=args.one_phase,
         num_objects=args.num_objects, num_misplaced=args.num_misplaced,
         num_opened=args.num_opened,
         duplicate_class_pairs=args.duplicate_class_pairs,
@@ -204,7 +204,26 @@ def make_sampler(args, config: AgentConfig, seeds=None):
         num_rooms=args.num_rooms)
 
 
-def run_fleet(args, config: AgentConfig, device: str):
+def load_policy(path: Optional[str], device):
+    """The search policy of ``--policy-checkpoint``: a reference-layout
+    ``.pth`` state dict.  The JAX package's orbax trees are not read
+    here; each shipped tree has its export under
+    ``mass_tpu_torch/checkpoints/``."""
+    if path is None:
+        return None
+    if not path.endswith(".pth"):
+        export = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "checkpoints", os.path.basename(os.path.normpath(path)) + ".pth")
+        raise SystemExit(
+            f"--policy-checkpoint {path} is not a .pth state dict: the port "
+            f"reads the reference policy.pth layout, not orbax trees; pass "
+            f"the exported {export}")
+    from mass_tpu_torch.search.policy import load_reference_policy
+    return load_reference_policy(path, device)
+
+
+def run_fleet(args, config: AgentConfig, device: str, policy=None):
     """Lockstep fleet evaluation over the task range: batches of
     ``--fleet-size`` episodes, each from a sampler of its own task's seed
     with the rng seed ``--seed`` + task, so an episode equals the
@@ -218,18 +237,21 @@ def run_fleet(args, config: AgentConfig, device: str):
     def run_batch(batch):
         evaluator = FleetEvaluator(
             config, [make_sampler(args, config, [s]) for s in batch],
-            seeds=[args.seed + s for s in batch], device=device)
+            seeds=[args.seed + s for s in batch], policy=policy,
+            device=device)
         results = evaluator.run()
         for task, ep, result in zip(batch, evaluator.episodes, results):
             if not config.logdir:
                 continue
             M.write_task_metrics(config.logdir, task, result)
-            if config.record_found_objects:
-                for phase, track in (("walkthrough", ep.walk_track),
-                                     ("unshuffle", ep.unshuffle_track)):
-                    M.write_found_objects(
-                        config.logdir, task, phase, track,
-                        ep.found_positions, ep.found_types)
+            if not config.record_found_objects:
+                continue
+            tracks = [("unshuffle", ep.unshuffle_track)]
+            if not config.one_phase:    # one-phase has no walkthrough task
+                tracks.insert(0, ("walkthrough", ep.walk_track))
+            for phase, track in tracks:
+                M.write_found_objects(config.logdir, task, phase, track,
+                                      ep.found_positions, ep.found_types)
         return results
 
     results = []
@@ -262,13 +284,15 @@ def main(argv=None):
         json.dump(vars(args), f, indent=4)
 
     config = config_from_args(args)
+    policy = load_policy(args.policy_checkpoint, device)
 
     def run():
         if args.fleet_size > 1:
-            return run_fleet(args, config, device)
+            return run_fleet(args, config, device, policy)
         agent = RearrangementAgent(
             config, make_sampler(args, config),
-            rng=np.random.RandomState(args.seed), device=device)
+            rng=np.random.RandomState(args.seed), device=device,
+            policy=policy)
         return agent.run()
 
     metrics = run_with_restart(run)

@@ -1,17 +1,20 @@
-"""The two-phase rearrangement episode driver (port of
-``mass_tpu.agent.loop``).
+"""The rearrangement episode driver (port of ``mass_tpu.agent.loop``).
 
 Build the walkthrough semantic map while exploring, build a second map
 in the shuffled scene, diff the maps to find displaced objects, and
-navigate / pick / place to fix them.  This slice of the port runs the
-random and ground-truth goal heads, navigating on the walkthrough's
-semantic map or (``--reference-compat``) on a separate occupancy map
-that phase one updates with ``semantic0`` in one multi-map splat; the
-policy, frontier and revisit heads, one-phase episodes and feature
-matching arrive with later slices and raise ``NotImplementedError``
-naming theirs.
+navigate / pick / place to fix them.  The planner reads the
+walkthrough's semantic map or (``--reference-compat``) a separate
+occupancy map that phase one updates with ``semantic0`` in one multi-map
+splat.  Exploration goals come from one of the goal heads: ground truth,
+the semantic-search policy (``search/policy.py``), walkthrough-site
+revisits in the unshuffle phase (``match/revisit.py``), the farthest
+frontier, or a uniform random node.  ``--one-phase`` runs a single task
+whose observations carry the goal world's render, so both maps build
+from one pass (:class:`OnePhaseMapSet`).  Feature matching arrives with
+a later slice and raises ``NotImplementedError`` naming it.
 
-Every numpy random draw happens in the JAX package's order, so a seeded
+Every numpy random draw happens in the JAX package's order, and the
+policy's draws replay ``jax.random``'s threefry stream, so a seeded
 episode takes the same actions in both packages.
 """
 
@@ -21,6 +24,7 @@ import os
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from mass_tpu_torch import resolve_device, taxonomy
 from mass_tpu_torch.agent import metrics as M
@@ -28,20 +32,21 @@ from mass_tpu_torch.agent import oracle
 from mass_tpu_torch.config import AgentConfig
 from mass_tpu_torch.env.gridworld import snake_case
 from mass_tpu_torch.maps import MapSet, OccupancyMap, SemanticMap
+from mass_tpu_torch.match import revisit
 from mass_tpu_torch.match.differences import predict_scene_differences
 from mass_tpu_torch.nav.controller import NavigationController
+from mass_tpu_torch.search import policy as search_policy
+from mass_tpu_torch.search import prng
 from mass_tpu_torch.utils.profiling import StageTimer
 
 PHASE_ONE_MAPS = ["occupancy", "semantic0"]
 PHASE_TWO_MAPS = ["semantic1"]
+# in one-phase episodes these maps read the goal world's render
+GOAL_FED_MAPS = frozenset({"semantic0"})
 
 
 def _unported(config: AgentConfig) -> Optional[str]:
     """The later slice a configuration needs, or None."""
-    if config.one_phase:
-        return "one-phase episodes (--one-phase) are ported in slice 2"
-    if config.frontier_exploration or config.revisit_exploration:
-        return ("frontier and revisit goal heads are ported in slice 2")
     if config.use_feature_matching:
         return "feature matching is ported in slice 3"
     if config.shard_map > 1:
@@ -51,19 +56,126 @@ def _unported(config: AgentConfig) -> Optional[str]:
     return None
 
 
+class OnePhaseMapSet(MapSet):
+    """A ``MapSet`` whose goal-state maps read the goal render that each
+    one-phase observation carries (``goal_depth`` / ``goal_semantic``):
+    one update of the live maps, then one of the goal-fed maps, each
+    with its own binning."""
+
+    def update_group(self, names, observation: Dict) -> None:
+        live = [n for n in names if n not in GOAL_FED_MAPS]
+        goal = [n for n in names if n in GOAL_FED_MAPS]
+        super().update_group(live, observation)
+        if goal and "goal_depth" in observation:
+            remap = dict(observation)
+            remap["depth"] = observation["goal_depth"]
+            remap["semantic"] = observation["goal_semantic"]
+            super().update_group(goal, remap)
+
+
+class GoalHeads:
+    """The exploration-goal heads of one agent: ground truth, the
+    semantic-search policy, walkthrough-site revisits, the farthest
+    frontier and the uniform random node.  The sequential agent and each
+    fleet episode hold one, so their draws cannot drift apart.
+
+    Constructing it draws the policy key's seed from ``rng`` (policy or
+    not, as the JAX package does, so the numpy streams stay aligned).
+    """
+
+    def __init__(self, config: AgentConfig, rng: np.random.RandomState,
+                 policy=None, device=None):
+        self.config = config
+        self.rng = rng
+        self.policy = None if policy is None else policy.to(device)
+        # a checkpoint trained on [current map, walkthrough context] has
+        # twice the classes as its first conv's input width
+        self.conditioned = (
+            policy is not None and search_policy.input_channels(policy)
+            == 2 * taxonomy.NUM_CLASSES)
+        self.key = prng.PRNGKey(rng.randint(1 << 30), device=device)
+        self.reset()
+
+    def reset(self) -> None:
+        """Per-episode state: this phase's policy goal cells (for
+        ``--policy-inhibition-radius``) and the walkthrough sites."""
+        self.cells: Dict[str, List] = {"semantic0": [], "semantic1": []}
+        self.sites: Optional[np.ndarray] = None
+        self.used: set = set()
+
+    def next_goal(self, controller, semantic_name: str,
+                  gt_goals: List[np.ndarray], use_policy: bool,
+                  revisit_ok: bool, timer: StageTimer) -> np.ndarray:
+        """The next exploration goal.  The random sample is drawn first,
+        whichever head wins, as in the JAX package, so every head consumes
+        the same rng stream; revisits (``revisit_ok``: the unshuffle phase)
+        fall back to the frontier once every site is visited."""
+        goal = controller.sample_navigation_goal({})
+        if gt_goals:
+            return gt_goals.pop(0)
+        if use_policy and self.policy is not None:
+            return self.policy_goal(controller.maps, semantic_name, timer)
+        if revisit_ok and self.config.revisit_exploration:
+            if self.sites is None:
+                with timer.stage("matching"):
+                    self.sites = revisit.walkthrough_sites(
+                        controller.maps["semantic0"].voxel_map,
+                        self.config.match)
+            site = revisit.pick_site(self.sites, self.used, self.rng)
+            if site is not None:
+                return site
+            return controller.frontier_navigation_goal({})
+        if self.config.frontier_exploration:
+            return controller.frontier_navigation_goal({})
+        return goal
+
+    def policy_goal(self, maps, semantic_name: str,
+                    timer: StageTimer) -> np.ndarray:
+        """A cell drawn from the policy's scores of the phase map's
+        top-down view, as a world point.  For a conditioned checkpoint
+        the input is ``[top, ctx]``: the finished walkthrough map at the
+        unshuffle call site, zeros at the walkthrough call site (no
+        earlier map exists).  The reads reduce the maps (or a fleet
+        slab's views) without copying them."""
+        self.key, sub = prng.split(self.key)
+        cells = self.cells[semantic_name]
+        radius = self.config.policy_inhibition_radius
+        with timer.stage("search_policy"):
+            x = maps[semantic_name].voxel_map.max_over_depth()
+            if self.conditioned:
+                ctx = (maps["semantic0"].voxel_map.max_over_depth()
+                       if semantic_name == "semantic1"
+                       else torch.zeros_like(x))
+                x = torch.cat([x, ctx], dim=-1)
+            x = x[None]
+            if radius > 0:
+                logits = search_policy.goal_logits(self.policy, x)[0]
+                cell = search_policy.inhibited_sample_cell(
+                    logits, x.shape[1], x.shape[2], cells, radius, sub)
+            else:
+                cell = search_policy.sample_goal_cell(
+                    self.policy, x, sub)[0].cpu().numpy()
+            cells.append(cell[:2])
+            return maps[semantic_name].voxel_map.map_to_world(
+                torch.as_tensor(cell, dtype=torch.float32)).cpu().numpy()
+
+
 class RearrangementAgent:
     """Runs rearrangement episodes from a task sampler.
 
     Args:
       config: full agent configuration.
-      sampler: walkthrough/unshuffle alternating task source.
+      sampler: walkthrough/unshuffle alternating task source (one task per
+        episode under ``config.one_phase``).
       rng: numpy generator for goal sampling and pose noise.
       device: where the maps live; ``None`` means CUDA.
+      policy: semantic-search policy (``search/policy.SearchPolicy``) for
+        ``semantic_search_walkthrough/unshuffle``, or None.
     """
 
     def __init__(self, config: AgentConfig, sampler,
                  rng: Optional[np.random.RandomState] = None,
-                 device=None):
+                 device=None, policy=None):
         reason = _unported(config)
         if reason is not None:
             raise NotImplementedError(reason)
@@ -78,43 +190,37 @@ class RearrangementAgent:
                       map_width=config.map_width,
                       map_depth=config.map_depth,
                       grid_resolution=config.grid_resolution)
-        self.maps = MapSet(
+        map_set = OnePhaseMapSet if config.one_phase else MapSet
+        self.maps = map_set(
             semantic0=SemanticMap(cam, taxonomy.NUM_CLASSES,
                                   device=self.device, **geo_kw),
             semantic1=SemanticMap(cam, taxonomy.NUM_CLASSES,
                                   device=self.device, **geo_kw))
-        # the planner reads the walkthrough's semantic map, or a separate
-        # occupancy map (navigate_on_semantic=False, --reference-compat)
-        # that phase one updates together with semantic0
+        # the planner reads the walkthrough's semantic map (the live one
+        # in one-phase episodes), or a separate occupancy map
+        # (navigate_on_semantic=False, --reference-compat) that phase one
+        # updates together with semantic0
         self.navigation_map = config.navigation_map_name
         if not config.navigate_on_semantic:
             self.maps["occupancy"] = OccupancyMap(cam, device=self.device,
                                                   **geo_kw)
         self.phase_one = [m for m in PHASE_ONE_MAPS if m in self.maps]
         self.phase_two = [m for m in PHASE_TWO_MAPS if m in self.maps]
-        # the JAX agent seeds its policy PRNG key here, policy or not;
-        # the same draw keeps both packages' rng streams aligned
-        self.rng.randint(1 << 30)
 
-    # ------------------------------------------------------- goal heads
-
-    def _next_goal(self, controller,
-                   gt_goals: List[np.ndarray]) -> np.ndarray:
-        # the random sample is drawn before the GT check, as in the JAX
-        # package, so GT-goal episodes consume the same rng stream
-        goal = controller.sample_navigation_goal({})
-        if gt_goals:
-            return gt_goals.pop(0)
-        return goal
+        self.heads = GoalHeads(config, self.rng, policy, self.device)
 
     # -------------------------------------------------------- phases
 
-    def _explore(self, controller, budget: int, update_maps: List[str],
-                 gt_goals: List[np.ndarray], tracker) -> None:
+    def _explore(self, controller, budget: int, semantic_name: str,
+                 update_maps: List[str], gt_goals: List[np.ndarray],
+                 use_policy: bool, tracker,
+                 revisit_ok: bool = False) -> None:
         num_goals = 0
         while not controller.task.is_done() and num_goals < budget:
             num_goals += 1
-            goal = self._next_goal(controller, gt_goals)
+            goal = self.heads.next_goal(controller, semantic_name,
+                                        gt_goals, use_policy, revisit_ok,
+                                        self.timer)
             for _ in controller.navigate_to(goal, update_map=update_maps):
                 if tracker is not None:
                     loc = controller.task.agent_location()
@@ -177,70 +283,45 @@ class RearrangementAgent:
 
     # ----------------------------------------------------------- tasks
 
-    def run_task(self, task_id: int) -> Dict:
-        cfg = self.config
+    def _start_task(self):
+        """A fresh episode's first task, maps, controller and stage
+        timer, the agent looking down (it behaves better so)."""
         self.timer = StageTimer(self.device)    # fresh per-task timing
-        walkthrough = self.sampler.next_task()
-
-        loc = walkthrough.agent_location()
+        self.heads.reset()
+        task = self.sampler.next_task()
+        loc = task.agent_location()
         self.maps.reset_all((loc.x, loc.z, loc.y))
         controller = NavigationController(
-            walkthrough, self.navigation_map, self.maps, cfg.nav,
+            task, self.navigation_map, self.maps, self.config.nav,
             rng=self.rng, timer=self.timer)
+        task.step(task.action_names().index("look_down"))
+        return task, controller
 
-        # the agent behaves better looking down
-        walkthrough.step(walkthrough.action_names().index("look_down"))
-
-        analytics = self._initial_analytics(walkthrough)
-        gt_goals_walk, gt_goals_unshuffle = [], []
-        if cfg.ground_truth_semantic_search:
-            for cur, target in oracle.scene_difference_positions(
-                    walkthrough):
-                gt_goals_walk.append(target)
-                gt_goals_unshuffle.append(cur)
-
-        walk_track: Optional[List] = ([] if cfg.record_found_objects
-                                      else None)
-        unshuffle_track: Optional[List] = ([] if cfg.record_found_objects
-                                           else None)
-
-        # --- walkthrough exploration
-        self._explore(controller, cfg.exploration_budget_one,
-                      self.phase_one, gt_goals_walk, walk_track)
-
-        # --- phase switch
-        unshuffle = self.sampler.next_task()
-        controller.task = unshuffle
-        unshuffle.step(unshuffle.action_names().index("look_down"))
-
+    @staticmethod
+    def _misplaced(task_id: int, task, record: bool):
+        """The classes to move, printed, and (with ``record``) the
+        misplaced objects' positions and types for the found-object
+        files."""
         object_ids_to_move = {
             taxonomy.CLASS_NAMES.index(n)
-            for n in oracle.scene_difference_types(unshuffle)}
+            for n in oracle.scene_difference_types(task)}
         print(f"[Task={task_id}] Ground truth: " + ", ".join(
             taxonomy.CLASS_NAMES[i] for i in object_ids_to_move))
+        positions = np.asarray(
+            [p[0][:2] for p in oracle.scene_difference_positions(task)]) \
+            if record else np.zeros((0, 2))
+        types = list(oracle.scene_difference_types(task)) if record else []
+        return object_ids_to_move, positions, types
 
-        object_positions = np.asarray(
-            [p[0][:2] for p in
-             oracle.scene_difference_positions(unshuffle)]) \
-            if cfg.record_found_objects else np.zeros((0, 2))
-        object_types = (list(oracle.scene_difference_types(unshuffle))
-                        if cfg.record_found_objects else [])
-
-        # --- unshuffle exploration
-        self._explore(controller, cfg.exploration_budget_two,
-                      self.phase_two, gt_goals_unshuffle, unshuffle_track)
-
-        # --- rearrangement
-        objects_moved: set = set()
-        self._rearrange(controller, object_ids_to_move, objects_moved,
-                        unshuffle_track)
-
-        if not unshuffle.is_done():
-            unshuffle.step(unshuffle.action_names().index("done"))
-
-        # --- outputs
-        self._final_analytics(unshuffle, analytics)
-        results = unshuffle.metrics()
+    def _finish_task(self, task_id: int, task, controller, analytics,
+                     object_ids_to_move, objects_moved: set,
+                     tracks: Dict[str, List], positions, types) -> Dict:
+        """End the episode, and write and return its results."""
+        cfg = self.config
+        if not task.is_done():
+            task.step(task.action_names().index("done"))
+        self._final_analytics(task, analytics)
+        results = task.metrics()
         results["unshuffle/objects_moved"] = [
             taxonomy.CLASS_NAMES[i] for i in objects_moved]
         results["unshuffle/objects_moved_accuracy"] = [
@@ -260,13 +341,86 @@ class RearrangementAgent:
             M.write_task_metrics(cfg.logdir, task_id, results)
             M.write_analytics(cfg.logdir, task_id, analytics)
             if cfg.record_found_objects:
-                M.write_found_objects(cfg.logdir, task_id,
-                                      "walkthrough", walk_track or [],
-                                      object_positions, object_types)
-                M.write_found_objects(cfg.logdir, task_id, "unshuffle",
-                                      unshuffle_track or [],
-                                      object_positions, object_types)
+                for phase, track in tracks.items():
+                    M.write_found_objects(cfg.logdir, task_id, phase,
+                                          track or [], positions, types)
         return results
+
+    def run_task(self, task_id: int) -> Dict:
+        if self.config.one_phase:
+            return self._run_task_one_phase(task_id)
+        cfg = self.config
+        walkthrough, controller = self._start_task()
+
+        analytics = self._initial_analytics(walkthrough)
+        gt_goals_walk, gt_goals_unshuffle = [], []
+        if cfg.ground_truth_semantic_search:
+            for cur, target in oracle.scene_difference_positions(
+                    walkthrough):
+                gt_goals_walk.append(target)
+                gt_goals_unshuffle.append(cur)
+
+        walk_track: Optional[List] = ([] if cfg.record_found_objects
+                                      else None)
+        unshuffle_track: Optional[List] = ([] if cfg.record_found_objects
+                                           else None)
+
+        # --- walkthrough exploration
+        self._explore(controller, cfg.exploration_budget_one, "semantic0",
+                      self.phase_one, gt_goals_walk,
+                      cfg.semantic_search_walkthrough, walk_track)
+
+        # --- phase switch
+        unshuffle = self.sampler.next_task()
+        controller.task = unshuffle
+        unshuffle.step(unshuffle.action_names().index("look_down"))
+        object_ids_to_move, positions, types = self._misplaced(
+            task_id, unshuffle, cfg.record_found_objects)
+
+        # --- unshuffle exploration (the revisit head's phase)
+        self._explore(controller, cfg.exploration_budget_two, "semantic1",
+                      self.phase_two, gt_goals_unshuffle,
+                      cfg.semantic_search_unshuffle, unshuffle_track,
+                      revisit_ok=True)
+
+        # --- rearrangement
+        objects_moved: set = set()
+        self._rearrange(controller, object_ids_to_move, objects_moved,
+                        unshuffle_track)
+        return self._finish_task(
+            task_id, unshuffle, controller, analytics, object_ids_to_move,
+            objects_moved, {"walkthrough": walk_track,
+                            "unshuffle": unshuffle_track},
+            positions, types)
+
+    def _run_task_one_phase(self, task_id: int) -> Dict:
+        """A single-task episode: every observation carries the goal
+        world's render from the same pose, so one exploration pass with
+        both budgets builds both maps; rearrangement then runs as
+        usual."""
+        cfg = self.config
+        task, controller = self._start_task()
+
+        analytics = self._initial_analytics(task)
+        gt_goals: List[np.ndarray] = []
+        if cfg.ground_truth_semantic_search:
+            for cur, target in oracle.scene_difference_positions(task):
+                gt_goals.extend([cur, target])
+        object_ids_to_move, positions, types = self._misplaced(
+            task_id, task, cfg.record_found_objects)
+        track: Optional[List] = [] if cfg.record_found_objects else None
+
+        self._explore(controller,
+                      cfg.exploration_budget_one + cfg.exploration_budget_two,
+                      "semantic1", self.phase_one + self.phase_two, gt_goals,
+                      cfg.semantic_search_unshuffle, track)
+
+        objects_moved: set = set()
+        self._rearrange(controller, object_ids_to_move, objects_moved,
+                        track)
+        return self._finish_task(task_id, task, controller, analytics,
+                                 object_ids_to_move, objects_moved,
+                                 {"unshuffle": track}, positions, types)
 
     def run(self) -> List[Dict]:
         """Run the configured task range, advancing the config cursor so

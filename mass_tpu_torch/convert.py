@@ -3,9 +3,10 @@
 ``mass_tpu``'s ``VoxelMap`` stores its features either channel-major
 ``[8 * ceil(F / 8), V]`` (the TPU layout, with zero pad rows) or
 voxel-major ``[V, F]``; the port always stores ``[V, F]``.  The
-functions here take and give plain numpy arrays, so neither package
-imports the other.  (This slice has no learned weights; the
-search-policy parameter import arrives with slice 2.)
+search policy's flax parameters (``Conv_k`` HWIO kernels, ``GroupNorm_k``
+scales and biases) become the reference ``Sequential`` layout that
+``search/policy.py`` reads.  The functions here take and give plain
+numpy arrays, so neither package imports the other.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from mass_tpu_torch.config import MapGeometry
 from mass_tpu_torch.core.voxelmap import VoxelMap
+from mass_tpu_torch.search import policy as search_policy
 
 
 def voxelmap_from_jax(data, bins_x, bins_y, bins_z,
@@ -69,3 +71,33 @@ def voxelmap_to_numpy(vm: VoxelMap, layout: str = "vmajor"
                 bins_x=vm.bins_x.detach().cpu().numpy(),
                 bins_y=vm.bins_y.detach().cpu().numpy(),
                 bins_z=vm.bins_z.detach().cpu().numpy())
+
+
+def policy_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The reference ``policy.pth`` state dict of the JAX package's
+    search-policy parameters (``{"params": {...}}`` or the inner dict, as
+    numpy): ``Conv_k`` kernels HWIO -> OIHW at Sequential index
+    ``(0, 3, 6, 9, 12)[k]``, ``GroupNorm_k`` scale/bias -> weight/bias at
+    ``(1, 4, 7, 10)[k]``."""
+    params = params.get("params", params)
+
+    def tensor(x):
+        return torch.from_numpy(np.array(x, np.float32))
+    state = {}
+    for k, i in enumerate(search_policy.CONV_INDICES):
+        conv = params[f"Conv_{k}"]
+        state[f"{i}.weight"] = tensor(
+            np.asarray(conv["kernel"]).transpose(3, 2, 0, 1))
+        state[f"{i}.bias"] = tensor(conv["bias"])
+    for k, i in enumerate(search_policy.NORM_INDICES):
+        norm = params[f"GroupNorm_{k}"]
+        state[f"{i}.weight"] = tensor(norm["scale"])
+        state[f"{i}.bias"] = tensor(norm["bias"])
+    return state
+
+
+def policy_from_jax(params, device=None) -> search_policy.SearchPolicy:
+    """The port's :class:`~mass_tpu_torch.search.policy.SearchPolicy`
+    holding the JAX package's search-policy parameters."""
+    return search_policy.from_state_dict(policy_state_dict_from_jax(params),
+                                         device)

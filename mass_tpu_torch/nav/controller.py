@@ -248,6 +248,43 @@ class NavigationController:
         return self._map_to_world(self._occupancy_vm(), cell3,
                                   epoch=self._bins_epoch())
 
+    def frontier_navigation_goal(self, observations: Dict,
+                                 radius_m: float = 1.0) -> np.ndarray:
+        """Farthest frontier: of the reachable nodes with any frontier
+        cell (``nav/grid.frontier_mass``) within ``radius_m``, the one
+        with the most BFS hops from the agent, ties broken by one rng
+        draw; with no frontier left, a uniform random node (one draw).
+
+        Farthest rather than greatest mass: frontier nodes sit at the
+        edge of known space, so the mass argmax is a short hop that
+        spends a goal of the budget, where a far goal sweeps the scene
+        on its way.  Frontier mass is computed without obstacle padding:
+        erosion is a planning margin, and it would wipe out the thin
+        free strips of a sparsely observed map."""
+        if "position" not in observations:
+            observations["position"] = self.process_position()
+        nodes, hops = self.navigable_node_cells(
+            observations["position"], with_dist=True)
+        cfg = self.config
+        res = self._occupancy_vm().geometry.grid_resolution
+        radius = max(1, int(round(radius_m / res)))
+        mass = NG.frontier_mass(
+            self._occupancy_vm(), radius, padding=0,
+            z_start=cfg.map_slice_start, z_stop=cfg.map_slice_stop,
+            obstacle_threshold=cfg.obstacle_threshold,
+            blocked=self._blocked_operand()).cpu().numpy()
+        scores = mass[nodes[:, 1], nodes[:, 0]]
+        cand = np.flatnonzero(scores > 0)
+        if cand.size == 0:                 # fully explored: uniform
+            pick = nodes[self.rng.randint(nodes.shape[0])]
+        else:
+            far = hops[cand].max()
+            ties = cand[hops[cand] >= far]
+            pick = nodes[ties[self.rng.randint(ties.shape[0])]]
+        cell3 = np.asarray([pick[0], pick[1], 0], np.float32)
+        return self._map_to_world(self._occupancy_vm(), cell3,
+                                  epoch=self._bins_epoch())
+
     # ------------------------------------------------------ local policy
 
     @staticmethod

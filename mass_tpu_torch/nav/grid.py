@@ -48,6 +48,37 @@ def navigable_area(vm: VoxelMap, padding: int = 3, z_start: int = 0,
                       blocked, padding)
 
 
+def _box_sum(x: torch.Tensor, r: int) -> torch.Tensor:
+    """``(2r+1)^2`` sliding-window sum of a 0/1 image with zero padding,
+    from an integral image (two integer cumsums, so the float32 result is
+    exact as the JAX package's float32 cumsums are below 2**24)."""
+    k = 2 * r + 1
+    c = torch.nn.functional.pad(x.to(torch.int32), (r + 1, r, r + 1, r))
+    c = torch.cumsum(torch.cumsum(c, dim=0), dim=1)
+    return (c[k:, k:] - c[:-k, k:] - c[k:, :-k]
+            + c[:-k, :-k]).to(torch.float32)
+
+
+def frontier_mass(vm: VoxelMap, radius_cells: int, padding: int = 3,
+                  z_start: int = 0, z_stop: int = 32,
+                  obstacle_threshold: float = 0.0,
+                  blocked: torch.Tensor = None) -> torch.Tensor:
+    """``[H, W]`` float — the number of frontier cells within a
+    ``radius_cells`` Chebyshev window of each map cell.  A frontier cell
+    is unobserved and borders observed navigable space, so unknown space
+    behind walls scores zero while doorways into unexplored rooms score
+    high."""
+    observed = vm.grid().amax(dim=(2, 3)) > 0           # any splat
+    free = observed & navigable_area(vm, padding, z_start, z_stop,
+                                     obstacle_threshold, blocked=blocked)
+    near_free = free.clone()
+    near_free[:-1] |= free[1:]
+    near_free[1:] |= free[:-1]
+    near_free[:, :-1] |= free[:, 1:]
+    near_free[:, 1:] |= free[:, :-1]
+    return _box_sum(~observed & near_free, radius_cells)
+
+
 class NavGrid(NamedTuple):
     """Navigation mesh state.  Node ``(i, j)`` sits at map cell
     ``(y, x) = (off_y + i*step, off_x + j*step)``; ``edge_right[i, j]``

@@ -15,12 +15,13 @@ This evaluator advances B grid-world episodes in lockstep instead:
     ``NavigationController.decide_from_plan``, so each episode takes the
     sequential agent's actions given the same rng seed.
 
-This slice runs the sequential port's configurations: two-phase
-episodes with ground-truth segmentation, random or ground-truth goals,
-ground-truth or predicted disagreement and ``--reference-compat``.
-Policy, frontier and revisit goals, one-phase episodes, learned
-segmentation and feature matching raise ``NotImplementedError`` naming
-their slice.
+It runs the sequential port's configurations: two-phase and one-phase
+episodes with ground-truth segmentation, every goal head (ground truth,
+the semantic-search policy, revisit, frontier, random), ground-truth or
+predicted disagreement and ``--reference-compat``.  One-phase ticks make
+a second batched map update for the goal-fed maps, since the goal
+render's depth has its own binning.  Learned segmentation and feature
+matching raise ``NotImplementedError`` naming their slice.
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ import torch
 
 from mass_tpu_torch import resolve_device, taxonomy
 from mass_tpu_torch.agent import oracle
-from mass_tpu_torch.agent.loop import PHASE_ONE_MAPS, PHASE_TWO_MAPS, \
-    _unported
+from mass_tpu_torch.agent.loop import GOAL_FED_MAPS, PHASE_ONE_MAPS, \
+    PHASE_TWO_MAPS, GoalHeads, _unported
 from mass_tpu_torch.config import AgentConfig, MapGeometry
 from mass_tpu_torch.core import geometry as G
 from mass_tpu_torch.env.gridworld import snake_case
@@ -73,7 +74,7 @@ WALK, UNSHUFFLE, REARRANGE, DONE = range(4)
 
 class _Episode:
     def __init__(self, index: int, sampler, config: AgentConfig,
-                 fleet: FleetMaps, rng: np.random.RandomState):
+                 fleet: FleetMaps, rng: np.random.RandomState, policy=None):
         self.index = index
         self.sampler = sampler
         self.config = config
@@ -85,8 +86,9 @@ class _Episode:
         self.objects_moved: set = set()
         self.results: Optional[Dict] = None
         self.map_updates = 0            # frames folded into the fleet
-        # the sequential agent draws its policy key here, policy or not
-        rng.randint(1 << 30)
+        # the sequential agent's goal heads, drawing its policy key's
+        # seed at the same point of the rng stream
+        self.heads = GoalHeads(config, rng, policy, fleet.device)
         # --record-found-objects state (written by the CLI's fleet
         # driver): the agent's (x, z) per step, as the sequential agent
         # tracks it, and the misplaced objects
@@ -108,30 +110,49 @@ class _Episode:
         self.gt_walk: List[np.ndarray] = []
         self.gt_unshuffle: List[np.ndarray] = []
         self.object_ids_to_move: set = set()
-        self.unshuffle_budget = config.exploration_budget_two
-        if config.ground_truth_semantic_search:
-            for cur, target in oracle.scene_difference_positions(self.task):
-                self.gt_walk.append(target)
-                self.gt_unshuffle.append(cur)
+        if config.one_phase:
+            # one task: one exploration pass with both budgets builds
+            # both maps, with the ground-truth goals interleaved
+            # (current, target), as the sequential one-phase episode
+            self.phase = UNSHUFFLE
+            self.unshuffle_budget = (config.exploration_budget_one
+                                     + config.exploration_budget_two)
+            if config.ground_truth_semantic_search:
+                for cur, target in oracle.scene_difference_positions(
+                        self.task):
+                    self.gt_unshuffle.extend([cur, target])
+            self._note_misplaced()
+        else:
+            self.unshuffle_budget = config.exploration_budget_two
+            if config.ground_truth_semantic_search:
+                for cur, target in oracle.scene_difference_positions(
+                        self.task):
+                    self.gt_walk.append(target)
+                    self.gt_unshuffle.append(cur)
 
     # ------------------------------------------------------------ fsm
 
     def update_names(self) -> List[str]:
-        names = PHASE_ONE_MAPS if self.phase == WALK else PHASE_TWO_MAPS
+        if self.config.one_phase and self.phase != REARRANGE:
+            # one-phase exploration feeds every map (the goal-fed ones
+            # from the goal render); rearrangement updates the live
+            # phase-two maps only, as the sequential episode
+            names = PHASE_ONE_MAPS + PHASE_TWO_MAPS
+        else:
+            names = PHASE_ONE_MAPS if self.phase == WALK else PHASE_TWO_MAPS
         return [n for n in names if n in self.controller.maps]
 
-    def _next_goal(self, gt_goals: List[np.ndarray]) -> np.ndarray:
-        # as the sequential agent: the random sample is always drawn (it
-        # advances the rng) even when a ground-truth goal wins
-        goal = self.controller.sample_navigation_goal({})
-        if gt_goals:
-            return gt_goals.pop(0)
-        return goal
+    def _next_goal(self, gt_goals: List[np.ndarray], semantic_name: str,
+                   use_policy: bool, timer: StageTimer) -> np.ndarray:
+        # revisits serve the unshuffle phase of a two-phase episode, as
+        # in the sequential agent
+        revisit_ok = not self.config.one_phase and self.phase == UNSHUFFLE
+        return self.heads.next_goal(self.controller, semantic_name,
+                                    gt_goals, use_policy, revisit_ok, timer)
 
-    def _enter_unshuffle(self) -> None:
-        self.task = self.sampler.next_task()
-        self.controller.task = self.task
-        self.task.step(self.task.action_names().index("look_down"))
+    def _note_misplaced(self) -> None:
+        """The current task's classes to move and, for
+        --record-found-objects, the misplaced objects."""
         self.object_ids_to_move = {
             taxonomy.CLASS_NAMES.index(n)
             for n in oracle.scene_difference_types(self.task)}
@@ -141,6 +162,12 @@ class _Episode:
             self.found_positions = (np.asarray(pos) if pos
                                     else np.zeros((0, 2)))
             self.found_types = list(oracle.scene_difference_types(self.task))
+
+    def _enter_unshuffle(self) -> None:
+        self.task = self.sampler.next_task()
+        self.controller.task = self.task
+        self.task.step(self.task.action_names().index("look_down"))
+        self._note_misplaced()
         self.phase = UNSHUFFLE
         self.goals_used = 0
 
@@ -198,16 +225,20 @@ class _Episode:
                     self._enter_unshuffle()
                     continue
                 self.goals_used += 1
-                self.mission = _Mission(self._next_goal(self.gt_walk), [],
-                                        cfg.nav.max_goal_steps)
+                self.mission = _Mission(
+                    self._next_goal(self.gt_walk, "semantic0",
+                                    cfg.semantic_search_walkthrough, timer),
+                    [], cfg.nav.max_goal_steps)
             elif self.phase == UNSHUFFLE:
                 if self.goals_used >= self.unshuffle_budget:
                     self.phase = REARRANGE
                     self._queue = []
                     continue
                 self.goals_used += 1
-                self.mission = _Mission(self._next_goal(self.gt_unshuffle),
-                                        [], cfg.nav.max_goal_steps)
+                self.mission = _Mission(
+                    self._next_goal(self.gt_unshuffle, "semantic1",
+                                    cfg.semantic_search_unshuffle, timer),
+                    [], cfg.nav.max_goal_steps)
             else:                                        # REARRANGE
                 if self._queue:
                     self.mission = self._queue.pop(0)
@@ -248,12 +279,9 @@ class _Episode:
         self.mission = None
 
 
-def _unported_fleet(config: AgentConfig, policy_params, sensor,
+def _unported_fleet(config: AgentConfig, sensor,
                     feature_backbone) -> Optional[str]:
     """The later slice a fleet configuration needs, or None."""
-    if policy_params is not None:
-        return ("semantic-search policy goals (--policy-checkpoint) are "
-                "ported in slice 2")
     if sensor is not None:
         return "learned segmentation sensors are ported in slice 3"
     if feature_backbone is not None:
@@ -265,23 +293,23 @@ class FleetEvaluator:
     """Run B episodes in lockstep over shared fleet maps.
 
     Args:
-      config: agent configuration (the sequential port's two-phase
-        configurations).
+      config: agent configuration (the sequential port's configurations).
       samplers: one task sampler per episode (each yields that episode's
-        walkthrough, then its unshuffle task).
+        walkthrough, then its unshuffle task; one task under
+        ``config.one_phase``).
       seeds: per-episode rng seeds (pose noise and goal sampling); the
         sequential agent given the same seed takes the same actions.
-      policy_params, sensor, feature_backbone: the JAX package's policy
-        goals, learned segmentation and feature matching, which arrive
-        with later slices of the port.
+      policy: the semantic-search policy that every episode's policy
+        goals share, or None.
+      sensor, feature_backbone: the JAX package's learned segmentation
+        and feature matching, which arrive with a later slice of the port.
       device: where the maps live; ``None`` means CUDA.
     """
 
     def __init__(self, config: AgentConfig, samplers: List,
-                 seeds: Optional[List[int]] = None, policy_params=None,
+                 seeds: Optional[List[int]] = None, policy=None,
                  sensor=None, feature_backbone=None, device=None):
-        reason = _unported_fleet(config, policy_params, sensor,
-                                 feature_backbone)
+        reason = _unported_fleet(config, sensor, feature_backbone)
         if reason is not None:
             raise NotImplementedError(reason)
         self.config = config
@@ -305,7 +333,8 @@ class FleetEvaluator:
         seeds = seeds or list(range(B))
         self.episodes = [
             _Episode(i, samplers[i], config, self.fleet,
-                     np.random.RandomState(seeds[i])) for i in range(B)]
+                     np.random.RandomState(seeds[i]), policy)
+            for i in range(B)]
 
     # ---------------------------------------------------------- tick
 
@@ -368,6 +397,17 @@ class FleetEvaluator:
         classes = {name: np.zeros((B, cam.height, cam.width), np.int32)
                    for name in ("semantic0", "semantic1")}
         active = {name: np.zeros((B,), bool) for name in self.fleet.names}
+        # one-phase: the goal-fed maps read the goal world's render, whose
+        # depth differs from the live frame's, so they take a second
+        # batched update with its own binning (agent/loop.OnePhaseMapSet)
+        one_phase = self.config.one_phase
+        goal_active = {name: np.zeros((B,), bool)
+                       for name in self.fleet.names}
+        if one_phase:
+            goal_depths = np.full_like(depths, 1e9)
+            goal_classes = {name: np.zeros((B, cam.height, cam.width),
+                                           np.int32)
+                            for name in GOAL_FED_MAPS}
         obs: Dict[int, Dict] = {}
         with self.timer.stage("observe"):
             for ep in live:
@@ -389,17 +429,25 @@ class FleetEvaluator:
             yaws[ep.index] = o["yaw"]
             elevations[ep.index] = o["elevation"]
             depths[ep.index] = np.asarray(o["depth"], np.float32)
-            sem = np.asarray(o["semantic"])
-            if sem.ndim == 3:
-                sem = sem[..., 0]
             for name in ep.update_names():
+                if one_phase and name in GOAL_FED_MAPS:
+                    goal_active[name][ep.index] = True
+                    goal_classes[name][ep.index] = _classes(
+                        o["goal_semantic"])
+                    goal_depths[ep.index] = np.asarray(o["goal_depth"],
+                                                       np.float32)
+                    continue
                 active[name][ep.index] = True
                 if name in classes:
-                    classes[name][ep.index] = sem
+                    classes[name][ep.index] = _classes(o["semantic"])
             ep.map_updates += 1
         with self.timer.stage("mapping"):
             self.fleet.update_batch(positions, yaws, elevations, depths,
                                     classes, active=active)
+            if any(m.any() for m in goal_active.values()):
+                self.fleet.update_batch(positions, yaws, elevations,
+                                        goal_depths, goal_classes,
+                                        active=goal_active)
 
         # --- batched planning, then per-episode decisions and steps
         plans: Dict[int, tuple] = {}
@@ -441,6 +489,12 @@ class FleetEvaluator:
         if results and results[0] is not None:
             results[0]["fleet_timing"] = self.timer.summary()
         return results
+
+
+def _classes(semantic) -> np.ndarray:
+    """A segmentation render as ``[h, w]`` class ids."""
+    sem = np.asarray(semantic)
+    return sem[..., 0] if sem.ndim == 3 else sem
 
 
 def _wants_refresh(ep: _Episode, nav_cfg) -> bool:

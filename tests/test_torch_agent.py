@@ -147,26 +147,59 @@ def test_failed_actions_match_jax():
     np.testing.assert_allclose(got[5], ref[5], atol=1e-6)
 
 
+# a tiny CLI run on the CPU: 16x16 camera, 32x32x8 maps, budgets 1+1
+SMALL = ["--ground-truth-segmentation", "--ground-truth-disagreement",
+         "--camera-size", "16", "--map-height", "32", "--map-width", "32",
+         "--map-depth", "8", "--grid-resolution", "0.25", "--step-size", "1",
+         "--obstacle-padding", "1", "--map-slice-start", "0",
+         "--map-slice-stop", "4", "--exploration-budget-one", "1",
+         "--exploration-budget-two", "1", "--max-steps", "20",
+         "--num-objects", "2", "--num-misplaced", "1", "--num-opened", "0",
+         "--record-found-objects", "--device", "cpu"]
+GRIDWORLD_POLICY = os.path.join(REPO, "mass_tpu_torch", "checkpoints",
+                                "policy-gridworld.pth")
+
+
 @pytest.mark.parametrize("flags,slice_no", [
     (["--backend", "thor"], 3),
     ([], 3),                                    # learned segmentation
-    (["--policy-checkpoint", "x"], 2),
-    (["--frontier-exploration"], 2),
-    (["--revisit-exploration"], 2),
+    (["--policy-checkpoint", GRIDWORLD_POLICY,
+      "--semantic-search-unshuffle"], None),
+    (["--frontier-exploration"], None),
+    (["--revisit-exploration"], None),
     (["--use-feature-matching"], 3),
-    (["--one-phase"], 2),
+    (["--one-phase"], None),
     (["--shard-map", "8"], 4),
     (["--snapshot-maps"], 3),
     (["--videos"], 3),
 ])
 def test_cli_rejects_flags_of_later_slices(flags, slice_no, tmp_path):
+    """Flags of later slices stop before anything is written; the goal
+    heads' flags (``slice_no`` None) run: a CPU run writes
+    results/2.json."""
     from mass_tpu_torch.agent import cli
 
+    if slice_no is None:
+        cli.main(SMALL + flags + ["--start-task", "2", "--total-tasks", "1",
+                                  "--logdir", str(tmp_path)])
+        with open(tmp_path / "results" / "2.json") as f:
+            assert json.load(f)["task_id"] == 2
+        return
     base = [] if flags == [] else ["--ground-truth-segmentation"]
     with pytest.raises(SystemExit, match=f"slice {slice_no}"):
         cli.main(base + flags + ["--logdir", str(tmp_path), "--device",
                                  "cpu"])
     assert not os.listdir(tmp_path)
+
+
+def test_cli_refuses_orbax_policy_and_names_its_export(tmp_path):
+    from mass_tpu_torch.agent import cli
+
+    orbax = os.path.join(REPO, "checkpoints", "policy-gridworld")
+    with pytest.raises(SystemExit, match="policy-gridworld.pth"):
+        cli.main(SMALL + ["--policy-checkpoint", orbax, "--logdir",
+                          str(tmp_path)])
+    assert not os.path.exists(tmp_path / "results")
 
 
 def test_cli_takes_mass_tpu_flags_and_defaults():

@@ -12,7 +12,8 @@ import torch
 
 from mass_tpu_torch.ops import splat as SP
 from mass_tpu_torch.parallel import fleet as TF
-from tests.test_torch_agent import jax_node_memo_held
+from tests.test_torch_agent import GRIDWORLD_POLICY, SMALL, \
+    jax_node_memo_held
 
 SEEDS = [2, 4]
 GEO = dict(map_height=80, map_width=80, map_depth=24, grid_resolution=0.125)
@@ -155,16 +156,6 @@ def test_fleet_matches_jax_fleet_evaluator():
         assert not _drift(g, r)
 
 
-SMALL = ["--ground-truth-segmentation", "--ground-truth-disagreement",
-         "--camera-size", "16", "--map-height", "32", "--map-width", "32",
-         "--map-depth", "8", "--grid-resolution", "0.25", "--step-size", "1",
-         "--obstacle-padding", "1", "--map-slice-start", "0",
-         "--map-slice-stop", "4", "--exploration-budget-one", "1",
-         "--exploration-budget-two", "1", "--max-steps", "20",
-         "--num-objects", "2", "--num-misplaced", "1", "--num-opened", "0",
-         "--record-found-objects", "--device", "cpu"]
-
-
 def test_cli_fleet_writes_results(tmp_path):
     """--fleet-size 2 on the CPU runs tasks 2 and 3 in lockstep and
     writes both results files and the found-object records; task 3's
@@ -198,21 +189,33 @@ def test_cli_fleet_writes_results(tmp_path):
 
 
 @pytest.mark.parametrize("change,slice_no", [
-    ({"policy_params": {}}, 2),
+    (["--policy-checkpoint", GRIDWORLD_POLICY,
+      "--semantic-search-walkthrough"], None),
     ({"sensor": object()}, 3),
     ({"feature_backbone": object()}, 3),
-    ({"one_phase": True}, 2),
-    ({"frontier_exploration": True}, 2),
-    ({"revisit_exploration": True}, 2),
+    (["--one-phase"], None),
+    (["--frontier-exploration"], None),
+    (["--revisit-exploration"], None),
     ({"use_feature_matching": True}, 3),
     ({"shard_map": 4}, 4),
     ({"snapshot_maps": True}, 3),
 ])
-def test_fleet_refuses_later_slices(change, slice_no):
+def test_fleet_refuses_later_slices(change, slice_no, tmp_path):
+    """The fleet refuses what later slices port; the goal heads' flags
+    (``slice_no`` None, ``change`` CLI flags) run: a --fleet-size 2 CPU
+    run of tasks 2-3 writes results/2.json."""
+    from mass_tpu_torch.agent import cli
     from mass_tpu_torch.parallel.evaluator import FleetEvaluator
 
+    if slice_no is None:
+        cli.main(SMALL + change + ["--fleet-size", "2", "--start-task", "2",
+                                   "--total-tasks", "2", "--logdir",
+                                   str(tmp_path)])
+        with open(tmp_path / "results" / "2.json") as f:
+            assert json.load(f)["task_id"] == 2
+        return
     args = {k: v for k, v in change.items()
-            if k in ("policy_params", "sensor", "feature_backbone")}
+            if k in ("sensor", "feature_backbone")}
     cfg = _config("torch", **{k: v for k, v in change.items()
                               if k not in args})
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):

@@ -313,6 +313,31 @@ def test_frozen_protocol_random_arm_on_card(cuda, tmp_path):
     assert not drift
 
 
+@pytest.mark.parametrize("arm", ["cond-ihr", "revisit"])
+def test_frozen_protocol_head_arm_on_card(cuda, arm, tmp_path):
+    """Task 0 of the committed cond-ihr (conditioned policy with
+    inhibition, its convs on cuDNN) and revisit arms through the port's
+    CLI on the card: equal to the committed JAX records."""
+    from mass_tpu_torch.agent import cli
+    from tests.test_torch_agent import PROTOCOL
+    from tests.test_torch_heads import ARMS
+
+    with open(os.path.join(REPO, "experiments", "mr22", arm, "results",
+                           "0.json")) as f:
+        committed = json.load(f)
+    cpu = PROTOCOL.index("--platform")
+    argv = PROTOCOL[:cpu] + PROTOCOL[cpu + 2:] + ARMS[arm]
+    SP.LAUNCHES = 0
+    cli.main(argv + ["--device", "cuda", "--logdir", str(tmp_path)])
+    with open(tmp_path / "results" / "0.json") as f:
+        fresh = json.load(f)
+    assert SP.LAUNCHES == fresh["timing"]["mapping"]["count"] > 0
+    assert ("search_policy" in fresh["timing"]) == (arm == "cond-ihr")
+    drift = {k: (committed[k], fresh.get(k)) for k in committed
+             if k != "timing" and fresh.get(k) != committed[k]}
+    assert not drift
+
+
 def _fleet_frames(seed, batch, camera):
     rng = np.random.RandomState(seed)
     return dict(
