@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's three splat kernels from the sources in this
-checkout (one library: the single-map, multi-map and frames kernels
-share ``csrc/splat_onehot.cu``), holds each against its plain PyTorch
+Builds the port's four splat kernels from the sources in this
+checkout (the single-map, multi-map and frames kernels share
+``csrc/splat_onehot.cu``; the dense-row splat has ``csrc/splat_dense.cu``),
+holds each against its plain PyTorch
 version at the shapes its path gives it (the single-map and multi-map
 kernels on one full 224x224 room frame into 384x384x96 maps, and on a
 frame 0.3 m from a wall whose runs outgrow a tile, and on a stream of
@@ -31,7 +32,16 @@ with inhibition) and C (one-phase with the plain policy) small on the
 card and the CPU (equal results; C launches twice a step while it
 explores) and at full width through the CLI; B = 2 small fleets of each;
 and a full-width ``--fleet-size 2`` fleet of B whose task 2 must equal
-the sequential B episode.
+the sequential B episode.  Then feature matching: the dense-row splat
+(``csrc/splat_dense.cu``, a second library) on one room frame's stride-4
+records into a 384x384x96x256 map (13.5 GiB) and on a wall frame with
+long runs, bit-equal to its plain CPU version on the touched rows; the
+stage-1 ResNet on one 224x224 frame against its bound; tasks 0 and 2 of
+the frozen feature-matching protocol (``experiments/fm/run_arm.sh``) on
+the card and the CPU (equal; task 0 equal to the committed record); the
+full-width feature episode (two 13.5 GiB feature maps) with its mapping
+split; and B = 2 feature fleets, small (equal to the sequential episodes)
+and at full width (task 2 equal to the sequential feature episode).
 
 Exits non-zero when there is no CUDA card, when a kernel fails to build,
 launch or agree, or when any phase fails.  The line before the last is
@@ -43,6 +53,7 @@ Details also go to ``build/chip_smoke/report.json``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -741,9 +752,14 @@ def small_sampler(cfg, seed: int, actions: list):
     tasks take to ``actions``."""
     from mass_tpu_torch.env.rearrange import GridWorldTaskSampler
 
-    sampler = GridWorldTaskSampler([seed], camera=cfg.camera, max_steps=250,
-                                   one_phase=cfg.one_phase, num_objects=2,
-                                   num_misplaced=1, num_opened=0)
+    return recording(GridWorldTaskSampler(
+        [seed], camera=cfg.camera, max_steps=250, one_phase=cfg.one_phase,
+        num_objects=2, num_misplaced=1, num_opened=0), actions)
+
+
+def recording(sampler, actions: list):
+    """``sampler``, its tasks appending every action they take to
+    ``actions``."""
     next_task = sampler.next_task
 
     def recording_next_task():
@@ -1247,32 +1263,37 @@ def phase_small_fleet(compat: bool, small: dict, head=None) -> dict:
 
 
 def phase_full_fleet(size: int, compat: bool, sequential: dict,
-                     head=None) -> dict:
+                     head=None, features: bool = False) -> dict:
     """``--fleet-size size --total-tasks size`` through the CLI at full
     width (tasks 2 onwards, the full-width flags and budgets, ``head``'s
-    goal-head flags), with ``--seed -2`` so task 2 draws the sequential
-    full-width episode's rng seed 0: that episode's outcome must come
-    back."""
+    goal-head flags or, with ``features``, the full-width feature
+    flags), with ``--seed -2`` so task 2 draws the sequential full-width
+    episode's rng seed 0: that episode's outcome must come back."""
     from mass_tpu_torch.agent import cli
     from mass_tpu_torch.ops import splat as SP
 
     logdir = os.path.join("build", "chip_smoke", f"fleet{size}"
                           + ("_compat" if compat else "")
-                          + (f"_{head}" if head else ""))
+                          + (f"_{head}" if head else "")
+                          + ("_features" if features else ""))
     flags = (["--reference-compat"] if compat else []) + (
-        HEAD_FLAGS[head] if head else [])
+        HEAD_FLAGS[head] if head else []) + (
+        FULL_FEATURE_FLAGS if features else [])
     argv = (FULL_ARGS + FULL_BUDGETS + flags
             + ["--fleet-size", str(size), "--total-tasks", str(size),
                "--seed", "-2", "--logdir", logdir])
+    gc.collect()                 # the sequential episodes' maps are gone
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with SplatCounter() as counter:
-        SP.LAUNCHES = SP.MULTI_LAUNCHES = 0        # fleet path starts here
+    with SplatCounter() as counter, DenseCounter() as dense:
+        # fleet path starts here
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = SP.DENSE_LAUNCHES = 0
         t0 = time.perf_counter()
         metrics = cli.main(argv)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         counts = counter.check(SP.LAUNCHES, SP.MULTI_LAUNCHES, compat)
+        counts.update(dense.check(SP.DENSE_LAUNCHES, features))
     check(len(metrics) == size, f"the fleet ran {len(metrics)} episodes")
     written = []
     for k in range(size):
@@ -1296,6 +1317,468 @@ def phase_full_fleet(size: int, compat: bool, sequential: dict,
                 fleet_timing=written[0]["fleet_timing"],
                 prop_fixed=[m["unshuffle/prop_fixed"] for m in written],
                 **counts)
+
+
+# ----------------------------------------------------------------------
+# feature matching: the stage-1 ResNet, the dense-row splat, FeatureMap
+# ----------------------------------------------------------------------
+
+# the JAX package's init_backbone() (the flax init at PRNGKey(0)), as
+# experiments/fm/queue_r5b.sh builds it, exported with torchvision's names
+BACKBONE = os.path.join("mass_tpu_torch", "checkpoints", "backbone-rand.pth")
+DENSE_FEATURES, STRIDE = 256, 4
+BACKBONE_TOL = 2e-4      # cuDNN and the CPU sum each conv in another order
+# experiments/fm/run_arm.sh: the frozen feature-matching protocol
+FM_ARGS = [
+    "--backend", "gridworld", "--camera-size", "48", "--map-height", "80",
+    "--map-width", "80", "--map-depth", "24", "--grid-resolution", "0.125",
+    "--step-size", "2", "--obstacle-padding", "2", "--map-slice-start", "0",
+    "--map-slice-stop", "12", "--room-size", "6", "--num-objects", "1",
+    "--num-misplaced", "0", "--num-opened", "0",
+    "--duplicate-class-pairs", "1", "--exploration-budget-one", "3",
+    "--exploration-budget-two", "2", "--max-goal-steps", "60",
+    "--max-steps", "500", "--ground-truth-segmentation",
+    "--ground-truth-disagreement", "--ground-truth-semantic-search",
+    "--use-feature-matching", "--backbone-checkpoint", BACKBONE]
+FM_TASKS = (0, 2)
+FM_RECORD = os.path.join("experiments", "fm", "fm-features", "results",
+                         "0.json")
+# the full-width episode's flags plus the protocol's scene: one
+# same-class, same-size pair, one of it misplaced
+FULL_FEATURE_FLAGS = ["--use-feature-matching", "--backbone-checkpoint",
+                      BACKBONE, "--num-objects", "1", "--num-misplaced", "0",
+                      "--num-opened", "0", "--duplicate-class-pairs", "1"]
+
+
+class DenseCounter:
+    """Counts the fleet's dense families updated per ``update_dense`` call
+    (each one dense splat launch), by wrapping ``FleetMaps.update_dense``."""
+
+    def __enter__(self):
+        from mass_tpu_torch.parallel import fleet as TF
+
+        self.families = 0
+        self._update_dense = TF.FleetMaps.update_dense
+
+        def update_dense(fleet, *args, active=None):
+            self.families += sum(
+                1 for name in fleet.dense_names
+                if active is None or np.asarray(active[name]).any())
+            return self._update_dense(fleet, *args, active=active)
+        TF.FleetMaps.update_dense = update_dense
+        return self
+
+    def __exit__(self, *exc):
+        from mass_tpu_torch.parallel import fleet as TF
+
+        TF.FleetMaps.update_dense = self._update_dense
+
+    def check(self, launches: int, features: bool) -> dict:
+        check(launches == self.families and (launches > 0) == features,
+              f"{launches} dense launches for {self.families} dense family "
+              "updates")
+        return dict(dense_launches=launches)
+
+
+class MappingSplit:
+    """Host time, card synced, of the backbone's forward passes and of
+    whole ``FeatureMap`` updates (backbone, binning, sort, dense splat)
+    during a sequential episode; the rest of ``timing.mapping`` is the
+    semantic update."""
+
+    def __enter__(self):
+        from mass_tpu_torch.maps import FeatureMap
+        from mass_tpu_torch.perception.resnet import ResNet50Stage1
+
+        self.backbone_s = self.feature_s = 0.0
+        self.backbone_calls = self.feature_calls = 0
+        self._forward = ResNet50Stage1.forward
+        self._update = FeatureMap.update_from_observation
+
+        def forward(module, rgb):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._forward(module, rgb)
+            torch.cuda.synchronize()
+            self.backbone_s += time.perf_counter() - t0
+            self.backbone_calls += 1
+            return out
+
+        def update(layer, observation):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self._update(layer, observation)
+            torch.cuda.synchronize()
+            self.feature_s += time.perf_counter() - t0
+            self.feature_calls += 1
+        ResNet50Stage1.forward = forward
+        FeatureMap.update_from_observation = update
+        return self
+
+    def __exit__(self, *exc):
+        from mass_tpu_torch.maps import FeatureMap
+        from mass_tpu_torch.perception.resnet import ResNet50Stage1
+
+        ResNet50Stage1.forward = self._forward
+        FeatureMap.update_from_observation = self._update
+
+    def summary(self, mapping: dict) -> dict:
+        return dict(
+            backbone_s=self.backbone_s, backbone_calls=self.backbone_calls,
+            backbone_mean_ms=1e3 * self.backbone_s / max(
+                self.backbone_calls, 1),
+            feature_update_s=self.feature_s,
+            feature_updates=self.feature_calls,
+            feature_update_mean_ms=1e3 * self.feature_s / max(
+                self.feature_calls, 1),
+            semantic_update_s=mapping["total_s"] - self.feature_s,
+            semantic_update_mean_ms=1e3 * (
+                mapping["total_s"] - self.feature_s) / max(
+                mapping["count"], 1))
+
+
+def dense_frame(dev, vm, frame):
+    """One 224x224 frame's corner records through the stride-4 feature
+    camera (56x56 rays, depth at the stride's pixel centres) on ``vm``'s
+    grid."""
+    from mass_tpu_torch.core import geometry as G
+
+    yaw, elevation, depth = frame
+    cam, k = CAMERA // STRIDE, STRIDE
+    rays = G.camera_rays(cam, cam, cam / 2, cam / 2, device=dev)
+    sub = torch.as_tensor(np.ascontiguousarray(depth[k // 2::k, k // 2::k]),
+                          device=dev)
+    return vm.contributions(rays, torch.zeros(3, device=dev), yaw,
+                            elevation, sub)
+
+
+def dense_bound(valid_records: int, pixels: int, touched: int,
+                features: int) -> dict:
+    """What the dense kernel must read and write: per valid record its
+    int32 id, weight and pixel (12 B), each pixel's feature row once, each
+    touched row read and written once; per record and channel a multiply
+    and an add, per touched row element a multiply."""
+    return bound(12 * valid_records + 4 * features * pixels
+                 + 2 * 4 * features * touched,
+                 2 * features * valid_records + features * touched)
+
+
+def check_dense(name: str, data, records, feats, iw: float = 0.5) -> dict:
+    """The dense kernel on a full-width map, checked on the rows it
+    touches without a copy of the map: bit-equal to the plain version on
+    the CPU (run on a compact copy of those rows and the records), two
+    runs bit-identical, within tolerance of the plain version on the card
+    (atomics), and every other row untouched (a float64 checksum of the
+    whole map).  The touched rows are restored after each run."""
+    from mass_tpu_torch.ops import splat as SP
+
+    V = data.shape[0]
+    valid = records.ids < V
+    touched = torch.unique_consecutive(records.ids[valid])
+    rows = touched.long()
+    saved = data[rows]
+    checksum = data.sum(dtype=torch.float64)
+
+    def run(fn):
+        fn(data, records, feats, iw)
+        torch.cuda.synchronize()
+        out = data[rows]
+        data[rows] = saved
+        return out
+
+    out1 = run(SP.apply_dense_records)
+    restored = bool(data.sum(dtype=torch.float64) == checksum)
+    out2 = run(SP.apply_dense_records)
+    identical = torch.equal(out1, out2)
+    del out2
+    plain = run(SP.splat_dense_reference)
+    max_err = float((out1 - plain).abs().max())
+    del plain
+    compact_ids = torch.where(valid, torch.searchsorted(
+        touched, records.ids), touched.shape[0]).to(torch.int32)
+    cpu = SP.splat_dense_reference(
+        saved.to("cpu", copy=True), SP.DenseRecords(compact_ids.cpu(),
+                                     records.weights.cpu(),
+                                     records.pixels.cpu()),
+        feats.cpu(), iw)
+    cpu_equal = torch.equal(out1.cpu(), cpu)
+    changed = float((out1 - saved).abs().max())
+    check(changed > 0, f"{name}: the kernel changed nothing")
+    check(restored, f"{name}: the kernel changed rows outside its runs")
+    check(max_err <= SPLAT_TOL,
+          f"{name}: kernel vs plain max abs diff {max_err} > {SPLAT_TOL}")
+    check(identical, f"{name}: two kernel runs differ")
+    check(cpu_equal, f"{name}: kernel differs bitwise from the plain CPU "
+          "version")
+    counts = torch.unique_consecutive(records.ids[valid],
+                                      return_counts=True)[1]
+    return dict(max_abs_err=max_err, tolerance=SPLAT_TOL,
+                bit_identical_runs=identical, bitwise_equal_cpu_plain=True,
+                untouched_rows_unchanged=restored,
+                records=int(records.ids.shape[0]),
+                valid_records=int(valid.sum()),
+                touched_voxels=int(touched.shape[0]),
+                longest_run=int(counts.max()))
+
+
+def phase_dense_kernel(dev) -> dict:
+    """The dense-row splat at full width: one 224x224 room frame's stride-4
+    records (3,136 pixels of 256 random features) into a 384x384x96x256
+    map of random values (13.5 GiB), then a frame 0.3 m from a wall whose
+    runs hold hundreds of records; each bit-equal to the plain CPU version
+    on the touched rows.  Times: the kernel, its plain version (which
+    sums with atomics on the card) and the record prep, CUDA events after
+    an L2 flush, median of 20; and, as a yardstick, ``index_add_`` of the
+    same contributions (the additive half of the update alone)."""
+    from mass_tpu_torch.config import MapGeometry
+    from mass_tpu_torch.core.voxelmap import VoxelMap
+    from mass_tpu_torch.ops import splat as SP
+
+    geo = MapGeometry(**dict(FULL_MAP, feature_size=DENSE_FEATURES))
+    vm = VoxelMap.create(geo, (0.0, 0.0, 0.0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    vm.data.uniform_(generator=gen)
+    pixels = (CAMERA // STRIDE) ** 2
+    feats = torch.rand((pixels, DENSE_FEATURES), generator=gen, device=dev)
+    yaw, elevation, depth, _ = room_frame(CAMERA, np.random.RandomState(0))
+    ids, weights = dense_frame(dev, vm, (yaw, elevation, depth))
+    records = SP.sorted_dense_records(ids, weights, pixels)
+    out = check_dense("dense", vm.data, records, feats)
+    check(out["touched_voxels"] > 1000,
+          f"the room frame touched {out['touched_voxels']} voxels")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    iw = 0.5
+    out["ms"] = cuda_ms(lambda: SP.apply_dense_records(
+        vm.data, records, feats, iw), 20, flush)
+    out["plain_ms"] = cuda_ms(lambda: SP.splat_dense_reference(
+        vm.data, records, feats, iw), 20, flush)
+    out["prep_ms"] = cuda_ms(lambda: SP.sorted_dense_records(
+        ids, weights, pixels), 20, flush)
+    valid = records.ids < geo.num_voxels
+    index = records.ids[valid].long()
+    contrib = records.weights[valid, None] * feats[records.pixels[valid]]
+    out["index_add_ms"] = cuda_ms(lambda: vm.data.index_add_(
+        0, index, contrib), 20, flush)
+    out["library_ms"] = None
+    out["pixels"] = pixels
+    out.update(dense_bound(out["valid_records"], pixels,
+                           out["touched_voxels"], DENSE_FEATURES))
+    del contrib, index
+    wall = wall_frame(CAMERA)
+    ids, weights = dense_frame(dev, vm, wall)
+    wall_records = SP.sorted_dense_records(ids, weights, pixels)
+    skewed = check_dense("dense wall frame", vm.data, wall_records, feats)
+    check(skewed["longest_run"] > 64,
+          f"the wall frame's longest run is {skewed['longest_run']}")
+    skewed["ms"] = cuda_ms(lambda: SP.apply_dense_records(
+        vm.data, wall_records, feats, iw), 20, flush)
+    skewed.update(dense_bound(skewed["valid_records"], pixels,
+                              skewed["touched_voxels"], DENSE_FEATURES))
+    out["wall"] = skewed
+    out["map_bytes"] = vm.data.numel() * 4
+    del flush, vm, feats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_backbone(dev) -> dict:
+    """The stage-1 ResNet on one 224x224 frame (and on the B = 2 batch a
+    fleet tick sends): the first call (cuDNN's set-up), then CUDA events
+    after an L2 flush, median of 20, beside its bound (the convs'
+    operations at the float32 rate); the card's features within
+    BACKBONE_TOL of the CPU's."""
+    from mass_tpu_torch.perception.resnet import (feature_flops,
+                                                  load_backbone_checkpoint)
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rgb = torch.rand((2, CAMERA, CAMERA, 3), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    backbone, module = load_backbone_checkpoint(BACKBONE, dev)
+    out = backbone(rgb[0])
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    check(tuple(out.shape) == (CAMERA // 4, CAMERA // 4, DENSE_FEATURES)
+          and bool(torch.isfinite(out).all()), "backbone output")
+    cpu_backbone, _ = load_backbone_checkpoint(BACKBONE, "cpu")
+    err = float((out.cpu() - cpu_backbone(rgb[0].cpu())).abs().max())
+    check(err <= BACKBONE_TOL, f"backbone cuda vs cpu {err}")
+    again = backbone(rgb[0])
+    check(torch.equal(out, again), "two backbone calls differ")
+    batched = backbone(rgb)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    weights = sum(p.numel() for p in module.state_dict().values()
+                  if p.dtype == torch.float32) * 4
+    result = dict(
+        load_and_first_call_ms=first_ms, max_abs_err_cpu=err,
+        tolerance=BACKBONE_TOL,
+        batch_of_two_max_abs_diff=float((batched[0] - out).abs().max()),
+        ms=cuda_ms(lambda: backbone(rgb[0]), 20, flush),
+        batch2_ms=cuda_ms(lambda: backbone(rgb), 20, flush),
+        **bound(weights + rgb[0].numel() * 4 + out.numel() * 4,
+                feature_flops(CAMERA, CAMERA)))
+    del flush
+    return result
+
+
+def fm_args(device: str, task: int):
+    """The protocol's CLI flags for one task on ``device``, writing
+    nothing."""
+    from mass_tpu_torch.agent import cli
+
+    return cli.build_parser().parse_args(
+        FM_ARGS + ["--start-task", str(task), "--total-tasks", "1",
+                   "--device", device, "--logdir", ""])
+
+
+def fm_episode(device: str, task: int):
+    """Task ``task`` of the feature-matching protocol through the agent
+    the CLI builds, rng seed 0; (results, actions)."""
+    from mass_tpu_torch.agent import cli
+    from mass_tpu_torch.agent.loop import RearrangementAgent
+
+    args = fm_args(device, task)
+    config = cli.config_from_args(args)
+    actions = []
+    agent = RearrangementAgent(
+        config, recording(cli.make_sampler(args, config), actions),
+        rng=np.random.RandomState(args.seed), device=device,
+        feature_backbone=cli.load_backbone(args, device))
+    return agent.run_task(task), actions
+
+
+def phase_small_features() -> dict:
+    """Tasks 0 and 2 of the frozen feature-matching protocol on the card
+    and on the CPU (equal results and actions; task 0 also equal to the
+    committed record), each map update one single-map and one dense
+    launch (the phase's semantic and feature map)."""
+    from mass_tpu_torch.ops import splat as SP
+
+    with open(FM_RECORD) as f:
+        record = json.load(f)
+    out = {}
+    for task in FM_TASKS:
+        # the feature path starts here
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = SP.DENSE_LAUNCHES = 0
+        t0 = time.perf_counter()
+        gpu, gpu_actions = fm_episode("cuda", task)
+        gpu_s = time.perf_counter() - t0
+        single, multi, dense = (SP.LAUNCHES, SP.MULTI_LAUNCHES,
+                                SP.DENSE_LAUNCHES)   # and ends here
+        updates = gpu["timing"]["mapping"]["count"]
+        check(single == dense == updates > 0 and multi == 0,
+              f"task {task}: {single} single-map and {dense} dense launches"
+              f" for {updates} map updates")
+        t0 = time.perf_counter()
+        cpu, cpu_actions = fm_episode("cpu", task)
+        cpu_s = time.perf_counter() - t0
+        check(outcome(gpu) == outcome(cpu),
+              f"fm task {task}: cuda and cpu episodes differ: "
+              f"{outcome(gpu)} against {outcome(cpu)}")
+        check(gpu_actions == cpu_actions,
+              f"fm task {task}: cuda and cpu action sequences differ")
+        equals_record = None
+        if task == 0:
+            drift = {k: (record[k], gpu.get(k)) for k in record
+                     if k != "timing" and gpu.get(k) != record[k]}
+            check(not drift, f"fm task 0 differs from {FM_RECORD}: {drift}")
+            equals_record = True
+        out[task] = dict(results_equal=True, actions=len(gpu_actions),
+                         action_list=gpu_actions, launches=single,
+                         dense_launches=dense, map_updates=updates,
+                         cuda_s=gpu_s, cpu_s=cpu_s,
+                         equals_committed_record=equals_record,
+                         metrics=outcome(gpu), timing=gpu["timing"])
+    return out
+
+
+def phase_full_features() -> dict:
+    """The full-width episode's CLI flags with the protocol's scene and
+    ``--use-feature-matching`` (two 384x384x96x256 feature maps, 13.5 GiB
+    each, beside the two semantic maps), task 2; the mapping split into
+    backbone, feature update and semantic update."""
+    from mass_tpu_torch.agent import cli
+    from mass_tpu_torch.ops import splat as SP
+
+    logdir = os.path.join("build", "chip_smoke", "episode_features")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with MappingSplit() as split:
+        # main path starts here
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = SP.DENSE_LAUNCHES = 0
+        t0 = time.perf_counter()
+        metrics = cli.main(FULL_ARGS + FULL_BUDGETS + FULL_FEATURE_FLAGS
+                           + ["--logdir", logdir])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        single, multi, dense = (SP.LAUNCHES, SP.MULTI_LAUNCHES,
+                                SP.DENSE_LAUNCHES)   # main path ends here
+    check(len(metrics) == 1, "the CLI ran no episode")
+    with open(os.path.join(logdir, "results", "2.json")) as f:
+        results = json.load(f)
+    updates = results["timing"]["mapping"]["count"]
+    check(single == dense == updates == split.feature_calls > 0
+          and multi == 0, f"{single} single-map and {dense} dense launches "
+          f"for {updates} map updates ({split.feature_calls} feature "
+          "updates)")
+    check(results["walkthrough/observed_cells"] > 0
+          and results["unshuffle/observed_cells"] > 0,
+          "the full-width maps stayed empty")
+    check(0.0 <= results["unshuffle/prop_fixed"] <= 1.0,
+          "prop_fixed out of range")
+    return dict(budgets=FULL_BUDGETS + FULL_FEATURE_FLAGS, wall_s=wall_s,
+                launches=single, multi_launches=multi, dense_launches=dense,
+                map_updates=updates, group_splats=updates,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                mapping_split=split.summary(results["timing"]["mapping"]),
+                timing=results["timing"],
+                metrics=outcome(results))
+
+
+def phase_small_feature_fleet(small: dict) -> dict:
+    """Tasks 0 and 2 of the protocol as one B = 2 fleet (rng seed 0 each,
+    as the sequential CLI runs them) on the card and on the CPU: each
+    episode equal to the sequential small feature episode; one dense
+    launch per dense family updated."""
+    from mass_tpu_torch.agent import cli
+    from mass_tpu_torch.ops import splat as SP
+    from mass_tpu_torch.parallel.evaluator import FleetEvaluator
+
+    def fleet(device):
+        args = fm_args(device, FM_TASKS[0])
+        config = cli.config_from_args(args)
+        actions = [[] for _ in FM_TASKS]
+        evaluator = FleetEvaluator(
+            config, [recording(cli.make_sampler(args, config, [s]), a)
+                     for s, a in zip(FM_TASKS, actions)],
+            seeds=[args.seed] * len(FM_TASKS), device=device,
+            feature_backbone=cli.load_backbone(args, device))
+        return evaluator.run(), actions
+
+    with SplatCounter() as counter, DenseCounter() as dense:
+        # fleet path starts here
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = SP.DENSE_LAUNCHES = 0
+        t0 = time.perf_counter()
+        gpu, gpu_actions = fleet("cuda")
+        gpu_s = time.perf_counter() - t0
+        counts = counter.check(SP.LAUNCHES, SP.MULTI_LAUNCHES, False)
+        counts.update(dense.check(SP.DENSE_LAUNCHES, True))
+    t0 = time.perf_counter()
+    cpu, cpu_actions = fleet("cpu")
+    cpu_s = time.perf_counter() - t0
+    for k, task in enumerate(FM_TASKS):
+        want = small[task]
+        check(outcome(gpu[k]) == outcome(cpu[k]) == want["metrics"],
+              f"feature fleet task {task}: cuda, cpu and sequential results "
+              "differ")
+        check(gpu_actions[k] == cpu_actions[k] == want["action_list"],
+              f"feature fleet task {task}: cuda, cpu and sequential actions "
+              "differ")
+    return dict(tasks=FM_TASKS, results_equal=True,
+                actions=[len(a) for a in gpu_actions], cuda_s=gpu_s,
+                cpu_s=cpu_s, fleet_timing=gpu[0]["fleet_timing"], **counts)
 
 
 def kernel_line(name: str, replaces: str, launches: int,
@@ -1442,6 +1925,33 @@ def main() -> int:
                  f"{wall['longest_sub_run']}, {wall['sub_runs_across_tiles']}"
                  f" sub-runs across a tile's end)", wall)
 
+    dense = report["dense_kernel"] = phase_dense_kernel(dev)
+    tag = "dense kernel 384x384x96x256"
+    for what, k in (("room frame", dense), ("wall frame 0.3 m", dense["wall"])):
+        print(f"[{tag}] {what} through the 56x56 feature camera: "
+              f"U={k['touched_voxels']}, records={k['valid_records']} valid "
+              f"of {k['records']}, longest run {k['longest_run']}; max abs "
+              f"diff vs plain {k['max_abs_err']:.3g} (tol {SPLAT_TOL}); two "
+              f"runs bit-identical: {k['bit_identical_runs']}; equal to the "
+              f"plain CPU version on the touched rows: "
+              f"{k['bitwise_equal_cpu_plain']}; other rows untouched: "
+              f"{k['untouched_rows_unchanged']}; kernel {k['ms']:.4f} ms, "
+              f"bound {k['bound_ms']:.4f} ms ({k['bytes']} B), "
+              f"{k['ms'] / k['bound_ms']:.2f}x the bound")
+    print(f"[{tag}] map {dense['map_bytes'] / 2**30:.2f} GiB; plain "
+          f"{dense['plain_ms']:.4f} ms; record prep (sort, gathers) "
+          f"{dense['prep_ms']:.4f} ms; index_add_ of the same contributions "
+          f"(the additive half alone, float atomics) "
+          f"{dense['index_add_ms']:.4f} ms; library call: none")
+    bb = report["backbone"] = phase_backbone(dev)
+    print(f"[backbone] one 224x224 frame: {bb['ms']:.3f} ms (bound "
+          f"{bb['bound_ms']:.4f} ms by {bb['bound_by']}: "
+          f"{bb['flops'] / 1e9:.2f} GFLOP at 67 TFLOP/s fp32), B = 2 "
+          f"{bb['batch2_ms']:.3f} ms; load and first call "
+          f"{bb['load_and_first_call_ms']:.1f} ms; max abs diff vs the CPU "
+          f"{bb['max_abs_err_cpu']:.3g} (tol {BACKBONE_TOL}); batch of two "
+          f"vs one {bb['batch_of_two_max_abs_diff']:.3g}")
+
     for compat in (False, True):
         small = phase_small_episodes(compat)
         tag = "compat 80x80x24" if compat else "episode 80x80x24"
@@ -1564,6 +2074,54 @@ def main() -> int:
           f"{fleet['map_updates']} episode map updates")
     print(f"[{tag}] fleet_timing {json.dumps(fleet['fleet_timing'])}")
 
+    small_features = report["small_features"] = phase_small_features()
+    for task, small in small_features.items():
+        print(f"[features 80x80x24] fm protocol task {task}: cuda "
+              f"{small['cuda_s']:.1f} s, cpu {small['cpu_s']:.1f} s, "
+              f"{small['actions']} actions, results equal"
+              + (", equal to the committed record"
+                 if small["equals_committed_record"] else "")
+              + f"; launches splat_onehot {small['launches']}, splat_dense "
+              f"{small['dense_launches']} for {small['map_updates']} map "
+              f"updates; success {small['metrics']['unshuffle/success']}, "
+              f"ep_length {small['metrics']['unshuffle/ep_length']}, moved "
+              f"{small['metrics']['unshuffle/objects_moved']}")
+    full_features = report["full_features"] = phase_full_features()
+    tag = "features 384x384x96"
+    print_episode(tag, full_features)
+    ms = full_features["mapping_split"]
+    print(f"[{tag}] launches splat_dense {full_features['dense_launches']}; "
+          f"mapping split: backbone {ms['backbone_mean_ms']:.2f} ms "
+          f"({ms['backbone_calls']} calls), feature update "
+          f"{ms['feature_update_mean_ms']:.2f} ms ({ms['feature_updates']}, "
+          f"backbone included), semantic update "
+          f"{ms['semantic_update_mean_ms']:.2f} ms a step (host clock, card "
+          f"synced)")
+    small = report["fleet_small_features"] = phase_small_feature_fleet(
+        small_features)
+    print(f"[fleet features] fm protocol tasks {small['tasks']}, B=2: cuda "
+          f"{small['cuda_s']:.1f} s, cpu {small['cpu_s']:.1f} s, "
+          f"{small['actions']} actions; cuda == cpu == the sequential agent "
+          f"per episode; launches splat_onehot {small['launches']}, "
+          f"splat_dense {small['dense_launches']} for "
+          f"{small['group_splats']} group splats, {small['map_updates']} "
+          f"episode map updates")
+    fleet = report["full_fleet_features"] = phase_full_fleet(
+        2, False, full_features, features=True)
+    tag = "fleet features 384x384x96"
+    print(f"[{tag}] {' '.join(fleet['argv'])}")
+    print(f"[{tag}] 2 episodes in {fleet['wall_s']:.1f} s: "
+          f"{fleet['episode_s']:.2f} s per episode against "
+          f"{fleet['sequential_episode_s']:.1f} s for the sequential "
+          f"episode; peak memory {fleet['peak_memory_bytes'] / 2**30:.2f} "
+          f"GiB; task 2 equals the sequential episode: "
+          f"{fleet['task2_equals_sequential']}; prop_fixed "
+          f"{fleet['prop_fixed']}; launches splat_onehot {fleet['launches']}"
+          f", splat_dense {fleet['dense_launches']} for "
+          f"{fleet['group_splats']} group splats and {fleet['map_updates']} "
+          f"episode map updates")
+    print(f"[{tag}] fleet_timing {json.dumps(fleet['fleet_timing'])}")
+
     kernels = [
         kernel_line("splat_onehot", "mass_tpu/ops/pallas_splat.py:756",
                     full["launches"], kernel),
@@ -1571,7 +2129,10 @@ def main() -> int:
                     compat["multi_launches"], multi),
         kernel_line("splat_onehot_frames",
                     "mass_tpu/ops/pallas_splat.py:445", frames["launches"],
-                    frames)]
+                    frames),
+        # not a TPU kernel: the counterpart of XLA's scatter
+        kernel_line("splat_dense", "mass_tpu/ops/scatter.py:279",
+                    full_features["dense_launches"], dense)]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - start
     os.makedirs(os.path.join("build", "chip_smoke"), exist_ok=True)

@@ -7,7 +7,9 @@ a later slice of the port stop with an error naming that slice.  The
 episode runs on ``--device`` (default ``cuda``); ``--fleet-size B``
 above 1 runs the tasks B at a time in lockstep over shared fleet maps
 (``parallel/evaluator.py``), each task with the rng seed ``--seed`` +
-task.
+task.  ``--use-feature-matching`` reads the stage-1 ResNet from
+``--backbone-checkpoint <.pth>`` (``mass_tpu_torch/checkpoints/
+backbone-rand.pth`` is the JAX package's ``init_backbone()``).
 
     python -m mass_tpu_torch.agent.cli --backend gridworld \\
         --ground-truth-segmentation --ground-truth-disagreement \\
@@ -128,7 +130,6 @@ def unported_flags(args) -> Optional[str]:
         (args.backend == "thor", "--backend thor", 3),
         (not args.ground_truth_segmentation,
          "learned segmentation (no --ground-truth-segmentation)", 3),
-        (args.use_feature_matching, "--use-feature-matching", 3),
         (args.shard_map > 1, "--shard-map", 4),
         (args.videos, "--videos", 3),
         (args.snapshot_maps, "--snapshot-maps", 3),
@@ -180,6 +181,7 @@ def config_from_args(args) -> AgentConfig:
         frontier_exploration=args.frontier_exploration,
         revisit_exploration=args.revisit_exploration,
         policy_inhibition_radius=args.policy_inhibition_radius,
+        use_feature_matching=args.use_feature_matching,
         record_found_objects=args.record_found_objects,
         one_phase=args.one_phase,
         logdir=args.logdir, stage=args.stage,
@@ -204,6 +206,13 @@ def make_sampler(args, config: AgentConfig, seeds=None):
         num_rooms=args.num_rooms)
 
 
+def _export_of(path: str) -> str:
+    """Where the port ships the ``.pth`` export of an orbax tree."""
+    return os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "checkpoints", os.path.basename(os.path.normpath(path)) + ".pth")
+
+
 def load_policy(path: Optional[str], device):
     """The search policy of ``--policy-checkpoint``: a reference-layout
     ``.pth`` state dict.  The JAX package's orbax trees are not read
@@ -212,18 +221,39 @@ def load_policy(path: Optional[str], device):
     if path is None:
         return None
     if not path.endswith(".pth"):
-        export = os.path.join(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            "checkpoints", os.path.basename(os.path.normpath(path)) + ".pth")
         raise SystemExit(
             f"--policy-checkpoint {path} is not a .pth state dict: the port "
             f"reads the reference policy.pth layout, not orbax trees; pass "
-            f"the exported {export}")
+            f"the exported {_export_of(path)}")
     from mass_tpu_torch.search.policy import load_reference_policy
     return load_reference_policy(path, device)
 
 
-def run_fleet(args, config: AgentConfig, device: str, policy=None):
+def load_backbone(args, device):
+    """The stage-1 ResNet of ``--use-feature-matching``: a
+    torchvision-named ``.pth`` state dict from ``--backbone-checkpoint``
+    (None without the flag).  The JAX package downloads torchvision's
+    weights when no checkpoint is given; the port reads only files."""
+    if not args.use_feature_matching:
+        return None
+    path = args.backbone_checkpoint
+    if path is None:
+        raise SystemExit(
+            "--use-feature-matching needs ResNet stage-1 weights: pass "
+            "--backbone-checkpoint <.pth> (a torchvision resnet50 state "
+            "dict, or mass_tpu_torch/checkpoints/backbone-rand.pth, the "
+            "JAX package's init_backbone())")
+    if not path.endswith(".pth"):
+        raise SystemExit(
+            f"--backbone-checkpoint {path} is not a .pth state dict: the "
+            f"port reads torchvision-named state dicts, not orbax trees; "
+            f"pass the exported {_export_of(path)}")
+    from mass_tpu_torch.perception.resnet import load_backbone_checkpoint
+    return load_backbone_checkpoint(path, device)[0]
+
+
+def run_fleet(args, config: AgentConfig, device: str, policy=None,
+              backbone=None):
     """Lockstep fleet evaluation over the task range: batches of
     ``--fleet-size`` episodes, each from a sampler of its own task's seed
     with the rng seed ``--seed`` + task, so an episode equals the
@@ -238,7 +268,7 @@ def run_fleet(args, config: AgentConfig, device: str, policy=None):
         evaluator = FleetEvaluator(
             config, [make_sampler(args, config, [s]) for s in batch],
             seeds=[args.seed + s for s in batch], policy=policy,
-            device=device)
+            feature_backbone=backbone, device=device)
         results = evaluator.run()
         for task, ep, result in zip(batch, evaluator.episodes, results):
             if not config.logdir:
@@ -276,6 +306,7 @@ def main(argv=None):
     if reason is not None:
         raise SystemExit(reason)
     device = resolve_device_flags(args)
+    backbone = load_backbone(args, device)
     os.makedirs(args.logdir, exist_ok=True)
     name = (f"{args.start_task}-"
             f"{args.start_task + args.total_tasks * args.every_tasks}")
@@ -288,11 +319,11 @@ def main(argv=None):
 
     def run():
         if args.fleet_size > 1:
-            return run_fleet(args, config, device, policy)
+            return run_fleet(args, config, device, policy, backbone)
         agent = RearrangementAgent(
             config, make_sampler(args, config),
             rng=np.random.RandomState(args.seed), device=device,
-            policy=policy)
+            policy=policy, feature_backbone=backbone)
         return agent.run()
 
     metrics = run_with_restart(run)

@@ -10,8 +10,10 @@ the semantic-search policy (``search/policy.py``), walkthrough-site
 revisits in the unshuffle phase (``match/revisit.py``), the farthest
 frontier, or a uniform random node.  ``--one-phase`` runs a single task
 whose observations carry the goal world's render, so both maps build
-from one pass (:class:`OnePhaseMapSet`).  Feature matching arrives with
-a later slice and raises ``NotImplementedError`` naming it.
+from one pass (:class:`OnePhaseMapSet`).  ``--use-feature-matching``
+adds a pair of dense ResNet feature maps (``feature0`` in phase one,
+``feature1`` in phase two), whose pooled embeddings pair same-class
+instances in the matcher.
 
 Every numpy random draw happens in the JAX package's order, and the
 policy's draws replay ``jax.random``'s threefry stream, so a seeded
@@ -21,7 +23,7 @@ episode takes the same actions in both packages.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -31,7 +33,8 @@ from mass_tpu_torch.agent import metrics as M
 from mass_tpu_torch.agent import oracle
 from mass_tpu_torch.config import AgentConfig
 from mass_tpu_torch.env.gridworld import snake_case
-from mass_tpu_torch.maps import MapSet, OccupancyMap, SemanticMap
+from mass_tpu_torch.maps import (FeatureMap, MapSet, OccupancyMap,
+                                 SemanticMap)
 from mass_tpu_torch.match import revisit
 from mass_tpu_torch.match.differences import predict_scene_differences
 from mass_tpu_torch.nav.controller import NavigationController
@@ -39,16 +42,14 @@ from mass_tpu_torch.search import policy as search_policy
 from mass_tpu_torch.search import prng
 from mass_tpu_torch.utils.profiling import StageTimer
 
-PHASE_ONE_MAPS = ["occupancy", "semantic0"]
-PHASE_TWO_MAPS = ["semantic1"]
+PHASE_ONE_MAPS = ["occupancy", "semantic0", "feature0"]
+PHASE_TWO_MAPS = ["semantic1", "feature1"]
 # in one-phase episodes these maps read the goal world's render
-GOAL_FED_MAPS = frozenset({"semantic0"})
+GOAL_FED_MAPS = frozenset({"semantic0", "feature0"})
 
 
 def _unported(config: AgentConfig) -> Optional[str]:
     """The later slice a configuration needs, or None."""
-    if config.use_feature_matching:
-        return "feature matching is ported in slice 3"
     if config.shard_map > 1:
         return "row-sharded maps (--shard-map) are ported in slice 4"
     if config.snapshot_maps:
@@ -60,7 +61,7 @@ class OnePhaseMapSet(MapSet):
     """A ``MapSet`` whose goal-state maps read the goal render that each
     one-phase observation carries (``goal_depth`` / ``goal_semantic``):
     one update of the live maps, then one of the goal-fed maps, each
-    with its own binning."""
+    with its own binning (the goal-fed feature map reads ``goal_rgb``)."""
 
     def update_group(self, names, observation: Dict) -> None:
         live = [n for n in names if n not in GOAL_FED_MAPS]
@@ -70,6 +71,8 @@ class OnePhaseMapSet(MapSet):
             remap = dict(observation)
             remap["depth"] = observation["goal_depth"]
             remap["semantic"] = observation["goal_semantic"]
+            if "goal_rgb" in observation:
+                remap["rgb"] = observation["goal_rgb"]
             super().update_group(goal, remap)
 
 
@@ -171,14 +174,22 @@ class RearrangementAgent:
       device: where the maps live; ``None`` means CUDA.
       policy: semantic-search policy (``search/policy.SearchPolicy``) for
         ``semantic_search_walkthrough/unshuffle``, or None.
+      feature_backbone: RGB ``[h, w, 3]`` -> ``[h/4, w/4, feature_size]``
+        embedding function (``perception/resnet.make_backbone``), needed
+        when ``config.use_feature_matching``.
     """
 
     def __init__(self, config: AgentConfig, sampler,
                  rng: Optional[np.random.RandomState] = None,
-                 device=None, policy=None):
+                 device=None, policy=None,
+                 feature_backbone: Optional[Callable] = None,
+                 feature_size: int = 256):
         reason = _unported(config)
         if reason is not None:
             raise NotImplementedError(reason)
+        if config.use_feature_matching and feature_backbone is None:
+            raise ValueError("feature matching needs a backbone (CLI: "
+                             "--backbone-checkpoint)")
         self.config = config
         self.sampler = sampler
         self.rng = rng or np.random.RandomState(0)
@@ -204,6 +215,11 @@ class RearrangementAgent:
         if not config.navigate_on_semantic:
             self.maps["occupancy"] = OccupancyMap(cam, device=self.device,
                                                   **geo_kw)
+        if config.use_feature_matching:
+            for name in ("feature0", "feature1"):
+                self.maps[name] = FeatureMap(cam, feature_size,
+                                             feature_backbone,
+                                             device=self.device, **geo_kw)
         self.phase_one = [m for m in PHASE_ONE_MAPS if m in self.maps]
         self.phase_two = [m for m in PHASE_TWO_MAPS if m in self.maps]
 
@@ -238,6 +254,7 @@ class RearrangementAgent:
         cfg = self.config
         task = controller.task
         names = task.action_names()
+        fm0, fm1 = self.maps.get("feature0"), self.maps.get("feature1")
 
         while not task.is_done():
             candidates = (object_ids_to_move
@@ -246,7 +263,9 @@ class RearrangementAgent:
             with self.timer.stage("matching"):
                 cls, goals0, goals1 = predict_scene_differences(
                     self.maps["semantic0"].voxel_map,
-                    self.maps["semantic1"].voxel_map, None, None,
+                    self.maps["semantic1"].voxel_map,
+                    fm0.voxel_map if fm0 else None,
+                    fm1.voxel_map if fm1 else None,
                     objects_moved, candidates, cfg.match)
             if cls is None or task.is_done():
                 return

@@ -5,7 +5,8 @@
 voxel-major ``[V, F]``; the port always stores ``[V, F]``.  The
 search policy's flax parameters (``Conv_k`` HWIO kernels, ``GroupNorm_k``
 scales and biases) become the reference ``Sequential`` layout that
-``search/policy.py`` reads.  The functions here take and give plain
+``search/policy.py`` reads, and the stage-1 ResNet's flax variables the
+torchvision-named state dict that ``perception/resnet.py`` reads.  The functions here take and give plain
 numpy arrays, so neither package imports the other.
 """
 
@@ -101,3 +102,40 @@ def policy_from_jax(params, device=None) -> search_policy.SearchPolicy:
     holding the JAX package's search-policy parameters."""
     return search_policy.from_state_dict(policy_state_dict_from_jax(params),
                                          device)
+
+
+def backbone_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """The torchvision-named state dict of the JAX package's stage-1
+    ResNet variables (``{"params": ..., "batch_stats": ...}``, as numpy
+    or arrays): conv kernels HWIO -> OIHW; batch norm ``scale``/``bias``
+    -> ``weight``/``bias`` and ``mean``/``var`` -> ``running_mean``/
+    ``running_var``; flax's ``layer1_{b}`` blocks -> ``layer1.{b}``, their
+    ``down_conv``/``down_bn`` -> ``downsample.0``/``downsample.1``."""
+    params, stats = variables["params"], variables["batch_stats"]
+
+    def tensor(x):
+        return torch.from_numpy(np.array(x, np.float32))
+    state = {}
+
+    def conv(name, p):
+        state[f"{name}.weight"] = tensor(
+            np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+
+    def norm(name, p, s):
+        state[f"{name}.weight"] = tensor(p["scale"])
+        state[f"{name}.bias"] = tensor(p["bias"])
+        state[f"{name}.running_mean"] = tensor(s["mean"])
+        state[f"{name}.running_var"] = tensor(s["var"])
+        state[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+    conv("conv1", params["conv1"])
+    norm("bn1", params["bn1"], stats["bn1"])
+    for b in range(3):
+        p, s = params[f"layer1_{b}"], stats[f"layer1_{b}"]
+        for i in (1, 2, 3):
+            conv(f"layer1.{b}.conv{i}", p[f"conv{i}"])
+            norm(f"layer1.{b}.bn{i}", p[f"bn{i}"], s[f"bn{i}"])
+        if "down_conv" in p:
+            conv(f"layer1.{b}.downsample.0", p["down_conv"])
+            norm(f"layer1.{b}.downsample.1", p["down_bn"], s["down_bn"])
+    return state

@@ -146,6 +146,31 @@ class VoxelMap:
                                self.geometry.interpolation_weight)
         return self
 
+    def update(self, rays, position, yaw, elevation, depth, features,
+               min_ray_depth: float = 0.0,
+               max_ray_depth: float = 10.0) -> "VoxelMap":
+        """Project one frame of dense per-pixel features into the map in
+        place (the dense splat kernel on CUDA, its plain version on the
+        CPU).
+
+        Args:
+          rays: camera-frame ray directions ``[h, w, 3]``.
+          position: camera origin, world ``[3]``; yaw / elevation:
+            radians.
+          depth: ``[h, w, 1]`` ray lengths.
+          features: ``[fh, fw, F]`` feature image, integer-upsampled to
+            the ray grid if smaller.
+        """
+        h, w = rays.shape[0], rays.shape[1]
+        features = G.upsample_features(features, h, w)
+        ids, weights = self.contributions(rays, position, yaw, elevation,
+                                          depth, min_ray_depth,
+                                          max_ray_depth)
+        SP.splat_dense(self.data, ids, weights,
+                       features.reshape(-1, self.geometry.feature_size),
+                       self.geometry.interpolation_weight)
+        return self
+
     # ------------------------------------------------------------------
     # rendering / reading
     # ------------------------------------------------------------------

@@ -1,2 +1,2 @@
 from mass_tpu_torch.maps.layers import (  # noqa: F401
-    MapSet, OccupancyMap, SemanticMap)
+    ClipMap, FeatureMap, MapSet, OccupancyMap, SemanticMap)

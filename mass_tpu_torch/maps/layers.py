@@ -1,16 +1,27 @@
-"""Voxel-map layers: occupancy and semantic (port of
-``mass_tpu.maps.layers``; the dense-feature and CLIP layers arrive with
-slice 3).
+"""Voxel-map layers: occupancy, semantic, dense-feature and CLIP (port
+of ``mass_tpu.maps.layers``).
 
-Each layer pairs a per-layer class encoder with a ``VoxelMap`` on the
-layer's device.  ``MapSet.update_group`` folds one observation into
-several layers: the orient/bin/corner pass runs once per camera and
-grid, and each group of one-hot maps splats from the shared records.
+Each layer pairs a per-layer encoder with a ``VoxelMap`` on the layer's
+device:
+
+  * OccupancyMap -- 1 channel of ones per depth pixel;
+  * SemanticMap  -- one-hot class probabilities from the segmentation;
+  * FeatureMap   -- backbone embeddings at 1/stride of the camera's
+    resolution, with depth subsampled at the stride's pixel centres
+    (reference: resnet_projection_layer.py:121-213);
+  * ClipMap      -- a whole-image embedding at the centre ray (a 1x1
+    feature camera; reference: clip_projection_layer.py:61-194).
+
+``MapSet.update_group`` folds one observation into several layers: the
+orient/bin/corner pass runs once per camera and grid for the one-hot
+layers, and each group of them splats from the shared records; a dense
+layer (``shared_onehot`` False) runs its own update, with its own
+camera, through the dense splat.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 import numpy as np
 import torch
@@ -33,7 +44,11 @@ def _pose_args(observation: Dict, device):
 
 
 class _BaseMap:
-    """Shared construction and reset of a one-hot layer."""
+    """Shared construction and reset of a layer."""
+
+    # layers whose update is (shared binning) + (one-hot splat): map
+    # groups reuse one orient/bin/corner pass per camera and grid
+    shared_onehot = True
 
     def __init__(self, camera: CameraConfig, geometry: MapGeometry,
                  origin=(0.0, 0.0, 0.0), device=None):
@@ -94,6 +109,72 @@ class SemanticMap(_BaseMap):
                                device=self.device)
 
 
+def _rgb(observation: Dict, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(observation["rgb"], np.float32),
+                           device=device)
+
+
+class FeatureMap(_BaseMap):
+    """Dense-embedding map: ``backbone`` maps the RGB frame to an
+    ``[h/k, w/k, F]`` feature image; depth is subsampled at the feature
+    stride's pixel centres (``depth[k//2::k, k//2::k]``)."""
+
+    shared_onehot = False
+
+    def __init__(self, camera: CameraConfig, feature_size: int,
+                 backbone: Callable[[torch.Tensor], torch.Tensor],
+                 stride: int = 4, config_geometry: MapGeometry = None,
+                 origin=(0.0, 0.0, 0.0), device=None, **geo_kwargs):
+        geometry = config_geometry or MapGeometry(feature_size=feature_size,
+                                                  **geo_kwargs)
+        super().__init__(camera.downsample(stride), geometry, origin, device)
+        self.backbone = backbone
+        self.stride = stride
+
+    def aux_from_observation(self, observation: Dict):
+        return _rgb(observation, self.device)
+
+    def update_from_observation(self, observation: Dict) -> None:
+        position, yaw, elevation, depth = _pose_args(observation,
+                                                     self.device)
+        k = self.stride
+        feats = self.backbone(self.aux_from_observation(observation))
+        self.voxel_map.update(self.rays, position, yaw, elevation,
+                              depth[k // 2::k, k // 2::k].contiguous(),
+                              feats)
+
+
+class ClipMap(_BaseMap):
+    """Whole-image embedding scattered at the image-centre ray: a 1x1
+    feature camera; ``encoder`` maps the RGB frame to ``F`` values."""
+
+    shared_onehot = False
+
+    def __init__(self, camera: CameraConfig, feature_size: int,
+                 encoder: Callable[[torch.Tensor], torch.Tensor],
+                 config_geometry: MapGeometry = None,
+                 origin=(0.0, 0.0, 0.0), device=None, **geo_kwargs):
+        geometry = config_geometry or MapGeometry(feature_size=feature_size,
+                                                  **geo_kwargs)
+        centre = CameraConfig(height=1, width=1, vertical_fov_degrees=
+                              camera.vertical_fov_degrees)
+        super().__init__(centre, geometry, origin, device)
+        self.encoder = encoder
+
+    def aux_from_observation(self, observation: Dict):
+        return _rgb(observation, self.device)
+
+    def update_from_observation(self, observation: Dict) -> None:
+        position, yaw, elevation, depth = _pose_args(observation,
+                                                     self.device)
+        embedding = self.encoder(self.aux_from_observation(observation))
+        h, w = depth.shape[0], depth.shape[1]
+        self.voxel_map.update(
+            self.rays, position, yaw, elevation,
+            depth[h // 2:h // 2 + 1, w // 2:w // 2 + 1].contiguous(),
+            embedding.reshape(1, 1, self.geometry.feature_size))
+
+
 class MapSet(dict):
     """Named map collection with broadcast reset and grouped updates."""
 
@@ -104,12 +185,16 @@ class MapSet(dict):
     def update_group(self, names, observation: Dict) -> None:
         """Fold one observation into the named layers (names not in the
         set are skipped): one orient/bin/corner pass per camera+grid
-        signature, shared by every layer of that signature (layers reset
-        together share bins)."""
+        signature, shared by every one-hot layer of that signature
+        (layers reset together share bins); dense layers run their own
+        update."""
         layers = [self[n] for n in names if n in self]
         shared = {}      # signature -> (ids, weights)
         grouped = {}     # signature -> [(layer, classes)]
         for layer in layers:
+            if not layer.shared_onehot:
+                layer.update_from_observation(observation)
+                continue
             vm, g = layer.voxel_map, layer.geometry
             position, yaw, elevation, depth = _pose_args(observation,
                                                          layer.device)

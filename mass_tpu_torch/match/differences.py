@@ -1,12 +1,13 @@
 """Cross-phase map differencing and instance matching (port of
-``mass_tpu.match.differences``, size matching).
+``mass_tpu.match.differences``).
 
 Per candidate class: localize instances in both phase maps, cost each
-pair by ``|voxel-mass difference|`` (pickable) or world distance
-(openable), solve the minimum-cost assignment, and keep pairs that
-moved beyond ``distance_threshold`` (pickable) or any pair (openable);
-the first candidate class with kept pairs wins.  Feature matching
-(``--use-feature-matching``) arrives with slice 3 of the port.
+pair by the L2 distance of their pooled feature vectors (with feature
+maps, ``--use-feature-matching``) or ``|voxel-mass difference|``
+(pickable), or by world distance (openable), solve the minimum-cost
+assignment, and keep pairs that moved beyond ``distance_threshold``
+(pickable) or any pair (openable); the first candidate class with kept
+pairs wins.
 """
 
 from __future__ import annotations
@@ -29,15 +30,28 @@ def _detect_all(vm0: VoxelMap, vm1: VoxelMap, **kw):
     return f0.present.any(-1) & f1.present.any(-1), f0, f1
 
 
-def _match_class(vm0: VoxelMap, vm1: VoxelMap, class_id: int,
-                 pickable: bool, **kw):
-    """Instances of one class in both maps, paired by minimum cost.
-    Returns host numpy ``(matched [K], dist [K], goals0 [K, 3],
+def _match_class(vm0: VoxelMap, vm1: VoxelMap, fm0: Optional[VoxelMap],
+                 fm1: Optional[VoxelMap], class_id: int, pickable: bool,
+                 **kw):
+    """Instances of one class in both maps, paired by minimum cost
+    (pickable pairs by their pooled features when ``fm0``/``fm1`` are
+    given).  Returns host numpy ``(matched [K], dist [K], goals0 [K, 3],
     goals1 [K, 3], truncated)``."""
-    r0 = find_class_instances(vm0, class_id, **kw)
-    r1 = find_class_instances(vm1, class_id, **kw)
+    # only a pickable class's cost reads the features: an openable one
+    # pairs by distance, so its instances skip the pooling
+    use_features = pickable and fm0 is not None and fm1 is not None
+    r0 = find_class_instances(vm0, class_id,
+                              feature_map=fm0 if use_features else None,
+                              **kw)
+    r1 = find_class_instances(vm1, class_id,
+                              feature_map=fm1 if use_features else None,
+                              **kw)
     pair_ok = r0.present[:, None] & r1.present[None, :]
-    deform = (r0.size[:, None] - r1.size[None, :]).abs()
+    if use_features:
+        deform = torch.linalg.vector_norm(
+            r0.features[:, None] - r1.features[None, :], dim=-1)
+    else:
+        deform = (r0.size[:, None] - r1.size[None, :]).abs()
     distance = torch.linalg.vector_norm(
         r0.position[:, None] - r1.position[None, :], dim=-1)
     raw = deform if pickable else distance
@@ -74,15 +88,13 @@ def predict_scene_differences(
         objects_moved: Set[int], candidate_classes: Sequence[int],
         config: MatchConfig = MatchConfig(),
 ) -> Tuple[Optional[int], List[np.ndarray], List[np.ndarray]]:
-    """Pick the next class to rearrange and its paired goal positions.
+    """Pick the next class to rearrange and its paired goal positions;
+    with both feature maps, pickable instances pair by their pooled
+    features.
 
     Returns ``(class_id | None, goals0, goals1)``: walkthrough-phase
     (target) and unshuffle-phase (current) world positions.
     """
-    if feature_map0 is not None or feature_map1 is not None:
-        raise NotImplementedError(
-            "feature matching (--use-feature-matching) is ported in "
-            "slice 3")
     kw = dict(confidence_threshold=config.confidence_threshold,
               contour_padding=config.contour_padding,
               contour_threshold=config.contour_threshold,
@@ -112,7 +124,8 @@ def predict_scene_differences(
         mkw = dict(kw)
         while True:
             matched, dist, pos0, goals1, trunc = _match_class(
-                semantic_map0, semantic_map1, cls, pickable, **mkw)
+                semantic_map0, semantic_map1, feature_map0, feature_map1,
+                cls, pickable, **mkw)
             if not trunc or mkw["max_instances"] >= 256:
                 break
             mkw["max_instances"] *= 2

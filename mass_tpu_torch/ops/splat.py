@@ -26,11 +26,20 @@ nothing syncs with the host between the sort and the launch.  The
 kernels sum each run in sorted order, so an update is deterministic (no
 float atomics) and equals its plain version on the CPU bit for bit.
 
+Dense per-pixel features (the backbone embeddings of ``FeatureMap`` and
+``ClipMap``) go through a fourth kernel, which replaces no TPU kernel but
+the JAX package's XLA scatter ``ops/scatter.apply_dense_rows``:
+:func:`apply_dense_records` (``csrc/splat_dense.cu``) folds one frame's
+sorted records, each carrying its pixel, into a ``[V, F]`` map by the
+same rule with ``T_v = sum w^2 feat[pixel]``, touching only the runs'
+rows (:func:`sorted_dense_records`, :func:`splat_dense_reference`).
+
 The kernels are built with ``nvcc`` for ``sm_90a`` into ``build/kernels/``
 at first use (one library per source, all at once, :func:`build`) and
 bound with ctypes.  A wrapper launches its kernel for CUDA maps, counts
-the launch (``LAUNCHES``, ``MULTI_LAUNCHES``, ``FRAMES_LAUNCHES``), and
-takes the plain version only for maps that lie on the CPU.
+the launch (``LAUNCHES``, ``MULTI_LAUNCHES``, ``FRAMES_LAUNCHES``,
+``DENSE_LAUNCHES``), and takes the plain version only for maps that lie
+on the CPU.
 """
 
 from __future__ import annotations
@@ -47,7 +56,7 @@ import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-LIBRARIES = ("splat_onehot",)
+LIBRARIES = ("splat_onehot", "splat_dense")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 MAX_MAPS = 4
@@ -61,6 +70,7 @@ MAX_RECORDS = 2**31 - 1
 LAUNCHES = 0          # apply_records
 MULTI_LAUNCHES = 0    # apply_records_multi
 FRAMES_LAUNCHES = 0   # apply_frame_records
+DENSE_LAUNCHES = 0    # apply_dense_records
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -92,6 +102,17 @@ class FrameRecords(NamedTuple):
     weights: torch.Tensor
     classes: torch.Tensor
     frames: torch.Tensor
+
+
+class DenseRecords(NamedTuple):
+    """One frame's dense-feature records, stable-sorted by voxel id:
+    ``ids [R]`` (int32, nondecreasing), ``weights [R]`` (float32) and
+    ``pixels [R]`` (int32), each record's row of the ``[P, F]`` feature
+    image.  Ids outside ``[0, V)`` (the discard id ``V``) are skipped."""
+
+    ids: torch.Tensor
+    weights: torch.Tensor
+    pixels: torch.Tensor
 
 
 def _cut(keys_sorted: torch.Tensor):
@@ -157,6 +178,18 @@ def gather_frame_records(ids_sorted: torch.Tensor, order: torch.Tensor,
         classes=cls.index_select(0, (order % pixels).add_(frames,
                                                           alpha=pixels)),
         frames=frames.to(torch.int32))
+
+
+def sorted_dense_records(ids: torch.Tensor, weights: torch.Tensor,
+                         num_pixels: int) -> DenseRecords:
+    """Stable-sort ``[8N]`` corner-major records by voxel id (int32); a
+    record's pixel is its original position modulo ``num_pixels`` (N for
+    one frame, B*N for a fleet's corner-major batch)."""
+    ids_sorted, order = sort_ids(ids)
+    return DenseRecords(
+        ids=ids_sorted,
+        weights=weights.reshape(-1)[order].to(torch.float32).contiguous(),
+        pixels=(order % num_pixels).to(torch.int32))
 
 
 def sorted_frame_records(ids: torch.Tensor, weights: torch.Tensor,
@@ -257,6 +290,34 @@ def splat_onehot_frames_reference(data: torch.Tensor,
     return data
 
 
+def splat_dense_reference(data: torch.Tensor, records: DenseRecords,
+                          features: torch.Tensor,
+                          interpolation_weight: float) -> torch.Tensor:
+    """Plain PyTorch version of the dense kernel: the same runs, sums and
+    float32 expressions (JAX's ``_blend_fields`` order), and each row's
+    contributions added in record order (``index_add_`` on the CPU adds
+    in index order).  Touches only the runs' rows; updates ``data [V, F]``
+    in place and returns it."""
+    run_ids, starts = _cut(records.ids)
+    run_of, w_sum, s2_sum, _ = _record_sums(starts, records.weights)
+    iw = torch.tensor(np.float32(interpolation_weight), device=data.device)
+    safe_w = w_sum.clamp_min(1e-30)
+    mult = torch.where(w_sum > 0, 1.0 - (iw * s2_sum) / safe_w,
+                       torch.ones_like(w_sum))
+    keep = (run_ids >= 0) & (run_ids < data.shape[0])
+    kept = keep[run_of]
+    run_of = run_of[kept]
+    w = records.weights[kept]
+    scale = iw * w * w / safe_w[run_of]
+    contrib = scale[:, None] * features[records.pixels[kept].long()]
+    slot = torch.cumsum(keep, 0) - 1            # run -> row among kept
+    rows = run_ids[keep].long()
+    new_rows = data[rows] * mult[keep][:, None]
+    new_rows.index_add_(0, slot[run_of], contrib)
+    data[rows] = new_rows
+    return data
+
+
 # ----------------------------------------------------------------------
 # build and bind
 # ----------------------------------------------------------------------
@@ -319,6 +380,10 @@ _ENTRIES = {
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_float, ctypes.c_void_p]),
+    "splat_dense": ("splat_dense", [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_float, ctypes.c_void_p]),
 }
 KERNELS = tuple(_ENTRIES)
 
@@ -360,13 +425,14 @@ def _check_map(kernel: str, data: torch.Tensor, max_features: int) -> None:
 
 
 _RECORD_DTYPES = {"ids": torch.int32, "weights": torch.float32,
-                  "classes": torch.int32, "frames": torch.int32}
+                  "classes": torch.int32, "frames": torch.int32,
+                  "pixels": torch.int32}
 
 
 def _check_records(kernel: str, device, records, num_voxels: int,
                    class_dim: int) -> None:
-    """Every field of ``records`` (:class:`Records` or
-    :class:`FrameRecords`) is a contiguous tensor on ``device`` of its
+    """Every field of ``records`` (:class:`Records`,
+    :class:`FrameRecords` or :class:`DenseRecords`) is a contiguous tensor on ``device`` of its
     dtype, 1-D (``classes``: ``class_dim``-D) and of one length R below
     ``MAX_RECORDS``; V fits the kernel's int32 ids."""
     for name in records._fields:
@@ -502,6 +568,37 @@ def apply_frame_records(data: torch.Tensor, records: FrameRecords,
     return data
 
 
+def apply_dense_records(data: torch.Tensor, records: DenseRecords,
+                        features: torch.Tensor,
+                        interpolation_weight: float) -> torch.Tensor:
+    """Fold one frame's sorted dense records into ``data [V, F]`` in
+    place, record ``r`` carrying ``features[records.pixels[r]]`` (``[P,
+    F]``): the CUDA kernel for a CUDA map, the plain version for a CPU
+    map.  Every pixel index must be below P (not checked on the card:
+    that would sync)."""
+    global DENSE_LAUNCHES
+    if _device_kind([data, features], "dense splat") == "cpu":
+        return splat_dense_reference(data, records, features,
+                                     interpolation_weight)
+    lib = _library("splat_dense")
+    _check_map("dense splat", data, lib.splat_dense_max_features())
+    if features.dtype != torch.float32 or features.dim() != 2 or \
+            not features.is_contiguous() or \
+            features.shape[1] != data.shape[1]:
+        raise ValueError(f"dense splat kernel: features must be a "
+                         f"contiguous float32 [P, {data.shape[1]}] tensor, "
+                         f"got {features.dtype} {tuple(features.shape)}")
+    _check_records("dense splat", data.device, records, data.shape[0], 1)
+    _raise_on(lib.splat_dense_launch(
+        data.data_ptr(), data.shape[1], data.shape[0],
+        records.ids.data_ptr(), records.weights.data_ptr(),
+        records.pixels.data_ptr(), features.data_ptr(),
+        records.ids.shape[0], float(interpolation_weight),
+        _stream(data.device)), "dense splat")
+    DENSE_LAUNCHES += 1
+    return data
+
+
 def splat_onehot(data: torch.Tensor, ids: torch.Tensor,
                  weights: torch.Tensor, classes: torch.Tensor,
                  interpolation_weight: float) -> torch.Tensor:
@@ -534,3 +631,14 @@ def splat_onehot_frames(data: torch.Tensor, ids: torch.Tensor,
     return apply_frame_records(
         data, sorted_frame_records(ids, weights, classes),
         interpolation_weight)
+
+
+def splat_dense(data: torch.Tensor, ids: torch.Tensor,
+                weights: torch.Tensor, features: torch.Tensor,
+                interpolation_weight: float) -> torch.Tensor:
+    """One frame's dense corner records (``ids``/``weights [8N]``,
+    ``features [N, F]``) into ``data [V, F]`` in place."""
+    check_voxels(data.shape[0])
+    return apply_dense_records(
+        data, sorted_dense_records(ids, weights, features.shape[0]),
+        features.to(torch.float32).contiguous(), interpolation_weight)

@@ -6,7 +6,9 @@ This evaluator advances B grid-world episodes in lockstep instead:
 
   * mapping: every live episode's frame folds into the fleet's map
     buffers in one sort and one splat launch per group of families that
-    the same episodes update (``parallel/fleet.FleetMaps``);
+    the same episodes update (``parallel/fleet.FleetMaps``); under
+    ``--use-feature-matching`` the B RGB frames also go through the
+    backbone in one call and into the dense feature slabs;
   * planning: the live episodes that refresh their mesh this step, and
     then the rest, each plan as one batch (``nav/grid.plan_batch``), and
     each batch's plans reach the host in one copy;
@@ -18,10 +20,10 @@ This evaluator advances B grid-world episodes in lockstep instead:
 It runs the sequential port's configurations: two-phase and one-phase
 episodes with ground-truth segmentation, every goal head (ground truth,
 the semantic-search policy, revisit, frontier, random), ground-truth or
-predicted disagreement and ``--reference-compat``.  One-phase ticks make
-a second batched map update for the goal-fed maps, since the goal
-render's depth has its own binning.  Learned segmentation and feature
-matching raise ``NotImplementedError`` naming their slice.
+predicted disagreement, feature matching and ``--reference-compat``.
+One-phase ticks make a second batched map update for the goal-fed maps,
+since the goal render's depth has its own binning.  Learned segmentation
+raises ``NotImplementedError`` naming its slice.
 """
 
 from __future__ import annotations
@@ -101,7 +103,7 @@ class _Episode:
         loc = self.task.agent_location()
         fleet.reset(index, (loc.x, loc.z, loc.y))
         maps = {name: _FleetLayerView(fleet, name, index)
-                for name in fleet.names}
+                for name in fleet.names + fleet.dense_names}
         self.controller = NavigationController(
             self.task, config.navigation_map_name, maps, config.nav,
             rng=rng)
@@ -178,10 +180,15 @@ class _Episode:
         candidates = (self.object_ids_to_move
                       if cfg.ground_truth_disagreement
                       else range(taxonomy.NUM_CLASSES))
+        dense = fleet.dense_names
         with timer.stage("matching"):
             cls, goals0, goals1 = predict_scene_differences(
                 fleet.view("semantic0", self.index),
-                fleet.view("semantic1", self.index), None, None,
+                fleet.view("semantic1", self.index),
+                fleet.view("feature0", self.index)
+                if "feature0" in dense else None,
+                fleet.view("feature1", self.index)
+                if "feature1" in dense else None,
                 self.objects_moved, candidates, cfg.match)
         if cls is None:
             return False
@@ -279,13 +286,10 @@ class _Episode:
         self.mission = None
 
 
-def _unported_fleet(config: AgentConfig, sensor,
-                    feature_backbone) -> Optional[str]:
+def _unported_fleet(config: AgentConfig, sensor) -> Optional[str]:
     """The later slice a fleet configuration needs, or None."""
     if sensor is not None:
         return "learned segmentation sensors are ported in slice 3"
-    if feature_backbone is not None:
-        return "feature matching is ported in slice 3"
     return _unported(config)
 
 
@@ -301,17 +305,25 @@ class FleetEvaluator:
         sequential agent given the same seed takes the same actions.
       policy: the semantic-search policy that every episode's policy
         goals share, or None.
-      sensor, feature_backbone: the JAX package's learned segmentation
-        and feature matching, which arrive with a later slice of the port.
+      sensor: the JAX package's learned segmentation, which arrives with
+        a later slice of the port.
+      feature_backbone: the stage-1 ResNet function of
+        ``--use-feature-matching`` (it takes the fleet's ``[B, h, w, 3]``
+        frames in one call), needed when ``config.use_feature_matching``.
       device: where the maps live; ``None`` means CUDA.
     """
 
     def __init__(self, config: AgentConfig, samplers: List,
                  seeds: Optional[List[int]] = None, policy=None,
-                 sensor=None, feature_backbone=None, device=None):
-        reason = _unported_fleet(config, sensor, feature_backbone)
+                 sensor=None, feature_backbone=None, device=None,
+                 feature_size: int = 256):
+        reason = _unported_fleet(config, sensor)
         if reason is not None:
             raise NotImplementedError(reason)
+        if config.use_feature_matching and feature_backbone is None:
+            raise ValueError("fleet feature matching needs a backbone "
+                             "(feature_backbone=; CLI: "
+                             "--backbone-checkpoint)")
         self.config = config
         self.device = resolve_device(device)
         B = len(samplers)
@@ -319,6 +331,10 @@ class FleetEvaluator:
                     "semantic1": taxonomy.NUM_CLASSES}
         if not config.navigate_on_semantic:
             families["occupancy"] = 1
+        # the ResNet map pair, as slabs fed by one batched backbone call
+        # per tick
+        dense = ({"feature0": feature_size, "feature1": feature_size}
+                 if config.use_feature_matching else None)
         # ONE fleet-level timer: a stage serves the whole lockstep batch,
         # so its summary lands on episode 0's results as fleet_timing
         self.timer = StageTimer(self.device)
@@ -329,7 +345,8 @@ class FleetEvaluator:
                             map_width=config.map_width,
                             map_depth=config.map_depth,
                             grid_resolution=config.grid_resolution),
-                families, device=self.device)
+                families, device=self.device, dense_sizes=dense,
+                backbone=feature_backbone)
         seeds = seeds or list(range(B))
         self.episodes = [
             _Episode(i, samplers[i], config, self.fleet,
@@ -397,17 +414,25 @@ class FleetEvaluator:
         classes = {name: np.zeros((B, cam.height, cam.width), np.int32)
                    for name in ("semantic0", "semantic1")}
         active = {name: np.zeros((B,), bool) for name in self.fleet.names}
+        # dense feature families: one batched backbone call and splat
+        dense_names = self.fleet.dense_names
+        rgbs = np.zeros((B, cam.height, cam.width, 3), np.float32)
+        dense_active = {name: np.zeros((B,), bool) for name in dense_names}
         # one-phase: the goal-fed maps read the goal world's render, whose
         # depth differs from the live frame's, so they take a second
         # batched update with its own binning (agent/loop.OnePhaseMapSet)
         one_phase = self.config.one_phase
         goal_active = {name: np.zeros((B,), bool)
                        for name in self.fleet.names}
+        goal_dense_active = {name: np.zeros((B,), bool)
+                             for name in dense_names}
         if one_phase:
             goal_depths = np.full_like(depths, 1e9)
+            goal_rgbs = np.zeros_like(rgbs)
             goal_classes = {name: np.zeros((B, cam.height, cam.width),
                                            np.int32)
-                            for name in GOAL_FED_MAPS}
+                            for name in GOAL_FED_MAPS
+                            if name in self.fleet.names}
         obs: Dict[int, Dict] = {}
         with self.timer.stage("observe"):
             for ep in live:
@@ -429,7 +454,21 @@ class FleetEvaluator:
             yaws[ep.index] = o["yaw"]
             elevations[ep.index] = o["elevation"]
             depths[ep.index] = np.asarray(o["depth"], np.float32)
+            if dense_names:
+                rgbs[ep.index] = np.asarray(o["rgb"], np.float32)
             for name in ep.update_names():
+                if name in dense_names:
+                    # the dense families ride their own batched backbone
+                    # call and splat (update_dense below)
+                    if one_phase and name in GOAL_FED_MAPS:
+                        goal_dense_active[name][ep.index] = True
+                        goal_rgbs[ep.index] = np.asarray(o["goal_rgb"],
+                                                         np.float32)
+                        goal_depths[ep.index] = np.asarray(
+                            o["goal_depth"], np.float32)
+                    else:
+                        dense_active[name][ep.index] = True
+                    continue
                 if one_phase and name in GOAL_FED_MAPS:
                     goal_active[name][ep.index] = True
                     goal_classes[name][ep.index] = _classes(
@@ -444,10 +483,17 @@ class FleetEvaluator:
         with self.timer.stage("mapping"):
             self.fleet.update_batch(positions, yaws, elevations, depths,
                                     classes, active=active)
+            if any(m.any() for m in dense_active.values()):
+                self.fleet.update_dense(positions, yaws, elevations, depths,
+                                        rgbs, active=dense_active)
             if any(m.any() for m in goal_active.values()):
                 self.fleet.update_batch(positions, yaws, elevations,
                                         goal_depths, goal_classes,
                                         active=goal_active)
+            if any(m.any() for m in goal_dense_active.values()):
+                self.fleet.update_dense(positions, yaws, elevations,
+                                        goal_depths, goal_rgbs,
+                                        active=goal_dense_active)
 
         # --- batched planning, then per-episode decisions and steps
         plans: Dict[int, tuple] = {}

@@ -14,12 +14,18 @@ episode's first voxel.
 Every episode's slab equals, bit for bit, what the single-episode
 ``VoxelMap`` updates of the same frames give: records sort stably, so
 each voxel sums its records in the same order.
+
+Dense feature families (the ResNet maps of ``--use-feature-matching``)
+are ``[B*V, F]`` slabs too: ``update_dense`` sends the B RGB frames
+through the backbone in one batched call, bins the B feature cameras as
+one batch, and folds the embeddings in with one dense splat launch per
+family (families whose masks are equal share one sort).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -45,32 +51,44 @@ class FleetMaps:
         ``{"semantic0": 54, "occupancy": 1}``; families named
         ``occupancy*`` take class 0 for every pixel.
       device: where the buffers live; ``None`` means CUDA.
-      mesh, dense_sizes: the JAX package's row-sharded buffers and dense
-        feature families, which arrive with later slices of the port.
+      dense_sizes, backbone, stride: dense feature families, name ->
+        channel count (``{"feature0": 256, "feature1": 256}``), the
+        ``[B, h, w, 3]`` -> ``[B, h/stride, w/stride, F]`` backbone that
+        feeds them and its stride (``update_dense``).
+      mesh: the JAX package's row-sharded buffers, which arrive with a
+        later slice of the port.
     """
 
     def __init__(self, batch: int, camera: CameraConfig,
                  geometry: MapGeometry, feature_sizes: Dict[str, int],
-                 device=None, mesh=None, dense_sizes: Dict[str, int] = None):
+                 device=None, mesh=None, dense_sizes: Dict[str, int] = None,
+                 backbone: Optional[Callable] = None, stride: int = 4):
         if mesh is not None:
             raise NotImplementedError(
                 "row-sharded fleet maps (mesh) are ported in slice 4")
-        if dense_sizes:
-            raise NotImplementedError(
-                "dense feature families are ported in slice 3")
         self.batch = batch
         self.camera = camera
         self.base_geometry = geometry
         self.names: List[str] = list(feature_sizes)
+        self.dense_names: List[str] = list(dense_sizes or {})
+        if self.dense_names and backbone is None:
+            raise ValueError("dense feature families need a backbone")
+        self._backbone = backbone
+        self._stride = stride
         self.device = resolve_device(device)
         self.rays = G.camera_rays(camera.height, camera.width,
                                   camera.focal_length, camera.focal_length,
                                   device=self.device)
+        dcam = camera.downsample(stride)
+        self.dense_rays = G.camera_rays(dcam.height, dcam.width,
+                                        dcam.focal_length, dcam.focal_length,
+                                        device=self.device)
         V = self.episode_voxels = geometry.num_voxels
         SP.check_voxels(batch * V)       # the discard id B*V is int32 too
+        sizes = {**feature_sizes, **(dense_sizes or {})}
         self._episode_geoms = {
             name: dataclasses.replace(geometry, feature_size=f)
-            for name, f in feature_sizes.items()}
+            for name, f in sizes.items()}
         bins = _bins((0.0, 0.0, 0.0), geometry, self.device)
         # a fleet buffer is one taller map: B*H rows of the same grid
         self._fleet_maps = {
@@ -79,7 +97,7 @@ class FleetMaps:
                 geometry=dataclasses.replace(
                     geometry, map_height=geometry.map_height * batch,
                     feature_size=f))
-            for name, f in feature_sizes.items()}
+            for name, f in sizes.items()}
         self.buffers = {name: vm.data for name, vm in self._fleet_maps.items()}
         self.bins_x, self.bins_y, self.bins_z = (
             b.repeat(batch, 1) for b in bins)            # [B, n + 1] each
@@ -135,18 +153,11 @@ class FleetMaps:
         family no episode updates is not launched.  The poses reach the
         host at most once.
         """
-        B, V = self.batch, self.episode_voxels
+        B = self.batch
         h, w = self.rays.shape[0], self.rays.shape[1]
         n = h * w
-        ids, weights = contributions_frames(
-            self.rays, (self.bins_x, self.bins_y, self.bins_z),
-            self.base_geometry, self._put(positions, torch.float32), yaws,
-            elevations, self._put(depths, torch.float32))      # [B, 8N]
-        gids = torch.where(ids < V, ids + self._offsets[:, None], B * V)
-        # the records are corner-major (record k's pixel is k % (B*N)),
-        # as the sort and the splat read them: [8, B, N]
-        gids = gids.view(B, 8, n).transpose(0, 1)
-        gw = weights.view(B, 8, n).transpose(0, 1).reshape(-1)
+        gids, gw = self._records(self.rays, positions, yaws, elevations,
+                                 self._put(depths, torch.float32))
         cls = {}
         for name in self.names:
             if name in classes:
@@ -158,20 +169,76 @@ class FleetMaps:
                 cls[name] = torch.zeros(B * n, dtype=torch.int32,
                                         device=self.device)
 
+        for names, fam_ids in self._family_ids(self.names, gids, active):
+            apply_onehot_group([self._fleet_maps[name] for name in names],
+                               fam_ids, gw, [cls[name] for name in names])
+
+    def update_dense(self, positions, yaws, elevations, depths, rgbs,
+                     active: Dict[str, np.ndarray] = None) -> None:
+        """Fold one RGB frame per episode into every dense family, in
+        place: the B frames through the backbone in one call, depth
+        subsampled at the stride's pixel centres, the B feature cameras
+        binned as one batch.
+
+        Args: ``positions [B, 3]``, ``yaws [B]``, ``elevations [B]``,
+        ``depths [B, h, w, 1]``, ``rgbs [B, h, w, 3]``; ``active``
+        (optional) name -> ``[B]`` bool as in :meth:`update_batch`.
+        Records are corner-major over the fleet (record r's pixel is
+        ``r % (B*n)``); families with equal masks share one sort, and
+        each family takes one dense splat launch.
+        """
+        if not self.dense_names:
+            raise ValueError("no dense feature families configured")
+        B, k = self.batch, self._stride
+        hd, wd = self.dense_rays.shape[0], self.dense_rays.shape[1]
+        feats = self._backbone(self._put(rgbs, torch.float32))
+        feats = G.upsample_features(feats, hd, wd)
+        feats = feats.reshape(B * hd * wd, feats.shape[-1]).contiguous()
+        sub = self._put(depths, torch.float32)[:, k // 2::k, k // 2::k]
+        gids, gw = self._records(self.dense_rays, positions, yaws,
+                                 elevations, sub.contiguous())
+        for names, fam_ids in self._family_ids(self.dense_names, gids,
+                                               active):
+            records = SP.sorted_dense_records(fam_ids, gw, B * hd * wd)
+            for name in names:
+                vm = self._fleet_maps[name]
+                SP.apply_dense_records(vm.data, records, feats,
+                                       vm.geometry.interpolation_weight)
+
+    def _records(self, rays, positions, yaws, elevations, depths):
+        """The B frames' corner records on their episodes' grids, re-based
+        into the fleet's rows: ``gids [8, B, n]`` (an invalid pixel of any
+        episode at the discard id ``B*V``) and ``weights [8*B*n]``, both
+        corner-major (record k's pixel is ``k % (B*n)``), as the sorts and
+        the splats read them."""
+        B, V = self.batch, self.episode_voxels
+        n = rays.shape[0] * rays.shape[1]
+        ids, weights = contributions_frames(
+            rays, (self.bins_x, self.bins_y, self.bins_z),
+            self.base_geometry, self._put(positions, torch.float32), yaws,
+            elevations, depths)                                 # [B, 8n]
+        gids = torch.where(ids < V, ids + self._offsets[:, None], B * V)
+        return (gids.view(B, 8, n).transpose(0, 1),
+                weights.view(B, 8, n).transpose(0, 1).reshape(-1))
+
+    def _family_ids(self, names, gids, active):
+        """``(families, ids [8*B*n])`` per group of families that the
+        same episodes update (``active``: name -> ``[B]`` bool, None for
+        all), an inactive episode's records at the discard id; a family
+        that no episode updates is left out."""
+        B, V = self.batch, self.episode_voxels
         groups: Dict[bytes, List[str]] = {}
         masks = {}
-        for name in self.names:
+        for name in names:
             mask = (np.ones(B, bool) if active is None
                     else np.asarray(active[name], bool))
             if mask.any():
                 groups.setdefault(mask.tobytes(), []).append(name)
                 masks[mask.tobytes()] = mask
-        for key, names in groups.items():
+        for key, group in groups.items():
             mask = masks[key]
             fam_ids = gids
             if not mask.all():
                 keep = self._put(mask, torch.bool)[None, :, None]
                 fam_ids = torch.where(keep, gids, B * V)
-            apply_onehot_group([self._fleet_maps[name] for name in names],
-                               fam_ids.reshape(-1), gw,
-                               [cls[name] for name in names])
+            yield group, fam_ids.reshape(-1)

@@ -158,6 +158,8 @@ SMALL = ["--ground-truth-segmentation", "--ground-truth-disagreement",
          "--record-found-objects", "--device", "cpu"]
 GRIDWORLD_POLICY = os.path.join(REPO, "mass_tpu_torch", "checkpoints",
                                 "policy-gridworld.pth")
+BACKBONE = os.path.join(REPO, "mass_tpu_torch", "checkpoints",
+                        "backbone-rand.pth")
 
 
 @pytest.mark.parametrize("flags,slice_no", [
@@ -167,7 +169,7 @@ GRIDWORLD_POLICY = os.path.join(REPO, "mass_tpu_torch", "checkpoints",
       "--semantic-search-unshuffle"], None),
     (["--frontier-exploration"], None),
     (["--revisit-exploration"], None),
-    (["--use-feature-matching"], 3),
+    (["--use-feature-matching", "--backbone-checkpoint", BACKBONE], None),
     (["--one-phase"], None),
     (["--shard-map", "8"], 4),
     (["--snapshot-maps"], 3),
@@ -189,6 +191,22 @@ def test_cli_rejects_flags_of_later_slices(flags, slice_no, tmp_path):
     with pytest.raises(SystemExit, match=f"slice {slice_no}"):
         cli.main(base + flags + ["--logdir", str(tmp_path), "--device",
                                  "cpu"])
+    assert not os.listdir(tmp_path)
+
+
+def test_cli_feature_matching_needs_a_pth_backbone(tmp_path):
+    """--use-feature-matching without --backbone-checkpoint stops naming
+    the flag (the JAX package would download torchvision's weights); an
+    orbax tree is refused with the name of its export; nothing is
+    written."""
+    from mass_tpu_torch.agent import cli
+
+    with pytest.raises(SystemExit, match="--backbone-checkpoint"):
+        cli.main(SMALL + ["--use-feature-matching", "--logdir",
+                          str(tmp_path)])
+    with pytest.raises(SystemExit, match="backbone-rand.pth"):
+        cli.main(SMALL + ["--use-feature-matching", "--backbone-checkpoint",
+                          "/tmp/backbone-rand", "--logdir", str(tmp_path)])
     assert not os.listdir(tmp_path)
 
 

@@ -12,7 +12,7 @@ import torch
 
 from mass_tpu_torch.ops import splat as SP
 from mass_tpu_torch.parallel import fleet as TF
-from tests.test_torch_agent import GRIDWORLD_POLICY, SMALL, \
+from tests.test_torch_agent import BACKBONE, GRIDWORLD_POLICY, SMALL, \
     jax_node_memo_held
 
 SEEDS = [2, 4]
@@ -192,11 +192,12 @@ def test_cli_fleet_writes_results(tmp_path):
     (["--policy-checkpoint", GRIDWORLD_POLICY,
       "--semantic-search-walkthrough"], None),
     ({"sensor": object()}, 3),
-    ({"feature_backbone": object()}, 3),
+    (["--use-feature-matching", "--backbone-checkpoint", BACKBONE], None),
     (["--one-phase"], None),
     (["--frontier-exploration"], None),
     (["--revisit-exploration"], None),
-    ({"use_feature_matching": True}, 3),
+    (["--use-feature-matching", "--backbone-checkpoint", BACKBONE,
+      "--one-phase"], None),
     ({"shard_map": 4}, 4),
     ({"snapshot_maps": True}, 3),
 ])
@@ -220,6 +221,19 @@ def test_fleet_refuses_later_slices(change, slice_no, tmp_path):
                               if k not in args})
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
         FleetEvaluator(cfg, [object(), object()], device="cpu", **args)
+
+
+def test_feature_matching_needs_a_backbone():
+    """Sequential and fleet refuse --use-feature-matching without the
+    backbone that feeds the feature maps."""
+    from mass_tpu_torch.agent.loop import RearrangementAgent
+    from mass_tpu_torch.parallel.evaluator import FleetEvaluator
+
+    cfg = _config("torch", use_feature_matching=True)
+    with pytest.raises(ValueError, match="backbone"):
+        RearrangementAgent(cfg, object(), device="cpu")
+    with pytest.raises(ValueError, match="backbone"):
+        FleetEvaluator(cfg, [object(), object()], device="cpu")
 
 
 def test_fleet_refuses_to_fall_back_to_cpu(monkeypatch, tmp_path):

@@ -210,9 +210,13 @@ def test_fleet_views_are_views():
 
 
 @pytest.mark.parametrize("kwargs,slice_no", [
-    ({"mesh": object()}, 4), ({"dense_sizes": {"feature0": 256}}, 3)])
+    ({"mesh": object()}, 4), ({"dense_sizes": {"feature0": 256}}, None)])
 def test_fleet_maps_refuse_later_slices(kwargs, slice_no):
-    with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
+    """Row-sharded buffers wait for a later slice; dense feature families
+    (ported: ``slice_no`` None) need the backbone that feeds them."""
+    error, match = ((NotImplementedError, f"slice {slice_no}") if slice_no
+                    else (ValueError, "need a backbone"))
+    with pytest.raises(error, match=match):
         TF.FleetMaps(B, CameraConfig(height=CAM, width=CAM),
                      MapGeometry(**GEO), FAMILIES, device="cpu", **kwargs)
 

@@ -455,3 +455,146 @@ def test_fleet_episodes_on_card_equal_cpu(cuda, compat):
         for k in want:
             if k != "timing":
                 assert g[k] == c[k] == want[k], (s, k)
+
+
+# ----------------------------------------------------------------------
+# the dense-row splat (csrc/splat_dense.cu)
+# ----------------------------------------------------------------------
+
+def _dense_case(seed, num_features, long_run=False, pixels=99):
+    """A random frame's dense records on a 32x16x4 map of random values
+    (``long_run``: a third of the records on one voxel), on the CPU."""
+    rng = np.random.RandomState(seed)
+    vm = _random_map(rng, num_features)
+    ids, w = _records(rng, vm)
+    if long_run:
+        ids = ids.clone()
+        ids[torch.from_numpy(rng.rand(ids.shape[0]) < 0.33)] = 77
+    feats = torch.from_numpy(rng.randn(pixels, num_features).astype(
+        np.float32))
+    return vm.data, SP.sorted_dense_records(ids, w, pixels), feats
+
+
+@pytest.mark.parametrize("num_features", [256, 1, 7, 128, 1024])
+@pytest.mark.parametrize("long_run", [False, True])
+def test_dense_kernel_matches_plain_versions(cuda, num_features, long_run):
+    """The kernel equals the plain version on the CPU bit for bit (float4
+    rows for F % 4 == 0, one float a lane otherwise), two runs are
+    identical, and the plain version on the card (atomics) agrees within
+    1e-5."""
+    data, cpu_rec, feats = _dense_case(num_features, num_features, long_run)
+    rec = SP.DenseRecords(*(t.to(cuda) for t in cpu_rec))
+    gpu, gfeats = data.to(cuda), feats.to(cuda)
+    before = SP.DENSE_LAUNCHES
+    out = SP.apply_dense_records(gpu.clone(), rec, gfeats, 0.5)
+    again = SP.apply_dense_records(gpu.clone(), rec, gfeats, 0.5)
+    plain_gpu = SP.splat_dense_reference(gpu.clone(), rec, gfeats, 0.5)
+    torch.cuda.synchronize()
+    assert SP.DENSE_LAUNCHES == before + 2
+    assert torch.equal(out, again)
+    assert (out - plain_gpu).abs().max().item() <= 1e-5
+    plain_cpu = SP.splat_dense_reference(data.clone(), cpu_rec, feats, 0.5)
+    assert torch.equal(out.cpu(), plain_cpu)
+    assert not torch.equal(out.cpu(), data)
+
+
+def test_dense_kernel_on_an_unaligned_map(cuda):
+    """A map view that starts 4 bytes into its storage takes the
+    one-float path and still equals the plain version."""
+    data, cpu_rec, feats = _dense_case(3, 8)
+    rec = SP.DenseRecords(*(t.to(cuda) for t in cpu_rec))
+    storage = torch.empty(data.numel() + 1, device=cuda)
+    gpu = storage[1:].view(data.shape)
+    gpu.copy_(data)
+    SP.apply_dense_records(gpu, rec, feats.to(cuda), 0.25)
+    plain = SP.splat_dense_reference(data.clone(), cpu_rec, feats, 0.25)
+    assert torch.equal(gpu.cpu(), plain)
+
+
+def test_dense_kernel_wrapper_rejects_bad_inputs(cuda):
+    data, cpu_rec, feats = _dense_case(4, 16)
+    rec = SP.DenseRecords(*(t.to(cuda) for t in cpu_rec))
+    gpu, gfeats = data.to(cuda), feats.to(cuda)
+    before = SP.DENSE_LAUNCHES
+    with pytest.raises(ValueError):
+        SP.apply_dense_records(gpu.double(), rec, gfeats, 0.5)
+    with pytest.raises(ValueError):
+        SP.apply_dense_records(gpu, rec, gfeats[:, :8], 0.5)
+    with pytest.raises(ValueError):
+        SP.apply_dense_records(gpu, rec, gfeats.t().contiguous().t(), 0.5)
+    with pytest.raises(ValueError):
+        SP.apply_dense_records(gpu, rec._replace(pixels=rec.pixels.long()),
+                               gfeats, 0.5)
+    with pytest.raises(ValueError):
+        SP.apply_dense_records(gpu, rec, feats, 0.5)          # mixed
+    wide = torch.zeros((4, 1025), device=cuda)
+    with pytest.raises(ValueError, match="exceeds"):
+        SP.apply_dense_records(wide, rec, torch.zeros((99, 1025),
+                                                      device=cuda), 0.5)
+    assert SP.DENSE_LAUNCHES == before
+
+
+def test_feature_map_on_card_equals_cpu(cuda):
+    """FeatureMap updates of the shipped backbone on the card: the dense
+    kernel's launches, and the map within the backbone's tolerance of the
+    CPU's (cuDNN sums its convs in another order)."""
+    from mass_tpu_torch.config import CameraConfig
+    from mass_tpu_torch.maps import FeatureMap
+    from mass_tpu_torch.perception.resnet import load_backbone_checkpoint
+
+    path = os.path.join(REPO, "mass_tpu_torch", "checkpoints",
+                        "backbone-rand.pth")
+    maps = {}
+    before = SP.DENSE_LAUNCHES
+    for device in (cuda, "cpu"):
+        backbone, _ = load_backbone_checkpoint(path, device)
+        fmap = FeatureMap(CameraConfig(height=32, width=32), 256, backbone,
+                          device=device, map_height=32, map_width=32,
+                          map_depth=8, grid_resolution=0.2)
+        rng = np.random.RandomState(0)
+        for _ in range(3):
+            fmap.update_from_observation(dict(
+                position=rng.uniform(-0.3, 0.3, 3).astype(np.float32),
+                yaw=np.float32(rng.uniform(-3, 3)), elevation=np.float32(
+                    -0.3), depth=rng.uniform(0.3, 2.5, (32, 32, 1)).astype(
+                        np.float32), rgb=rng.rand(32, 32, 3).astype(
+                            np.float32)))
+        maps[str(torch.device(device).type)] = fmap.voxel_map.data.cpu()
+    assert SP.DENSE_LAUNCHES == before + 3
+    assert maps["cuda"].any()
+    assert (maps["cuda"] - maps["cpu"]).abs().max().item() <= 2e-4
+
+
+def test_fm_protocol_task0_on_card(cuda, tmp_path):
+    """Task 0 of the frozen feature-matching protocol on the card equals
+    the committed record and the CPU run on every field but timing."""
+    from mass_tpu_torch.agent import cli
+
+    flags = ["--backend", "gridworld", "--camera-size", "48",
+             "--map-height", "80", "--map-width", "80", "--map-depth", "24",
+             "--grid-resolution", "0.125", "--step-size", "2",
+             "--obstacle-padding", "2", "--map-slice-start", "0",
+             "--map-slice-stop", "12", "--room-size", "6",
+             "--num-objects", "1", "--num-misplaced", "0",
+             "--num-opened", "0", "--duplicate-class-pairs", "1",
+             "--exploration-budget-one", "3", "--exploration-budget-two",
+             "2", "--max-goal-steps", "60", "--max-steps", "500",
+             "--ground-truth-segmentation", "--ground-truth-disagreement",
+             "--ground-truth-semantic-search", "--use-feature-matching",
+             "--backbone-checkpoint", os.path.join(
+                 REPO, "mass_tpu_torch", "checkpoints", "backbone-rand.pth"),
+             "--start-task", "0", "--total-tasks", "1"]
+    with open(os.path.join(REPO, "experiments", "fm", "fm-features",
+                           "results", "0.json")) as f:
+        committed = json.load(f)
+    before = SP.DENSE_LAUNCHES
+    out = {}
+    for device in ("cuda", "cpu"):
+        cli.main(flags + ["--device", device, "--logdir",
+                          str(tmp_path / device)])
+        with open(tmp_path / device / "results" / "0.json") as f:
+            out[device] = json.load(f)
+    assert SP.DENSE_LAUNCHES > before
+    for k in committed:
+        if k != "timing":
+            assert out["cuda"][k] == out["cpu"][k] == committed[k], k

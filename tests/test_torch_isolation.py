@@ -60,6 +60,21 @@ SCRIPT = textwrap.dedent("""
                   policy.load_reference_policy, prng.categorical,
                   prng.uniform):
         assert callable(entry), entry
+    from mass_tpu_torch.convert import backbone_state_dict_from_jax
+    from mass_tpu_torch.maps import ClipMap, FeatureMap
+    from mass_tpu_torch.match.find import pooled_features
+    from mass_tpu_torch.perception import resnet
+    assert "mass_tpu_torch.perception.resnet" in names
+    for entry in ("apply_dense_records", "sorted_dense_records",
+                  "splat_dense", "splat_dense_reference"):
+        assert callable(getattr(splat, entry)), entry
+    for entry in (backbone_state_dict_from_jax, ClipMap, FeatureMap,
+                  pooled_features, VoxelMap.update, FleetMaps.update_dense,
+                  resnet.ResNet50Stage1, resnet.load_backbone_checkpoint,
+                  resnet.make_backbone):
+        assert callable(entry), entry
+    backbone, _ = resnet.load_backbone_checkpoint(
+        "mass_tpu_torch/checkpoints/backbone-rand.pth", "cpu")
     print(len(names))
 """)
 
@@ -69,29 +84,34 @@ def test_port_imports_without_jax_or_mass_tpu():
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=REPO))
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 29
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 31
 
 
 def test_kernel_sources_stand_alone():
     """Every kernel the port builds has its CUDA source in the package,
     with a plain C interface (no PyTorch or JAX header, so nvcc builds it
     in seconds) and its launch and limit entry points.  The single-map,
-    multi-map and frames kernels share one source and one library."""
+    multi-map and frames kernels share one source and one library; the
+    dense-row splat (the counterpart of an XLA scatter, not of a TPU
+    kernel) has its own."""
     from mass_tpu_torch.ops import splat
 
     assert splat.KERNELS == ("splat_onehot", "splat_onehot_multi",
-                             "splat_onehot_frames")
-    assert splat.LIBRARIES == ("splat_onehot",)
-    assert {lib for lib, _ in splat._ENTRIES.values()} == {"splat_onehot"}
+                             "splat_onehot_frames", "splat_dense")
+    assert splat.LIBRARIES == ("splat_onehot", "splat_dense")
+    assert {lib for lib, _ in splat._ENTRIES.values()} == set(
+        splat.LIBRARIES)
     for gone in ("splat_onehot_multi.cu", "splat_onehot_frames.cu"):
         assert not os.path.exists(os.path.join(
             REPO, "mass_tpu_torch", "csrc", gone))
+    replaces = {"splat_onehot": "mass_tpu/ops/pallas_splat.py",
+                "splat_dense": "mass_tpu/ops/scatter.py"}
     for name in splat.LIBRARIES:
         source, library = splat._paths(name)
         with open(source) as f:
             text = f.read()
         assert "#include <torch" not in text and "ATen" not in text
-        assert "mass_tpu/ops/pallas_splat.py" in text   # what it replaces
+        assert replaces[name] in text                   # what it replaces
         kernels = [k for k, (lib, _) in splat._ENTRIES.items()
                    if lib == name]
         for entry in [f"{k}_launch(" for k in kernels] + [

@@ -1,4 +1,4 @@
-"""Export of the shipped search-policy checkpoints for the port.
+"""Export of the shipped checkpoints for the port.
 
 The JAX package ships its trained policies as orbax trees
 (``checkpoints/policy-*``), which only orbax and JAX read.  The port reads
@@ -6,6 +6,11 @@ the reference's ``policy.pth`` layout (a torch ``Sequential`` state dict),
 so each tree is exported once to
 ``mass_tpu_torch/checkpoints/policy-*.pth``, and
 ``tests/test_torch_policy.py`` holds every exported file equal to its
+tree.  The feature-matching protocol (``experiments/fm/queue_r5b.sh``)
+runs the stage-1 ResNet of ``mass_tpu.perception.resnet.init_backbone()``
+(the flax init at ``PRNGKey(0)``); it is exported to
+``mass_tpu_torch/checkpoints/backbone-rand.pth`` with torchvision's
+names, and ``tests/test_torch_resnet.py`` holds that file equal to the
 tree.  This helper imports both packages, so it lives with the tests:
 
     python -m tests.torch_checkpoints
@@ -37,6 +42,26 @@ def load_orbax(name: str):
     return jax.tree_util.tree_map(np.asarray, load_pytree(orbax_path(name)))
 
 
+BACKBONE = "backbone-rand"
+
+
+def backbone_variables():
+    """``init_backbone()``'s variables, as numpy arrays."""
+    import jax
+    from mass_tpu.perception.resnet import init_backbone
+
+    return jax.tree_util.tree_map(np.asarray, init_backbone())
+
+
+def export_backbone() -> str:
+    from mass_tpu_torch.convert import backbone_state_dict_from_jax
+
+    path = pth_path(BACKBONE)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(backbone_state_dict_from_jax(backbone_variables()), path)
+    return path
+
+
 def export(name: str) -> str:
     from mass_tpu_torch.convert import policy_state_dict_from_jax
 
@@ -52,3 +77,4 @@ if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     for name in NAMES:
         print(export(name), os.path.getsize(pth_path(name)))
+    print(export_backbone(), os.path.getsize(pth_path(BACKBONE)))
