@@ -34,9 +34,10 @@ explores) and at full width through the CLI; B = 2 small fleets of each;
 and a full-width ``--fleet-size 2`` fleet of B whose task 2 must equal
 the sequential B episode.  Then feature matching: the dense-row splat
 (``csrc/splat_dense.cu``, a second library) on one room frame's stride-4
-records into a 384x384x96x256 map (13.5 GiB) and on a wall frame with
-long runs, bit-equal to its plain CPU version on the touched rows; the
-stage-1 ResNet on one 224x224 frame against its bound; tasks 0 and 2 of
+records into a 384x384x96x256 map (13.5 GiB), on a wall frame with long
+runs and on a stream of many runs, bit-equal to its plain CPU version on
+the touched rows; the stage-1 ResNet on one 224x224 frame against its
+bound; tasks 0 and 2 of
 the frozen feature-matching protocol (``experiments/fm/run_arm.sh``) on
 the card and the CPU (equal; task 0 equal to the committed record); the
 full-width feature episode (two 13.5 GiB feature maps) with its mapping
@@ -132,8 +133,9 @@ def host_ms(fn, iters: int) -> float:
     return 1e3 * (time.perf_counter() - t0) / iters
 
 
-def kernel_device_ms(fn, iters: int, flush: torch.Tensor) -> float:
-    """Mean device time of the splat kernel per call of ``fn``, read from
+def kernel_device_ms(fn, iters: int, flush: torch.Tensor,
+                     kernel: str = "splat_onehot_kernel") -> float:
+    """Mean device time of ``kernel`` per call of ``fn``, read from
     torch.profiler's trace (no launch latency in it), cold L2."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -143,7 +145,7 @@ def kernel_device_ms(fn, iters: int, flush: torch.Tensor) -> float:
             fn()
         torch.cuda.synchronize()
     total = sum(e.device_time_total for e in prof.key_averages()
-                if "splat_onehot_kernel" in e.key)
+                if kernel in e.key)
     return total / 1e3 / iters
 
 
@@ -1521,15 +1523,46 @@ def check_dense(name: str, data, records, feats, iw: float = 0.5) -> dict:
                 longest_run=int(counts.max()))
 
 
+def many_dense_runs(dev, num_voxels: int, pixels: int, records: int,
+                    seed: int = 13):
+    """Sorted dense records of many runs over the whole map: runs of
+    about 8 records on random voxels, every 2,000th run 600 records long
+    (it outlasts several of a window's tail loads), random pixels, then 7
+    discard records."""
+    from mass_tpu_torch.ops import splat as SP
+
+    rng = np.random.RandomState(seed)
+    lengths = rng.geometric(1 / 8, records // 4)
+    lengths[::2000] = 600
+    lengths = lengths[:np.searchsorted(np.cumsum(lengths), records - 7) + 1]
+    lengths[-1] -= lengths.sum() - (records - 7)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    voxels = torch.randperm(num_voxels, generator=gen, device=dev)[
+        :lengths.shape[0]].sort().values.to(torch.int32)
+    ids = torch.cat([torch.repeat_interleave(
+        voxels, torch.as_tensor(lengths, device=dev)),
+        voxels.new_full((7,), num_voxels)])
+    return SP.DenseRecords(
+        ids, torch.rand(records, generator=gen, device=dev),
+        torch.randint(0, pixels, (records,), generator=gen, device=dev,
+                      dtype=torch.int32))
+
+
 def phase_dense_kernel(dev) -> dict:
     """The dense-row splat at full width: one 224x224 room frame's stride-4
     records (3,136 pixels of 256 random features) into a 384x384x96x256
     map of random values (13.5 GiB), then a frame 0.3 m from a wall whose
-    runs hold hundreds of records; each bit-equal to the plain CPU version
-    on the touched rows.  Times: the kernel, its plain version (which
-    sums with atomics on the card) and the record prep, CUDA events after
-    an L2 flush, median of 20; and, as a yardstick, ``index_add_`` of the
-    same contributions (the additive half of the update alone)."""
+    runs hold about a hundred records, then a stream of many runs (401,408
+    records, a 224x224 frame's count: some 48k runs, twelve times as many
+    warps as the card holds at once); each bit-equal to the plain CPU
+    version on the touched rows.  Times: the kernel, its plain version
+    (which sums with atomics on the card) and the record prep, CUDA events
+    after an L2 flush, median of 20; the kernel's device time from
+    torch.profiler beside the events, and the kernel on the room frame's
+    first 32 records alone (one warp's window: its chain of dependent
+    loads from a cold L2); and, as a yardstick, ``index_add_`` of the same
+    contributions (the additive half of the update alone).  ``config`` is
+    the built kernel's shape (``ops.splat.dense_config``)."""
     from mass_tpu_torch.config import MapGeometry
     from mass_tpu_torch.core.voxelmap import VoxelMap
     from mass_tpu_torch.ops import splat as SP
@@ -1550,6 +1583,14 @@ def phase_dense_kernel(dev) -> dict:
     iw = 0.5
     out["ms"] = cuda_ms(lambda: SP.apply_dense_records(
         vm.data, records, feats, iw), 20, flush)
+    out["device_ms"] = kernel_device_ms(lambda: SP.apply_dense_records(
+        vm.data, records, feats, iw), 20, flush, "splat_dense_kernel")
+    window = SP.DenseRecords(*(t[:32].contiguous() for t in records))
+    out["one_window_ms"] = cuda_ms(lambda: SP.apply_dense_records(
+        vm.data, window, feats, iw), 20, flush)
+    out["one_window_device_ms"] = kernel_device_ms(
+        lambda: SP.apply_dense_records(vm.data, window, feats, iw), 20,
+        flush, "splat_dense_kernel")
     out["plain_ms"] = cuda_ms(lambda: SP.splat_dense_reference(
         vm.data, records, feats, iw), 20, flush)
     out["prep_ms"] = cuda_ms(lambda: SP.sorted_dense_records(
@@ -1572,9 +1613,21 @@ def phase_dense_kernel(dev) -> dict:
           f"the wall frame's longest run is {skewed['longest_run']}")
     skewed["ms"] = cuda_ms(lambda: SP.apply_dense_records(
         vm.data, wall_records, feats, iw), 20, flush)
+    skewed["device_ms"] = kernel_device_ms(lambda: SP.apply_dense_records(
+        vm.data, wall_records, feats, iw), 20, flush, "splat_dense_kernel")
     skewed.update(dense_bound(skewed["valid_records"], pixels,
                               skewed["touched_voxels"], DENSE_FEATURES))
     out["wall"] = skewed
+    many_records = many_dense_runs(dev, geo.num_voxels, pixels,
+                                   8 * CAMERA * CAMERA)
+    many = check_dense("dense many runs", vm.data, many_records, feats)
+    many["ms"] = cuda_ms(lambda: SP.apply_dense_records(
+        vm.data, many_records, feats, iw), 20, flush)
+    many.update(dense_bound(many["valid_records"], pixels,
+                            many["touched_voxels"], DENSE_FEATURES))
+    out["many"] = many
+    del many_records
+    out["config"] = SP.dense_config()
     out["map_bytes"] = vm.data.numel() * 4
     del flush, vm, feats
     gc.collect()
@@ -1927,8 +1980,11 @@ def main() -> int:
 
     dense = report["dense_kernel"] = phase_dense_kernel(dev)
     tag = "dense kernel 384x384x96x256"
-    for what, k in (("room frame", dense), ("wall frame 0.3 m", dense["wall"])):
-        print(f"[{tag}] {what} through the 56x56 feature camera: "
+    for what, k in (("room frame", dense), ("wall frame 0.3 m", dense["wall"]),
+                    ("many runs", dense["many"])):
+        print(f"[{tag}] {what}"
+              + (" through the 56x56 feature camera" if "frame" in what
+                 else "") + ": "
               f"U={k['touched_voxels']}, records={k['valid_records']} valid "
               f"of {k['records']}, longest run {k['longest_run']}; max abs "
               f"diff vs plain {k['max_abs_err']:.3g} (tol {SPLAT_TOL}); two "
@@ -1938,11 +1994,26 @@ def main() -> int:
               f"{k['untouched_rows_unchanged']}; kernel {k['ms']:.4f} ms, "
               f"bound {k['bound_ms']:.4f} ms ({k['bytes']} B), "
               f"{k['ms'] / k['bound_ms']:.2f}x the bound")
-    print(f"[{tag}] map {dense['map_bytes'] / 2**30:.2f} GiB; plain "
-          f"{dense['plain_ms']:.4f} ms; record prep (sort, gathers) "
-          f"{dense['prep_ms']:.4f} ms; index_add_ of the same contributions "
+    print(f"[{tag}] device time (torch.profiler): room frame "
+          f"{dense['device_ms']:.4f} ms, wall frame "
+          f"{dense['wall']['device_ms']:.4f} ms; the room frame's first 32 "
+          f"records alone (one window) {dense['one_window_ms']:.4f} ms, "
+          f"device {dense['one_window_device_ms']:.4f} ms")
+    print(f"[{tag}] room frame: kernel {dense['ms']:.4f} ms beside its "
+          f"record prep (sort, gathers) {dense['prep_ms']:.4f} ms; map "
+          f"{dense['map_bytes'] / 2**30:.2f} GiB; plain "
+          f"{dense['plain_ms']:.4f} ms; index_add_ of the same contributions "
           f"(the additive half alone, float atomics) "
           f"{dense['index_add_ms']:.4f} ms; library call: none")
+    config = dense["config"]
+    print(f"[{tag}] kernel as built: {config['threads']} threads a block, a "
+          f"warp per {config['window_records']} records x "
+          f"{config['slice_channels']} channels, the lines of "
+          f"{config['step_records']} window records or "
+          f"{config['tail_step_records']} tail records a load, tail ids "
+          f"{config['tail_load_records']} a load; {config['registers']} "
+          f"registers and {config['spill_bytes']} spilled bytes a thread, "
+          f"{config['blocks_per_sm']} blocks an SM")
     bb = report["backbone"] = phase_backbone(dev)
     print(f"[backbone] one 224x224 frame: {bb['ms']:.3f} ms (bound "
           f"{bb['bound_ms']:.4f} ms by {bb['bound_by']}: "

@@ -413,6 +413,21 @@ def tile_records() -> int:
     return _library("splat_onehot").splat_onehot_tile()
 
 
+def dense_config() -> Dict[str, int]:
+    """The built dense kernel's shape (its float4 form): threads a block,
+    records a warp's window, channels a warp, window and tail records
+    whose lines one load brings, records one tail load of ids spans, and,
+    as the compiler left them, registers and spilled bytes a thread and
+    resident blocks an SM."""
+    out = (ctypes.c_int * 9)()
+    _raise_on(_library("splat_dense").splat_dense_config(out),
+              "dense splat config")
+    return dict(zip(("threads", "window_records", "slice_channels",
+                     "step_records", "tail_step_records",
+                     "tail_load_records", "registers", "spill_bytes",
+                     "blocks_per_sm"), out))
+
+
 def _check_map(kernel: str, data: torch.Tensor, max_features: int) -> None:
     if data.dtype != torch.float32 or data.dim() != 2 or \
             not data.is_contiguous():

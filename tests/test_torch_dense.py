@@ -28,6 +28,7 @@ from mass_tpu_torch.ops import splat as SP
 from mass_tpu_torch.parallel.fleet import FleetMaps
 from mass_tpu_torch.perception import resnet as TR
 from tests import reference_impl as R
+from tests import torch_streams as TS
 
 SPLAT_ATOL = 1e-5
 MAP_ATOL = 2e-4     # features from the two backbones differ by this much
@@ -98,6 +99,39 @@ def test_dense_records_carry_pixels_in_sorted_order():
     assert rec.weights.tolist() == [1, 4, 5, 0, 2, 6, 3, 7]
     assert rec.pixels.tolist() == [1, 0, 1, 0, 2, 2, 3, 3]
     assert rec.pixels.dtype == torch.int32
+
+
+@pytest.mark.parametrize("name", sorted(TS.DENSE_STREAMS))
+def test_dense_streams_sort_into_their_runs(name):
+    """A stable sort of a dense stream gives back the runs it was made
+    of, each record still carrying the pixel of its position."""
+    ids, weights, feats, _ = TS.dense_stream(name, 1)
+    rec = SP.sorted_dense_records(_t(ids), _t(weights), feats.shape[0])
+    negative, lengths, _ = TS.DENSE_STREAMS[name]
+    runs = torch.unique_consecutive(rec.ids, return_counts=True)[1]
+    valid = runs[len(negative):len(negative) + len(lengths)]
+    assert runs[:len(negative)].tolist() == list(negative)
+    assert valid.tolist() == list(lengths)
+    assert (rec.ids[valid.sum() + sum(negative):] == TS.NUM_VOXELS).all()
+    order = np.argsort(ids, kind="stable")
+    assert rec.pixels.tolist() == (order % feats.shape[0]).tolist()
+
+
+@pytest.mark.parametrize("num_features", TS.DENSE_FEATURES)
+@pytest.mark.parametrize("name", sorted(TS.DENSE_STREAMS))
+def test_dense_streams_match_jax(name, num_features):
+    """The plain version on each chosen stream against XLA's
+    ``apply_dense_rows`` (atol 1e-5).  JAX knows one discard id, V, and
+    wraps negative indices, so its input has every id outside [0, V) at
+    V: the ids the port skips."""
+    ids, weights, feats, data = TS.dense_stream(name, num_features)
+    jax_ids = np.where((ids >= 0) & (ids < data.shape[0]), ids,
+                       data.shape[0]).astype(np.int32)
+    ref = _jax_dense(data, jax_ids, weights, feats, 0.5)
+    got = SP.splat_dense(_t(data), _t(ids), _t(weights), _t(feats), 0.5)
+    np.testing.assert_allclose(got.numpy(), ref, atol=SPLAT_ATOL, rtol=0)
+    if name != "all_discard":
+        assert not np.array_equal(got.numpy(), data)
 
 
 def _frame(seed, camera=CAM):

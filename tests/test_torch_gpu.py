@@ -498,6 +498,41 @@ def test_dense_kernel_matches_plain_versions(cuda, num_features, long_run):
     assert not torch.equal(out.cpu(), data)
 
 
+@pytest.mark.parametrize("num_features", TS.DENSE_FEATURES)
+@pytest.mark.parametrize("name", sorted(TS.DENSE_STREAMS))
+def test_dense_kernel_on_streams(cuda, name, num_features):
+    """Each chosen stream (runs that straddle a window or outlast several
+    tail loads, single-record runs, more windows than the card holds
+    warps at once, invalid runs) through the kernel: bit-equal to the
+    plain version on the CPU, and to a second run."""
+    ids, weights, feats, data = TS.dense_stream(name, num_features)
+    cpu_rec = SP.sorted_dense_records(torch.from_numpy(ids),
+                                      torch.from_numpy(weights),
+                                      feats.shape[0])
+    rec = SP.DenseRecords(*(t.to(cuda) for t in cpu_rec))
+    gpu, gfeats = torch.from_numpy(data).to(cuda), torch.from_numpy(
+        feats).to(cuda)
+    before = SP.DENSE_LAUNCHES
+    out = SP.apply_dense_records(gpu.clone(), rec, gfeats, 0.5)
+    again = SP.apply_dense_records(gpu.clone(), rec, gfeats, 0.5)
+    torch.cuda.synchronize()
+    assert SP.DENSE_LAUNCHES == before + 2
+    assert torch.equal(out, again)
+    plain = SP.splat_dense_reference(torch.from_numpy(data.copy()), cpu_rec,
+                                     torch.from_numpy(feats), 0.5)
+    assert torch.equal(out.cpu(), plain)
+    assert torch.equal(out.cpu(), torch.from_numpy(data)) == (
+        name == "all_discard")
+
+
+def test_dense_kernel_config_matches_the_streams(cuda):
+    """The streams' window and tail-load lengths are the built kernel's."""
+    config = SP.dense_config()
+    assert config["window_records"] == TS.DENSE_WINDOW
+    assert config["tail_load_records"] == TS.DENSE_TAIL_LOAD
+    assert config["registers"] > 0 and config["blocks_per_sm"] > 0
+
+
 def test_dense_kernel_on_an_unaligned_map(cuda):
     """A map view that starts 4 bytes into its storage takes the
     one-float path and still equals the plain version."""

@@ -193,3 +193,61 @@ def naive_frames_splat(data, ids, weights, classes, frames, iw):
         [out] = naive_splat([out], ids[sel], weights[sel],
                             classes[None, sel], [iw])
     return out
+
+
+# records a warp's window holds in csrc/splat_dense.cu (kWindow), and
+# records one load of a window's tail run spans (kAhead * 32) past the 32
+# records after the window, which the warp reads with its window;
+# test_torch_gpu.py checks the built library's splat_dense_config()
+# against both
+DENSE_WINDOW = 32
+DENSE_TAIL_LOAD = 128
+# the dense kernel's widths: one channel, a slice's ragged edge, the
+# backbone's 256 and the kernel's widest
+DENSE_FEATURES = (1, 7, 256, 1024)
+
+# dense-record streams, as sorted: runs of negative ids, runs of valid
+# voxels, and the count of discard records (id V).  In a sorted stream an
+# id outside [0, V) sorts before (negative) or after (V and up) every
+# voxel, so an invalid run lies between runs where two of them meet or
+# where one meets a voxel's run, as in "invalid_runs_around_voxels".
+DENSE_STREAMS = {
+    "single_record_runs": ((), (1,) * 70, 3),
+    "runs_1_31_32_33": ((), (1, 31, 32, 33, 2), 5),
+    # the second run covers records 20-59, the fifth 92-155
+    "straddles_window": ((), (20, 40, 3, 29, 64, 7), 4),
+    "longer_than_tail_load": ((), (2, 3 * DENSE_TAIL_LOAD + 201, 1, 60), 9),
+    # tails that end on the last record the warp reads with its window
+    # (record 63) and on the last of the first tail load past it (255)
+    "tails_end_at_load_edges": ((), (1, 63, 1, 2 * DENSE_WINDOW
+                                             + DENSE_TAIL_LOAD - 1, 5), 3),
+    # about 15,000 records in 462 windows: at F = 1024 (8 warps a window)
+    # more warps than a card holds at once
+    "many_runs": ((), tuple(np.random.RandomState(9).geometric(1 / 6, 2500)),
+                  DENSE_WINDOW + 3),
+    "all_discard": ((), (), 3 * DENSE_WINDOW + 5),
+    # ids -2 (records 0-4) and -1 (5-44), voxels from 45, discards after
+    "invalid_runs_around_voxels": ((5, 40), (3, 33, 1, 30), 50),
+}
+
+
+def dense_stream(name: str, num_features: int, seed: int = 0):
+    """One dense stream as the mapping makes it, corner-major: int32 ids
+    ``[8N]`` and float32 weights ``[8N]`` (record ``r`` carries pixel
+    ``r % N``), float32 features ``[N, F]`` and a map ``[V, F]`` of random
+    values.  The ids are the stream's sorted ids at random positions, so
+    a stable sort gives back its runs; discard records pad it to 8N."""
+    rng = np.random.RandomState(seed)
+    negative, lengths, discarded = DENSE_STREAMS[name]
+    voxels = np.sort(rng.choice(NUM_VOXELS, len(lengths), replace=False))
+    total = sum(negative) + sum(lengths) + discarded
+    sorted_ids = np.concatenate([
+        np.repeat(np.arange(-len(negative), 0), negative),
+        np.repeat(voxels, lengths),
+        np.full(discarded + (-total) % 8, NUM_VOXELS)]).astype(np.int32)
+    ids = np.empty_like(sorted_ids)
+    ids[rng.permutation(sorted_ids.shape[0])] = sorted_ids
+    weights = rng.uniform(1e-9, 1.0, ids.shape[0]).astype(np.float32)
+    feats = rng.randn(ids.shape[0] // 8, num_features).astype(np.float32)
+    data = rng.rand(NUM_VOXELS, num_features).astype(np.float32)
+    return ids, weights, feats, data
