@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's four splat kernels from the sources in this
-checkout (the single-map, multi-map and frames kernels share
-``csrc/splat_onehot.cu``; the dense-row splat has ``csrc/splat_dense.cu``),
-holds each against its plain PyTorch
+Builds the port's five kernels from the sources in this checkout, one
+``nvcc`` a source, in parallel (the single-map, multi-map and frames
+kernels share ``csrc/splat_onehot.cu``; the dense-row splat has
+``csrc/splat_dense.cu``, the greedy NMS ``csrc/nms.cu``), holds each
+splat kernel against its plain PyTorch
 version at the shapes its path gives it (the single-map and multi-map
 kernels on one full 224x224 room frame into 384x384x96 maps, and on a
 frame 0.3 m from a wall whose runs outgrow a tile, and on a stream of
@@ -43,6 +44,18 @@ the card and the CPU (equal; task 0 equal to the committed record); the
 full-width feature episode (two 13.5 GiB feature maps) with its mapping
 split; and B = 2 feature fleets, small (equal to the sequential episodes)
 and at full width (task 2 equal to the sequential feature episode).
+Then learned segmentation: the greedy-NMS kernel (``csrc/nms.cu``, a
+third library) against the plain loop on the CPU, keep indices exact, on
+the detector's own problems (the RPN's five levels of one frame and of
+eight, the class-aware NMS) and on the chosen streams of
+``tests/torch_streams.py``; the full-width Mask R-CNN (224x224, 54
+classes, random detectron2-layout weights written from a seed to
+``build/chip_smoke/maskrcnn-rand.pth``) on one frame and on two, the card
+against the CPU by the margin rule of ``tests/torch_margins.py``, with
+ms a frame by stage; a small learned episode on the card and the CPU
+(equal); the full-width learned episode through the CLI
+(``--detector-checkpoint``), and a ``--fleet-size 2 --seed -2`` learned
+fleet whose task 2 must equal it.
 
 Exits non-zero when there is no CUDA card, when a kernel fails to build,
 launch or agree, or when any phase fails.  The line before the last is
@@ -933,24 +946,35 @@ def phase_small_heads(head: str) -> dict:
                 timing=gpu["timing"], **counts)
 
 
-def phase_full_episode(compat: bool = False, head=None) -> dict:
+def phase_full_episode(compat: bool = False, head=None,
+                       learned: bool = False) -> dict:
+    """A full-width episode through the CLI (``--reference-compat``,
+    ``head``'s goal head or, with ``learned``, the random Mask R-CNN
+    instead of ground-truth segmentation, the sensor timed by
+    :class:`SensorTimer`)."""
     from mass_tpu_torch.agent import cli
+    from mass_tpu_torch.ops import detection as D
     from mass_tpu_torch.ops import splat as SP
 
     name = f"episode_{head}" if head else \
-        "episode_compat" if compat else "episode"
+        "episode_compat" if compat else \
+        "episode_learned" if learned else "episode"
     logdir = os.path.join("build", "chip_smoke", name)
     flags = (HEAD_FLAGS[head] if head else
              ["--reference-compat"] if compat else [])
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with SplatCounter() as counter:
-        SP.LAUNCHES = SP.MULTI_LAUNCHES = 0   # main path starts here
+    with SplatCounter() as counter, SensorTimer() as sensor:
+        # main path starts here
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = D.LAUNCHES = 0
         t0 = time.perf_counter()
-        metrics = cli.main(FULL_ARGS + FULL_BUDGETS + flags
+        metrics = cli.main(full_args(learned) + FULL_BUDGETS + flags
                            + ["--logdir", logdir])
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        single, multi = SP.LAUNCHES, SP.MULTI_LAUNCHES  # main path ends here
+        # main path ends here
+        single, multi, nms = SP.LAUNCHES, SP.MULTI_LAUNCHES, D.LAUNCHES
     check(len(metrics) == 1, "the CLI ran no episode")
     with open(os.path.join(logdir, "results", "2.json")) as f:
         results = json.load(f)
@@ -965,13 +989,16 @@ def phase_full_episode(compat: bool = False, head=None) -> dict:
           "the full-width maps stayed empty")
     check(0.0 <= results["unshuffle/prop_fixed"] <= 1.0,
           "prop_fixed out of range")
-    return dict(budgets=FULL_BUDGETS + flags, wall_s=wall_s,
-                launches=single, multi_launches=multi, map_updates=updates,
-                group_splats=len(counter.splats),
-                peak_memory_bytes=torch.cuda.max_memory_allocated(),
-                timing=results["timing"],
-                metrics={k: v for k, v in results.items()
-                         if k != "timing"})
+    out = dict(budgets=FULL_BUDGETS + flags, wall_s=wall_s,
+               launches=single, multi_launches=multi, map_updates=updates,
+               group_splats=len(counter.splats),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               timing=results["timing"],
+               metrics={k: v for k, v in results.items()
+                        if k != "timing"})
+    if learned:
+        out.update(sensor.check(nms, batch=1))
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -1265,37 +1292,44 @@ def phase_small_fleet(compat: bool, small: dict, head=None) -> dict:
 
 
 def phase_full_fleet(size: int, compat: bool, sequential: dict,
-                     head=None, features: bool = False) -> dict:
+                     head=None, features: bool = False,
+                     learned: bool = False) -> dict:
     """``--fleet-size size --total-tasks size`` through the CLI at full
     width (tasks 2 onwards, the full-width flags and budgets, ``head``'s
     goal-head flags or, with ``features``, the full-width feature
     flags), with ``--seed -2`` so task 2 draws the sequential full-width
     episode's rng seed 0: that episode's outcome must come back."""
     from mass_tpu_torch.agent import cli
+    from mass_tpu_torch.ops import detection as D
     from mass_tpu_torch.ops import splat as SP
 
     logdir = os.path.join("build", "chip_smoke", f"fleet{size}"
                           + ("_compat" if compat else "")
                           + (f"_{head}" if head else "")
-                          + ("_features" if features else ""))
+                          + ("_features" if features else "")
+                          + ("_learned" if learned else ""))
     flags = (["--reference-compat"] if compat else []) + (
         HEAD_FLAGS[head] if head else []) + (
         FULL_FEATURE_FLAGS if features else [])
-    argv = (FULL_ARGS + FULL_BUDGETS + flags
+    argv = (full_args(learned) + FULL_BUDGETS + flags
             + ["--fleet-size", str(size), "--total-tasks", str(size),
                "--seed", "-2", "--logdir", logdir])
     gc.collect()                 # the sequential episodes' maps are gone
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with SplatCounter() as counter, DenseCounter() as dense:
+    with SplatCounter() as counter, DenseCounter() as dense, \
+            SensorTimer() as sensor:
         # fleet path starts here
         SP.LAUNCHES = SP.MULTI_LAUNCHES = SP.DENSE_LAUNCHES = 0
+        D.LAUNCHES = 0
         t0 = time.perf_counter()
         metrics = cli.main(argv)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         counts = counter.check(SP.LAUNCHES, SP.MULTI_LAUNCHES, compat)
         counts.update(dense.check(SP.DENSE_LAUNCHES, features))
+        if learned:
+            counts.update(sensor.check(D.LAUNCHES, batch=size))
     check(len(metrics) == size, f"the fleet ran {len(metrics)} episodes")
     written = []
     for k in range(size):
@@ -1834,6 +1868,397 @@ def phase_small_feature_fleet(small: dict) -> dict:
                 cpu_s=cpu_s, fleet_timing=gpu[0]["fleet_timing"], **counts)
 
 
+# ----------------------------------------------------------------------
+# learned segmentation: greedy NMS, the Mask R-CNN, learned episodes
+# ----------------------------------------------------------------------
+
+# the random detectron2-layout Mask R-CNN (tests/torch_checkpoints.py:
+# numpy draws from seed 0, output layers tempered), written by this run
+DETECTOR = os.path.join("build", "chip_smoke", "maskrcnn-rand.pth")
+# its best scores on a 224x224 grid-world frame lie near 0.35-0.45: at
+# this fusion threshold 15-20 detections of a frame survive
+LEARNED_THRESHOLD = 0.3
+# the small detector of [learned 80x80x24]: tests/test_maskrcnn.py's caps
+# at the 48 px camera, 7 classes offset by 1 into the taxonomy; its
+# scores lie near 0.21-0.29
+SMALL_DETECTOR = dict(num_classes=7, image_size=48, pre_nms_topk=64,
+                      post_nms_topk=32, candidate_pool=64, max_detections=8)
+SMALL_THRESHOLD = 0.2
+# one round of the NMS kernel's dependent chain (two five-step shuffle
+# trees, a barrier, a shared-memory round trip: about 200 cycles at
+# 1.98 GHz); a problem's iterations cannot overlap
+NMS_ROUND_US = 0.1
+
+
+def full_args(learned: bool):
+    """The full-width flags; ``learned`` swaps ground-truth segmentation
+    for the random Mask R-CNN at :data:`LEARNED_THRESHOLD`."""
+    if not learned:
+        return list(FULL_ARGS)
+    return ([a for a in FULL_ARGS if a != "--ground-truth-segmentation"]
+            + ["--detector-checkpoint", DETECTOR, "--detection-threshold",
+               str(LEARNED_THRESHOLD)])
+
+
+class SensorTimer:
+    """Host time, card synced, of every ``DetectorSegmentation`` call
+    (one frame, or a fleet's batch): detector, NMS and fusion, the copy
+    of the class image to the host included; and the fused non-zero
+    pixels of each frame."""
+
+    def __enter__(self):
+        from mass_tpu_torch.perception.segmentation import \
+            DetectorSegmentation
+
+        self.times, self.frames, self.fused = [], 0, []
+        self._semantic = DetectorSegmentation.semantic
+
+        def semantic(sensor, rgb):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._semantic(sensor, rgb)
+            torch.cuda.synchronize()
+            self.times.append(time.perf_counter() - t0)
+            self.frames += 1 if out.dim() == 3 else out.shape[0]
+            self.fused.extend((out > 0).flatten(-3).sum(-1).reshape(-1)
+                              .tolist())
+            return out
+        DetectorSegmentation.semantic = semantic
+        return self
+
+    def __exit__(self, *exc):
+        from mass_tpu_torch.perception.segmentation import \
+            DetectorSegmentation
+
+        DetectorSegmentation.semantic = self._semantic
+
+    def check(self, nms_launches: int, batch: int) -> dict:
+        """Two NMS launches a sensor call (the RPN levels of its frames,
+        the class-aware NMS); detections fused into some frames."""
+        calls = len(self.times)
+        check(calls > 0 and nms_launches == 2 * calls,
+              f"{nms_launches} NMS launches for {calls} sensor calls")
+        check(self.frames == batch * calls, "sensor frames miscounted")
+        check(max(self.fused) > 0, "no detection survived the threshold")
+        return dict(nms_launches=nms_launches, sensor_calls=calls,
+                    sensor_mean_ms=1e3 * float(np.mean(self.times)),
+                    sensor_median_ms=1e3 * float(np.median(self.times)),
+                    fused_pixels_mean=float(np.mean(self.fused)),
+                    fused_pixels_min=int(min(self.fused)),
+                    fused_pixels_max=int(max(self.fused)),
+                    frames_with_fused=int(sum(f > 0 for f in self.fused)),
+                    frames=self.frames)
+
+
+def grid_frames(count: int, camera: int = CAMERA) -> np.ndarray:
+    """``count`` RGB frames of grid-world task 2 along a few steps."""
+    from mass_tpu_torch.config import CameraConfig
+    from mass_tpu_torch.env.rearrange import GridWorldTaskSampler
+
+    task = GridWorldTaskSampler([2], camera=CameraConfig(camera, camera)
+                                ).next_task()
+    frames = []
+    for k in range(count):
+        frames.append(np.asarray(task.get_observations()["rgb"],
+                                 np.float32))
+        task.step(1 + k % 3)
+    return np.stack(frames)
+
+
+class NMSRecorder:
+    """Records the arguments of every NMS call the detector makes (the
+    RPN's levels, the class-aware NMS), passing them on."""
+
+    def __enter__(self):
+        from mass_tpu_torch.perception import maskrcnn as TM
+
+        self.calls = []
+        self._nms = TM.nms
+
+        def nms(boxes, scores, threshold, outputs):
+            self.calls.append((boxes.clone(), scores.clone(), threshold,
+                               outputs))
+            return self._nms(boxes, scores, threshold, outputs)
+        TM.nms = nms
+        return self
+
+    def __exit__(self, *exc):
+        from mass_tpu_torch.perception import maskrcnn as TM
+
+        TM.nms = self._nms
+
+
+def nms_bound(outputs, n: int, problems: int) -> dict:
+    """The NMS kernel's least time: its longest problem's iterations, one
+    dependent round each (:data:`NMS_ROUND_US`); beside it the bytes and
+    operations bounds, both far below."""
+    counts = [outputs] if isinstance(outputs, int) else list(outputs)
+    rounds = min(max(counts), n)
+    by_bytes = (problems * n * 20 + problems * max(counts) * 4) \
+        / HBM_BYTES_PER_S
+    flops = sum(min(counts[p % len(counts)], n) for p in range(problems)) \
+        * n * 16
+    return dict(bound_ms=1e-3 * rounds * NMS_ROUND_US,
+                bound_by="operations", chain_rounds=rounds,
+                bytes_bound_ms=1e3 * by_bytes,
+                flops_bound_ms=1e3 * flops / FP32_FLOPS)
+
+
+def profiled_launches(fn, iters: int, flush: torch.Tensor,
+                      kernel: str) -> dict:
+    """``kernel``'s device time per recorded launch in a torch.profiler
+    trace of ``iters`` calls of ``fn`` (cold L2), and the launches the
+    trace recorded: a trace that misses launches would make the time per
+    call look shorter than it is."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    count = sum(e.count for e in hits)
+    total = sum(e.device_time_total for e in hits)
+    return dict(device_ms=total / 1e3 / max(count, 1),
+                profiled_launches=count, profiled_calls=iters)
+
+
+def check_nms(dev, boxes, scores, threshold, outputs) -> dict:
+    """The kernel on the card against the plain loop on the CPU: equal
+    keep indices, every slot."""
+    from mass_tpu_torch.ops import detection as D
+
+    got = D.nms(boxes.to(dev), scores.to(dev), threshold, outputs).cpu()
+    want = D.nms_reference(boxes.cpu(), scores.cpu(), threshold, outputs)
+    equal = torch.equal(got, want)
+    check(equal, f"NMS kernel differs from the plain loop on "
+          f"{tuple(boxes.shape)}: {int((got != want).sum())} slots")
+    return dict(shape=list(boxes.shape), outputs=outputs,
+                kept=int((want >= 0).sum()), equal=equal)
+
+
+def time_nms(dev, boxes, scores, threshold, outputs) -> dict:
+    from mass_tpu_torch.ops import detection as D
+
+    boxes, scores = boxes.to(dev), scores.to(dev)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def launch():
+        D.nms(boxes, scores, threshold, outputs)
+    launch()
+    # 50 launches back to back between two events: the device's time per
+    # launch once the host runs ahead of it (no flush between them)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(50):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    back_to_back_ms = start.elapsed_time(end) / 50
+    out = dict(ms=cuda_ms(launch, 20, flush),
+               back_to_back_ms=back_to_back_ms,
+               **profiled_launches(launch, 20, flush, "nms_kernel"),
+               plain_ms=host_ms(lambda: D.nms_reference(
+                   boxes, scores, threshold, outputs), 2),
+               library_ms=None,
+               **nms_bound(outputs, boxes.shape[1], boxes.shape[0]))
+    del flush
+    return out
+
+
+def phase_nms(dev) -> dict:
+    """The NMS kernel against the plain loop on the CPU, exact keep
+    indices: the detector's own NMS problems (the RPN's five levels of one
+    frame and of eight, the class-aware NMS of one frame; random weights
+    on grid-world frames) and the chosen streams of tests/torch_streams.py,
+    each alone and all in one padded launch.  Times at the RPN and the
+    detection shapes: CUDA events after an L2 flush, the profiler's device
+    time, the plain loop on the card, the chain bound."""
+    from tests import torch_streams as TS
+    from mass_tpu_torch.perception import maskrcnn as TM
+
+    model, _ = load_full_detector(dev)
+    frames = torch.from_numpy(grid_frames(8)).to(dev)
+    anchors = TM.device_anchors(model.config, dev)
+    with NMSRecorder() as one:
+        TM.detect(model, frames[0], anchors)
+    with NMSRecorder() as eight:
+        TM.detect(model, frames, anchors)
+    shapes = {"rpn_b1": one.calls[0], "detection_b1": one.calls[1],
+              "rpn_b8": eight.calls[0], "detection_b8": eight.calls[1]}
+    out = {"problems": {k: check_nms(dev, *v) for k, v in shapes.items()}}
+    streams = {}
+    for name in sorted(TS.NMS_STREAMS):
+        boxes, scores, threshold, outputs = TS.nms_stream(name)
+        streams[name] = check_nms(dev, torch.from_numpy(boxes)[None],
+                                  torch.from_numpy(scores)[None], threshold,
+                                  outputs)
+    boxes, scores, _, outputs = TS.nms_batch(sorted(TS.NMS_STREAMS))
+    streams["all_in_one_launch"] = check_nms(
+        dev, torch.from_numpy(boxes), torch.from_numpy(scores), 0.5,
+        outputs)
+    out["streams"] = streams
+    out["rpn_b1"] = time_nms(dev, *shapes["rpn_b1"])
+    out["detection_b1"] = time_nms(dev, *shapes["detection_b1"])
+    out["rpn_b8"] = time_nms(dev, *shapes["rpn_b8"])
+    out["max_abs_err"] = 0.0          # keep indices, compared exactly
+    del model
+    return out
+
+
+def load_full_detector(dev):
+    """The full-width random Mask R-CNN of :data:`DETECTOR` (written on
+    first use): ``(model on dev, model on the CPU)``."""
+    from mass_tpu_torch.perception import maskrcnn as TM
+    from tests.torch_checkpoints import write_random_detector
+
+    if not os.path.exists(DETECTOR):
+        write_random_detector(DETECTOR, seed=0, num_classes=54)
+    _, model = TM.load_detector(DETECTOR, CAMERA, device=dev)
+    _, cpu_model = TM.load_detector(DETECTOR, CAMERA, device="cpu")
+    return model, cpu_model
+
+
+def detect_split(model, rgb, anchors):
+    """One detector call with CUDA events at its stage marks: device ms of
+    the network, the proposals (RPN NMS included), the heads (box head,
+    class-aware NMS, mask head) and the paste, then the fusion."""
+    from mass_tpu_torch.perception import maskrcnn as TM
+    from mass_tpu_torch.perception.segmentation import \
+        detections_to_semantic
+
+    events = [("start", torch.cuda.Event(enable_timing=True))]
+    events[0][1].record()
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((name, ev))
+    det = TM.detect(model, rgb, anchors, marks=mark)
+    detections_to_semantic(det, LEARNED_THRESHOLD)
+    mark("fuse")
+    torch.cuda.synchronize()
+    return {name: events[k][1].elapsed_time(ev)
+            for k, (name, ev) in enumerate(events[1:])}
+
+
+def phase_detector(dev) -> dict:
+    """The full-width Mask R-CNN (224x224, 54 classes, the default caps)
+    on one grid-world frame and on B = 2: the card against the CPU by the
+    margin rule (tests/torch_margins.py), the fused images' non-zero
+    pixels at :data:`LEARNED_THRESHOLD`, ms per frame by stage (CUDA
+    events; median of 10 calls), and the convs' and linears' operations
+    against the fp32 peak (67 TFLOP/s, no tensor cores: TF32 is off)."""
+    from mass_tpu_torch.perception import maskrcnn as TM
+    from mass_tpu_torch.perception.segmentation import \
+        detections_to_semantic
+    from tests import torch_margins
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, cpu_model = load_full_detector(dev)
+    anchors = TM.device_anchors(model.config, dev)
+    frames = grid_frames(3)
+    TM.detect(model, torch.from_numpy(frames[0]).to(dev), anchors)
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    cpu_anchors = TM.device_anchors(model.config, "cpu")
+    out = dict(load_and_first_call_ms=first_ms, threshold=LEARNED_THRESHOLD,
+               tolerance=torch_margins.TOL)
+    for batch in (1, 2):
+        rgb = torch.from_numpy(frames[1:1 + batch] if batch > 1
+                               else frames[1])
+        want, probs = TM.detect(cpu_model, rgb, cpu_anchors,
+                                       with_probs=True)
+        got = TM.detect(model, rgb.to(dev), anchors)
+        report = torch_margins.compare_detections(
+            want, got, probs, thresholds=(model.config.score_threshold,
+                                          LEARNED_THRESHOLD))
+        check(report["ok"], f"detector B={batch}: cuda and cpu differ "
+              f"beyond the margin rule: {report}")
+        sem = detections_to_semantic(got, LEARNED_THRESHOLD)
+        want_sem = detections_to_semantic(want, LEARNED_THRESHOLD)
+        differing, unexplained = torch_margins.compare_semantic(
+            want_sem, sem, want, probs, LEARNED_THRESHOLD)
+        check(unexplained == 0, f"detector B={batch}: {unexplained} fused "
+              "pixels differ beyond the margin rule")
+        fused = (sem > 0).flatten(-3).sum(-1).reshape(-1).tolist()
+        check(min(fused) > 0, f"detector B={batch}: nothing fused")
+        splits = [detect_split(model, rgb.to(dev), anchors)
+                  for _ in range(11)][1:]
+        stages = {k: float(np.median([s[k] for s in splits]))
+                  for k in splits[0]}
+        flops = TM.model_flops(model.config)
+        total = sum(flops.values()) * batch
+        out[f"b{batch}"] = dict(
+            margin=report, fused_pixels=fused,
+            semantic_differing=differing, stages_ms=stages,
+            ms=sum(stages.values()),
+            ms_per_frame=sum(stages.values()) / batch,
+            flops=flops, flops_total=total,
+            flops_bound_ms=1e3 * total / FP32_FLOPS)
+    del model, cpu_model
+    return out
+
+
+def small_learned_episode(device: str, seed: int = 2, rng_seed: int = 0):
+    """One small episode (:func:`small_config`, the default head) whose
+    semantic images come from the small random detector; (results,
+    actions)."""
+    from mass_tpu_torch.agent.loop import RearrangementAgent
+    from mass_tpu_torch.perception import maskrcnn as TM
+    from mass_tpu_torch.perception.segmentation import (
+        DetectorSegmentation, SegmentationSampler)
+    from tests.torch_checkpoints import random_maskrcnn_state_dict
+
+    cfg = dataclasses.replace(small_config(False),
+                              ground_truth_segmentation=False,
+                              detection_threshold=SMALL_THRESHOLD)
+    model = TM.from_state_dict(
+        random_maskrcnn_state_dict(0, SMALL_DETECTOR["num_classes"]),
+        TM.MaskRCNNConfig(**SMALL_DETECTOR), device)
+    sensor = DetectorSegmentation(TM.make_detector(model, class_offset=1),
+                                  SMALL_THRESHOLD)
+    actions = []
+    agent = RearrangementAgent(
+        cfg, SegmentationSampler(small_sampler(cfg, seed, actions), sensor),
+        rng=np.random.RandomState(rng_seed), device=device)
+    return agent.run_task(0), actions
+
+
+def phase_small_learned() -> dict:
+    """The small learned episode on the card and on the CPU: equal results
+    and actions; one single-map launch per map update, two NMS launches
+    per sensor call."""
+    from mass_tpu_torch.ops import detection as D
+    from mass_tpu_torch.ops import splat as SP
+
+    with SensorTimer() as sensor:
+        # the learned path starts here
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = D.LAUNCHES = 0
+        t0 = time.perf_counter()
+        gpu, gpu_actions = small_learned_episode("cuda")
+        gpu_s = time.perf_counter() - t0
+        single, multi, nms = SP.LAUNCHES, SP.MULTI_LAUNCHES, D.LAUNCHES
+        counts = sensor.check(nms, batch=1)
+    updates = gpu["timing"]["mapping"]["count"]
+    check_launches(single, multi, updates, False)
+    t0 = time.perf_counter()
+    cpu, cpu_actions = small_learned_episode("cpu")
+    cpu_s = time.perf_counter() - t0
+    check(outcome(gpu) == outcome(cpu),
+          f"learned: cuda and cpu episodes differ: {outcome(gpu)} against "
+          f"{outcome(cpu)}")
+    check(gpu_actions == cpu_actions,
+          "learned: cuda and cpu action sequences differ")
+    return dict(results_equal=True, actions=len(gpu_actions),
+                cuda_s=gpu_s, cpu_s=cpu_s, launches=single,
+                multi_launches=multi, map_updates=updates,
+                metrics=outcome(gpu), **counts)
+
+
 def kernel_line(name: str, replaces: str, launches: int,
                 phase: dict) -> dict:
     from mass_tpu_torch.ops import splat as SP
@@ -2193,6 +2618,77 @@ def main() -> int:
           f"episode map updates")
     print(f"[{tag}] fleet_timing {json.dumps(fleet['fleet_timing'])}")
 
+    nms = report["nms"] = phase_nms(dev)
+    for key, what in (("rpn_b1", "RPN, one frame"),
+                      ("detection_b1", "class-aware, one frame"),
+                      ("rpn_b8", "RPN, eight frames")):
+        k = nms[key]
+        print(f"[nms] {what} {nms['problems'][key]['shape']} (caps "
+              f"{nms['problems'][key]['outputs']}): kernel {k['ms']:.4f} ms,"
+              f" {k['back_to_back_ms']:.4f} ms a launch back to back, device"
+              f" time {k['device_ms']:.4f} ms a recorded launch (profiler: "
+              f"{k['profiled_launches']} of {k['profiled_calls']}); bound "
+              f"{k['bound_ms']:.4f} ms ({k['chain_rounds']} dependent "
+              f"rounds at {NMS_ROUND_US} us; bytes {k['bytes_bound_ms']:.5f}"
+              f" ms, operations {k['flops_bound_ms']:.5f} ms); plain loop on"
+              f" the card {k['plain_ms']:.2f} ms; library call: none")
+    print(f"[nms] keep indices equal to the plain loop on the CPU: the "
+          f"detector's problems {sorted(nms['problems'])}, the streams "
+          f"{sorted(nms['streams'])}")
+    det = report["detector"] = phase_detector(dev)
+    for batch in (1, 2):
+        d = det[f"b{batch}"]
+        st = d["stages_ms"]
+        print(f"[detector] 224x224, 54 classes, B={batch}: cuda vs cpu "
+              f"{d['margin']['live_slots']} live slots, slot flips "
+              f"{d['margin']['slot_flips']}, mask-pixel flips "
+              f"{d['margin']['pixel_flips']} (largest margin "
+              f"{max(d['margin']['slot_flip_margin'], d['margin']['pixel_flip_margin']):.3g},"
+              f" tol {det['tolerance']}), max score diff "
+              f"{d['margin']['max_score_diff']:.3g}; fused non-zero pixels "
+              f"{d['fused_pixels']} at {det['threshold']}")
+        print(f"[detector] B={batch}: {d['ms_per_frame']:.2f} ms a frame "
+              f"(network {st['network']:.2f}, proposals {st['proposals']:.2f},"
+              f" heads {st['heads']:.2f}, paste {st['paste']:.2f}, fuse "
+              f"{st['fuse']:.2f} ms for the batch; CUDA events, median of "
+              f"10); {d['flops_total'] / 1e9:.1f} GFLOP, bound "
+              f"{d['flops_bound_ms']:.2f} ms at 67 TFLOP/s fp32")
+    print(f"[detector] load and first call {det['load_and_first_call_ms']:.0f}"
+          f" ms")
+    small = report["small_learned"] = phase_small_learned()
+    print(f"[learned 80x80x24] cuda {small['cuda_s']:.1f} s, cpu "
+          f"{small['cpu_s']:.1f} s, {small['actions']} actions, results "
+          f"equal; launches splat_onehot {small['launches']} for "
+          f"{small['map_updates']} map updates, nms {small['nms_launches']} "
+          f"for {small['sensor_calls']} sensor calls; fused non-zero pixels "
+          f"{small['fused_pixels_min']}-{small['fused_pixels_max']} a frame "
+          f"(mean {small['fused_pixels_mean']:.0f}) at {SMALL_THRESHOLD}")
+    learned = report["full_learned"] = phase_full_episode(learned=True)
+    tag = "learned 384x384x96x54"
+    print_episode(tag, learned)
+    print(f"[{tag}] sensor {learned['sensor_mean_ms']:.2f} ms a step (median "
+          f"{learned['sensor_median_ms']:.2f}; host clock, card synced; "
+          f"{learned['sensor_calls']} calls), nms launches "
+          f"{learned['nms_launches']}; fused non-zero pixels "
+          f"{learned['fused_pixels_min']}-{learned['fused_pixels_max']} a "
+          f"frame (mean {learned['fused_pixels_mean']:.0f}, "
+          f"{learned['frames_with_fused']} of {learned['frames']} frames) at "
+          f"{LEARNED_THRESHOLD}")
+    fleet = report["full_fleet_learned"] = phase_full_fleet(
+        2, False, learned, learned=True)
+    tag = "fleet learned 384x384x96x54"
+    print(f"[{tag}] {' '.join(fleet['argv'])}")
+    print(f"[{tag}] 2 episodes in {fleet['wall_s']:.1f} s: "
+          f"{fleet['episode_s']:.2f} s per episode against "
+          f"{fleet['sequential_episode_s']:.1f} s for the sequential "
+          f"episode; peak memory {fleet['peak_memory_bytes'] / 2**30:.2f} "
+          f"GiB; task 2 equals the sequential episode: "
+          f"{fleet['task2_equals_sequential']}; launches splat_onehot "
+          f"{fleet['launches']} for {fleet['group_splats']} group splats, "
+          f"nms {fleet['nms_launches']} for {fleet['sensor_calls']} sensor "
+          f"calls of 2 frames ({fleet['sensor_mean_ms']:.2f} ms each)")
+    print(f"[{tag}] fleet_timing {json.dumps(fleet['fleet_timing'])}")
+
     kernels = [
         kernel_line("splat_onehot", "mass_tpu/ops/pallas_splat.py:756",
                     full["launches"], kernel),
@@ -2203,7 +2699,11 @@ def main() -> int:
                     frames),
         # not a TPU kernel: the counterpart of XLA's scatter
         kernel_line("splat_dense", "mass_tpu/ops/scatter.py:279",
-                    full_features["dense_launches"], dense)]
+                    full_features["dense_launches"], dense),
+        # not a TPU kernel: the counterpart of the fori_loop of nms
+        kernel_line("nms", "mass_tpu/ops/detection.py:31",
+                    learned["nms_launches"],
+                    dict(nms["rpn_b1"], max_abs_err=nms["max_abs_err"]))]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - start
     os.makedirs(os.path.join("build", "chip_smoke"), exist_ok=True)

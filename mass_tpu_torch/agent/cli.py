@@ -9,7 +9,12 @@ above 1 runs the tasks B at a time in lockstep over shared fleet maps
 (``parallel/evaluator.py``), each task with the rng seed ``--seed`` +
 task.  ``--use-feature-matching`` reads the stage-1 ResNet from
 ``--backbone-checkpoint <.pth>`` (``mass_tpu_torch/checkpoints/
-backbone-rand.pth`` is the JAX package's ``init_backbone()``).
+backbone-rand.pth`` is the JAX package's ``init_backbone()``).  Without
+``--ground-truth-segmentation`` the semantic image comes from the
+learned detector of ``--detector-checkpoint <.pth>``: a detectron2 or
+torchvision Mask R-CNN, or with ``--detector-arch unet`` the port's UNet
+(``python -m tests.torch_checkpoints`` exports the JAX package's orbax
+detectors and writes random Mask R-CNN weights).
 
     python -m mass_tpu_torch.agent.cli --backend gridworld \\
         --ground-truth-segmentation --ground-truth-disagreement \\
@@ -128,8 +133,6 @@ def unported_flags(args) -> Optional[str]:
     """Why these flags cannot run on this slice of the port, or None."""
     checks = [
         (args.backend == "thor", "--backend thor", 3),
-        (not args.ground_truth_segmentation,
-         "learned segmentation (no --ground-truth-segmentation)", 3),
         (args.shard_map > 1, "--shard-map", 4),
         (args.videos, "--videos", 3),
         (args.snapshot_maps, "--snapshot-maps", 3),
@@ -189,14 +192,16 @@ def config_from_args(args) -> AgentConfig:
         total_tasks=args.total_tasks, resume=args.resume)
 
 
-def make_sampler(args, config: AgentConfig, seeds=None):
+def make_sampler(args, config: AgentConfig, seeds=None, sensor=None):
     """The grid-world task sampler over ``seeds`` (default: the task
-    range the flags name)."""
+    range the flags name), its tasks' ``semantic`` replaced by
+    ``sensor``'s when one is given (the learned segmentation of a
+    sequential run)."""
     from mass_tpu_torch.env.rearrange import GridWorldTaskSampler
     if seeds is None:
         seeds = range(args.start_task, args.start_task
                       + args.total_tasks * args.every_tasks + 1)
-    return GridWorldTaskSampler(
+    sampler = GridWorldTaskSampler(
         list(seeds), camera=config.camera, max_steps=args.max_steps,
         one_phase=args.one_phase,
         num_objects=args.num_objects, num_misplaced=args.num_misplaced,
@@ -204,6 +209,11 @@ def make_sampler(args, config: AgentConfig, seeds=None):
         duplicate_class_pairs=args.duplicate_class_pairs,
         room=(args.room_size, 2.5, args.room_size),
         num_rooms=args.num_rooms)
+    if sensor is not None:
+        from mass_tpu_torch.perception.segmentation import \
+            SegmentationSampler
+        sampler = SegmentationSampler(sampler, sensor)
+    return sampler
 
 
 def _export_of(path: str) -> str:
@@ -252,12 +262,48 @@ def load_backbone(args, device):
     return load_backbone_checkpoint(path, device)[0]
 
 
+def load_segmentation_sensor(args, device):
+    """The learned-segmentation sensor when ground truth is off (None
+    with ``--ground-truth-segmentation``; reference: the Mask R-CNN
+    branch of segmentation_config.py:207-218): a Mask R-CNN ``.pth``
+    (detectron2 or torchvision, the class count read from the file) with
+    mask fusion at ``--detection-threshold``, or under ``--detector-arch
+    unet`` the port's UNet state dict.  The JAX package's orbax trees are
+    not read here; the message names their export."""
+    if args.ground_truth_segmentation:
+        return None
+    path = args.detector_checkpoint
+    if path is None:
+        raise SystemExit(
+            "without --ground-truth-segmentation a learned detector is "
+            "required: pass --detector-checkpoint <.pth> (a detectron2 or "
+            "torchvision Mask R-CNN, or a UNet with --detector-arch unet; "
+            "the reference's equivalent is mass/thor/model_final.pth)")
+    if not path.endswith(".pth"):
+        raise SystemExit(
+            f"--detector-checkpoint {path} is not a .pth: the port reads "
+            f"torch state dicts, not orbax trees; export it with python -m "
+            f"tests.torch_checkpoints --detector {path} --arch "
+            f"{args.detector_arch} (writes {_export_of(path)})")
+    if args.detector_arch == "unet":
+        from mass_tpu_torch.perception.detector import (
+            load_segmenter, make_segmentation_sensor)
+        return make_segmentation_sensor(load_segmenter(path, device))
+    from mass_tpu_torch.perception.maskrcnn import load_detector
+    from mass_tpu_torch.perception.segmentation import DetectorSegmentation
+    detector, _ = load_detector(path, args.camera_size,
+                                args.detector_num_classes, device)
+    return DetectorSegmentation(detector, args.detection_threshold)
+
+
 def run_fleet(args, config: AgentConfig, device: str, policy=None,
-              backbone=None):
+              backbone=None, sensor=None):
     """Lockstep fleet evaluation over the task range: batches of
     ``--fleet-size`` episodes, each from a sampler of its own task's seed
     with the rng seed ``--seed`` + task, so an episode equals the
-    sequential agent's on that sampler and seed."""
+    sequential agent's on that sampler and seed.  A learned ``sensor``
+    runs inside the evaluator, on the whole fleet's frames at once (the
+    samplers stay ground truth)."""
     from mass_tpu_torch.agent import metrics as M
     from mass_tpu_torch.parallel.evaluator import FleetEvaluator
 
@@ -268,7 +314,7 @@ def run_fleet(args, config: AgentConfig, device: str, policy=None,
         evaluator = FleetEvaluator(
             config, [make_sampler(args, config, [s]) for s in batch],
             seeds=[args.seed + s for s in batch], policy=policy,
-            feature_backbone=backbone, device=device)
+            sensor=sensor, feature_backbone=backbone, device=device)
         results = evaluator.run()
         for task, ep, result in zip(batch, evaluator.episodes, results):
             if not config.logdir:
@@ -307,6 +353,7 @@ def main(argv=None):
         raise SystemExit(reason)
     device = resolve_device_flags(args)
     backbone = load_backbone(args, device)
+    sensor = load_segmentation_sensor(args, device)
     os.makedirs(args.logdir, exist_ok=True)
     name = (f"{args.start_task}-"
             f"{args.start_task + args.total_tasks * args.every_tasks}")
@@ -319,9 +366,9 @@ def main(argv=None):
 
     def run():
         if args.fleet_size > 1:
-            return run_fleet(args, config, device, policy, backbone)
+            return run_fleet(args, config, device, policy, backbone, sensor)
         agent = RearrangementAgent(
-            config, make_sampler(args, config),
+            config, make_sampler(args, config, sensor=sensor),
             rng=np.random.RandomState(args.seed), device=device,
             policy=policy, feature_backbone=backbone)
         return agent.run()

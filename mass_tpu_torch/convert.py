@@ -6,8 +6,11 @@ voxel-major ``[V, F]``; the port always stores ``[V, F]``.  The
 search policy's flax parameters (``Conv_k`` HWIO kernels, ``GroupNorm_k``
 scales and biases) become the reference ``Sequential`` layout that
 ``search/policy.py`` reads, and the stage-1 ResNet's flax variables the
-torchvision-named state dict that ``perception/resnet.py`` reads.  The functions here take and give plain
-numpy arrays, so neither package imports the other.
+torchvision-named state dict that ``perception/resnet.py`` reads; the
+Mask R-CNN's flax variables become the detectron2-named state dict of
+``perception/maskrcnn.py`` and the segmentation UNet's parameters the
+state dict of ``perception/detector.py``.  The functions here take and
+give plain numpy arrays, so neither package imports the other.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from mass_tpu_torch.config import MapGeometry
 from mass_tpu_torch.core.voxelmap import VoxelMap
+from mass_tpu_torch.perception import resnet
 from mass_tpu_torch.search import policy as search_policy
 
 
@@ -139,3 +143,108 @@ def backbone_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
             conv(f"layer1.{b}.downsample.0", p["down_conv"])
             norm(f"layer1.{b}.downsample.1", p["down_bn"], s["down_bn"])
     return state
+
+
+def _tensor(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+def _conv_weight(node) -> torch.Tensor:
+    """A flax conv kernel HWIO -> OIHW."""
+    return _tensor(np.asarray(node["kernel"]).transpose(3, 2, 0, 1))
+
+
+def maskrcnn_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """The detectron2-named state dict (``perception/maskrcnn.MaskRCNN``'s
+    names) of the JAX package's Mask R-CNN variables (``{"params": ...,
+    "batch_stats": ...}``, as numpy or arrays): the inverse of
+    ``params_from_detectron2``, done as ``export_detectron2_state_dict``
+    does it.  Conv kernels HWIO -> OIHW, dense kernels transposed, fc6's
+    input axis from flax's ``[S, S, C]`` flattening to torch's
+    ``[C, S, S]``, the deconv kernel ``[in, out, 2, 2]`` as it is."""
+    p = variables["params"]
+    stats = variables["batch_stats"]["backbone"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put_conv(key, node, bias=False):
+        sd[f"{key}.weight"] = _conv_weight(node)
+        if bias:
+            sd[f"{key}.bias"] = _tensor(node["bias"])
+
+    def put_bn(key, bn, st):
+        sd[f"{key}.weight"] = _tensor(bn["scale"])
+        sd[f"{key}.bias"] = _tensor(bn["bias"])
+        sd[f"{key}.running_mean"] = _tensor(st["mean"])
+        sd[f"{key}.running_var"] = _tensor(st["var"])
+
+    def put_dense(key, node):
+        sd[f"{key}.weight"] = _tensor(np.asarray(node["kernel"]).T)
+        sd[f"{key}.bias"] = _tensor(node["bias"])
+
+    bb = p["backbone"]
+    put_conv("backbone.bottom_up.stem.conv1", bb["conv1"])
+    put_bn("backbone.bottom_up.stem.conv1.norm", bb["bn1"], stats["bn1"])
+    for stage, blocks in enumerate(resnet.STAGE_BLOCKS):
+        for b in range(blocks):
+            name = f"layer{stage + 1}_{b}"
+            prefix = f"backbone.bottom_up.res{stage + 2}.{b}"
+            for i in (1, 2, 3):
+                put_conv(f"{prefix}.conv{i}", bb[name][f"conv{i}"])
+                put_bn(f"{prefix}.conv{i}.norm", bb[name][f"bn{i}"],
+                       stats[name][f"bn{i}"])
+            if b == 0:
+                put_conv(f"{prefix}.shortcut", bb[name]["down_conv"])
+                put_bn(f"{prefix}.shortcut.norm", bb[name]["down_bn"],
+                       stats[name]["down_bn"])
+    for i in range(4):
+        put_conv(f"backbone.fpn_lateral{i + 2}",
+                 p["fpn"][f"lateral{i + 2}"], bias=True)
+        put_conv(f"backbone.fpn_output{i + 2}",
+                 p["fpn"][f"output{i + 2}"], bias=True)
+    rpn = "proposal_generator.rpn_head"
+    put_conv(f"{rpn}.conv", p["rpn_head"]["conv"], bias=True)
+    put_conv(f"{rpn}.objectness_logits", p["rpn_head"]["objectness"],
+             bias=True)
+    put_conv(f"{rpn}.anchor_deltas", p["rpn_head"]["deltas"], bias=True)
+    fc6 = np.asarray(p["box_head"]["fc6"]["kernel"]).T     # [out, S*S*C]
+    out = fc6.shape[0]
+    sd["roi_heads.box_head.fc1.weight"] = _tensor(
+        fc6.reshape(out, 7, 7, -1).transpose(0, 3, 1, 2).reshape(out, -1))
+    sd["roi_heads.box_head.fc1.bias"] = _tensor(
+        p["box_head"]["fc6"]["bias"])
+    put_dense("roi_heads.box_head.fc2", p["box_head"]["fc7"])
+    put_dense("roi_heads.box_predictor.cls_score",
+              p["box_predictor"]["cls_score"])
+    put_dense("roi_heads.box_predictor.bbox_pred",
+              p["box_predictor"]["bbox_pred"])
+    mask = p["mask_head"]
+    for i in range(4):
+        put_conv(f"roi_heads.mask_head.mask_fcn{i + 1}",
+                 mask[f"mask_fcn{i + 1}"], bias=True)
+    sd["roi_heads.mask_head.deconv.weight"] = _tensor(mask["deconv_kernel"])
+    sd["roi_heads.mask_head.deconv.bias"] = _tensor(mask["deconv_bias"])
+    put_conv("roi_heads.mask_head.predictor", mask["predictor"], bias=True)
+    return sd
+
+
+def unet_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The port's ``SegmenterUNet`` state dict of the JAX package's UNet
+    parameters (``{"params": ...}`` or the inner dict): ``ConvBlock_i``
+    -> ``blocks.i`` (``Conv_0/1`` -> ``conv1/2``, ``GroupNorm_0/1`` scale
+    and bias -> ``norm1/2`` weight and bias), the last ``Conv_0`` ->
+    ``head``."""
+    params = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+    blocks = sorted((k for k in params if k.startswith("ConvBlock_")),
+                    key=lambda k: int(k.split("_")[1]))
+    for i, name in enumerate(blocks):
+        block = params[name]
+        for j in (0, 1):
+            sd[f"blocks.{i}.conv{j + 1}.weight"] = _conv_weight(
+                block[f"Conv_{j}"])
+            norm = block[f"GroupNorm_{j}"]
+            sd[f"blocks.{i}.norm{j + 1}.weight"] = _tensor(norm["scale"])
+            sd[f"blocks.{i}.norm{j + 1}.bias"] = _tensor(norm["bias"])
+    sd["head.weight"] = _conv_weight(params["Conv_0"])
+    sd["head.bias"] = _tensor(params["Conv_0"]["bias"])
+    return sd

@@ -56,7 +56,9 @@ import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-LIBRARIES = ("splat_onehot", "splat_dense")
+# every CUDA source of the port: the splat kernels' and the detector's
+# greedy NMS (ops/detection.py), built together
+LIBRARIES = ("splat_onehot", "splat_dense", "nms")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 MAX_MAPS = 4
@@ -343,7 +345,7 @@ def build(names: Sequence[str] = LIBRARIES) -> Dict[str, float]:
             continue
         if not os.path.exists(nvcc):
             raise RuntimeError(
-                f"nvcc not found: the splat kernels are built from "
+                f"nvcc not found: the kernels are built from "
                 f"{os.path.dirname(source)} at first use and need the CUDA "
                 "toolkit")
         os.makedirs(BUILD_DIR, exist_ok=True)
@@ -384,13 +386,21 @@ _ENTRIES = {
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_float, ctypes.c_void_p]),
+    "nms": ("nms", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
 }
+# each library's query entries (no arguments, an int back)
+_LIMITS = {"splat_onehot": ("splat_onehot_max_features",),
+           "splat_dense": ("splat_dense_max_features",),
+           "nms": ("nms_max_boxes", "nms_max_counts")}
 KERNELS = tuple(_ENTRIES)
 
 
 def _library(name: str) -> ctypes.CDLL:
     """The built library ``name`` with its kernels' launch entries and
-    ``<name>_max_features`` bound."""
+    its query entries (``_LIMITS``) bound."""
     lib = _libs.get(name)
     if lib is None:
         build([name])
@@ -400,9 +410,10 @@ def _library(name: str) -> ctypes.CDLL:
                 launch = getattr(lib, f"{kernel}_launch")
                 launch.restype = ctypes.c_int
                 launch.argtypes = argtypes
-        limit = getattr(lib, f"{name}_max_features")
-        limit.restype = ctypes.c_int
-        limit.argtypes = []
+        for query in _LIMITS[name]:
+            limit = getattr(lib, query)
+            limit.restype = ctypes.c_int
+            limit.argtypes = []
         _libs[name] = lib
     return lib
 

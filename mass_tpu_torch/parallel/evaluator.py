@@ -44,6 +44,7 @@ from mass_tpu_torch.match.differences import predict_scene_differences
 from mass_tpu_torch.nav import grid as NG
 from mass_tpu_torch.nav.controller import NavigationController
 from mass_tpu_torch.parallel.fleet import FleetMaps
+from mass_tpu_torch.perception.segmentation import make_batched_sensor
 from mass_tpu_torch.utils.profiling import StageTimer
 
 
@@ -286,13 +287,6 @@ class _Episode:
         self.mission = None
 
 
-def _unported_fleet(config: AgentConfig, sensor) -> Optional[str]:
-    """The later slice a fleet configuration needs, or None."""
-    if sensor is not None:
-        return "learned segmentation sensors are ported in slice 3"
-    return _unported(config)
-
-
 class FleetEvaluator:
     """Run B episodes in lockstep over shared fleet maps.
 
@@ -305,8 +299,12 @@ class FleetEvaluator:
         sequential agent given the same seed takes the same actions.
       policy: the semantic-search policy that every episode's policy
         goals share, or None.
-      sensor: the JAX package's learned segmentation, which arrives with
-        a later slice of the port.
+      sensor: a learned segmentation sensor (``perception/segmentation``'s
+        ``DetectorSegmentation`` or a per-frame sensor), or None for
+        ground truth.  Each tick it replaces every live episode's
+        ``semantic`` from one call on the fleet's ``[B, h, w, 3]`` frames,
+        finished episodes riding as zeros so that the batch never changes
+        shape (cuDNN may pick other algorithms for another batch size).
       feature_backbone: the stage-1 ResNet function of
         ``--use-feature-matching`` (it takes the fleet's ``[B, h, w, 3]``
         frames in one call), needed when ``config.use_feature_matching``.
@@ -317,7 +315,7 @@ class FleetEvaluator:
                  seeds: Optional[List[int]] = None, policy=None,
                  sensor=None, feature_backbone=None, device=None,
                  feature_size: int = 256):
-        reason = _unported_fleet(config, sensor)
+        reason = _unported(config)
         if reason is not None:
             raise NotImplementedError(reason)
         if config.use_feature_matching and feature_backbone is None:
@@ -326,6 +324,8 @@ class FleetEvaluator:
                              "--backbone-checkpoint)")
         self.config = config
         self.device = resolve_device(device)
+        self._batched_sensor = (None if sensor is None
+                                else make_batched_sensor(sensor))
         B = len(samplers)
         families = {"semantic0": taxonomy.NUM_CLASSES,
                     "semantic1": taxonomy.NUM_CLASSES}
@@ -439,6 +439,21 @@ class FleetEvaluator:
                 o = dict(ep.task.get_observations())
                 ep.controller.process_observations(o, update_map=None)
                 obs[ep.index] = o
+
+        if self._batched_sensor is not None:
+            # the sequential SegmentationTaskWrapper's swap, for the whole
+            # fleet in one call
+            with self.timer.stage("segmentation"):
+                rgb = np.zeros((B, cam.height, cam.width, 3), np.float32)
+                for ep in live:
+                    rgb[ep.index] = np.asarray(obs[ep.index]["rgb"],
+                                               np.float32)
+                semantic = self._batched_sensor(rgb)
+                for ep in live:
+                    o = obs[ep.index]
+                    if "semantic" in o:
+                        o["gt_semantic"] = o["semantic"]
+                    o["semantic"] = semantic[ep.index]
 
         record_found = self.config.record_found_objects
         for ep in live:

@@ -1,5 +1,6 @@
-"""ResNet-50 feature extractor, stem and stage 1 (port of
-``mass_tpu.perception.resnet``).
+"""ResNet-50: the stage-1 feature extractor (port of
+``mass_tpu.perception.resnet``) and the full trunk of the Mask R-CNN
+(``mass_tpu.perception.maskrcnn.ResNet50``).
 
 The cross-phase instance matcher of ``--use-feature-matching`` pools
 256-d embeddings from a ResNet-50 cut after its first bottleneck stage,
@@ -14,12 +15,17 @@ The module keeps torchvision's parameter names (``conv1.weight``,
 ``layer1.0.downsample.{0,1}.*``), so a torchvision resnet50 state dict
 loads into it as it is.  On a card it runs float32 with TF32 off and
 deterministic cuDNN algorithms, as the search policy's convs do.
+
+The full trunk (:class:`ResNet50`, C2..C5 with frozen batch norm) keeps
+detectron2's names (``stem.conv1``, ``res{2-5}.{b}.conv{1-3}`` with their
+``norm``, ``shortcut``) and strides the first 1x1 conv by default, so a
+detectron2 ``model_final.pth`` loads into the Mask R-CNN as it is.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
 import numpy as np
 import torch
@@ -32,16 +38,20 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 class Bottleneck(nn.Module):
-    """1x1 -> 3x3 (strided) -> 1x1 (x4 channels), each with inference
-    batch norm, plus the identity or a projected shortcut."""
+    """1x1 -> 3x3 -> 1x1 (x4 channels), each with inference batch norm,
+    plus the identity or a projected shortcut.  The 3x3 conv strides
+    (torchvision), or the first 1x1 under ``stride_in_1x1`` (detectron2's
+    Caffe-style ResNets: the same weights, other numbers)."""
 
     def __init__(self, in_channels: int, features: int, stride: int = 1,
-                 project: bool = False):
+                 project: bool = False, stride_in_1x1: bool = False):
         super().__init__()
         out = features * 4
-        self.conv1 = nn.Conv2d(in_channels, features, 1, bias=False)
+        s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
+        self.conv1 = nn.Conv2d(in_channels, features, 1, stride=s1,
+                               bias=False)
         self.bn1 = nn.BatchNorm2d(features, eps=1e-5)
-        self.conv2 = nn.Conv2d(features, features, 3, stride=stride,
+        self.conv2 = nn.Conv2d(features, features, 3, stride=s3,
                                padding=1, bias=False)
         self.bn2 = nn.BatchNorm2d(features, eps=1e-5)
         self.conv3 = nn.Conv2d(features, out, 1, bias=False)
@@ -87,6 +97,126 @@ class ResNet50Stage1(nn.Module):
             x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
             x = self.layer1(x)
         return x.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------
+# the full ResNet-50 trunk of the Mask R-CNN, in detectron2's names
+# ---------------------------------------------------------------------
+
+STAGE_BLOCKS = (3, 4, 6, 3)
+STAGE_WIDTHS = (64, 128, 256, 512)
+
+
+class FrozenBatchNorm2d(nn.Module):
+    """Inference batch norm with fixed statistics (detectron2's
+    ``FrozenBatchNorm2d``: buffers ``weight``, ``bias``, ``running_mean``,
+    ``running_var``; eps 1e-5, as flax's ``BatchNorm``)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.register_buffer("weight", torch.ones(channels))
+        self.register_buffer("bias", torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.nn.functional.batch_norm(
+            x, self.running_mean, self.running_var, self.weight, self.bias,
+            False, 0.0, 1e-5)
+
+
+class ConvNorm(nn.Conv2d):
+    """A bias-free conv followed by its frozen norm, held as the conv's
+    ``norm`` child (detectron2's ``Conv2d`` layout: ``<name>.weight``,
+    ``<name>.norm.*``)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 padding: int = 0):
+        super().__init__(cin, cout, kernel, stride=stride, padding=padding,
+                         bias=False)
+        self.norm = FrozenBatchNorm2d(cout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(super().forward(x))
+
+
+class BottleneckBlock(nn.Module):
+    """:class:`Bottleneck` in detectron2's names (``conv{1,2,3}`` with
+    their norms, ``shortcut``), striding the first 1x1 by default, as
+    detectron2's Caffe-style R50 does."""
+
+    def __init__(self, in_channels: int, features: int, stride: int = 1,
+                 project: bool = False, stride_in_1x1: bool = True):
+        super().__init__()
+        out = features * 4
+        s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
+        self.conv1 = ConvNorm(in_channels, features, 1, stride=s1)
+        self.conv2 = ConvNorm(features, features, 3, stride=s3, padding=1)
+        self.conv3 = ConvNorm(features, out, 1)
+        self.shortcut = (ConvNorm(in_channels, out, 1, stride=stride)
+                         if project else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        relu = torch.nn.functional.relu
+        y = relu(self.conv1(x))
+        y = relu(self.conv2(y))
+        y = self.conv3(y)
+        residual = x if self.shortcut is None else self.shortcut(x)
+        return relu(y + residual)
+
+
+class ResNet50(nn.Module):
+    """The full ResNet-50 trunk with frozen batch norm: NCHW input (already
+    normalised) -> ``[C2, C3, C4, C5]`` (NCHW, strides 4-32).  Names are
+    detectron2's ``backbone.bottom_up``: ``stem.conv1``, ``res2``..``res5``.
+    The stem's max-pool pads with -inf, as the JAX package does."""
+
+    def __init__(self, stride_in_1x1: bool = True):
+        super().__init__()
+        self.stem = nn.Module()
+        self.stem.conv1 = ConvNorm(3, 64, 7, stride=2, padding=3)
+        cin = 64
+        for stage, (blocks, width) in enumerate(zip(STAGE_BLOCKS,
+                                                    STAGE_WIDTHS)):
+            layers = []
+            for b in range(blocks):
+                layers.append(BottleneckBlock(
+                    cin, width, stride=2 if (b == 0 and stage > 0) else 1,
+                    project=b == 0, stride_in_1x1=stride_in_1x1))
+                cin = width * 4
+            setattr(self, f"res{stage + 2}", nn.Sequential(*layers))
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x = torch.nn.functional.relu(self.stem.conv1(x))
+        x = torch.nn.functional.max_pool2d(x, 3, 2, 1)
+        outs = []
+        for stage in range(4):
+            x = getattr(self, f"res{stage + 2}")(x)
+            outs.append(x)
+        return outs
+
+
+def trunk_flops(height: int, width: int) -> int:
+    """Multiply-adds (two operations each) of the full trunk's convs on
+    one ``height`` x ``width`` image (stride in the 1x1, detectron2's);
+    norms, ReLUs and the pool are left out."""
+    def down(n, s=2):
+        return -(-n // s)
+    h, w = down(height), down(width)
+    macs = h * w * 64 * 3 * 49
+    h, w = down(h), down(w)
+    cin = 64
+    for stage, (blocks, width_) in enumerate(zip(STAGE_BLOCKS,
+                                                 STAGE_WIDTHS)):
+        for b in range(blocks):
+            if b == 0 and stage > 0:
+                h, w = down(h), down(w)
+            macs += h * w * (cin * width_ + 9 * width_ * width_
+                             + width_ * width_ * 4)
+            if b == 0:
+                macs += h * w * cin * width_ * 4
+            cin = width_ * 4
+    return 2 * macs
 
 
 def make_backbone(module: ResNet50Stage1

@@ -164,7 +164,8 @@ BACKBONE = os.path.join(REPO, "mass_tpu_torch", "checkpoints",
 
 @pytest.mark.parametrize("flags,slice_no", [
     (["--backend", "thor"], 3),
-    ([], 3),                                    # learned segmentation
+    # learned segmentation without a detector: stops naming the flag
+    ([], "a learned detector is required"),
     (["--policy-checkpoint", GRIDWORLD_POLICY,
       "--semantic-search-unshuffle"], None),
     (["--frontier-exploration"], None),
@@ -176,7 +177,8 @@ BACKBONE = os.path.join(REPO, "mass_tpu_torch", "checkpoints",
     (["--videos"], 3),
 ])
 def test_cli_rejects_flags_of_later_slices(flags, slice_no, tmp_path):
-    """Flags of later slices stop before anything is written; the goal
+    """Flags of later slices stop before anything is written (a string
+    ``slice_no`` is the message expected instead of the slice); the goal
     heads' flags (``slice_no`` None) run: a CPU run writes
     results/2.json."""
     from mass_tpu_torch.agent import cli
@@ -188,7 +190,9 @@ def test_cli_rejects_flags_of_later_slices(flags, slice_no, tmp_path):
             assert json.load(f)["task_id"] == 2
         return
     base = [] if flags == [] else ["--ground-truth-segmentation"]
-    with pytest.raises(SystemExit, match=f"slice {slice_no}"):
+    match = (slice_no if isinstance(slice_no, str)
+             else f"slice {slice_no}")
+    with pytest.raises(SystemExit, match=match):
         cli.main(base + flags + ["--logdir", str(tmp_path), "--device",
                                  "cpu"])
     assert not os.listdir(tmp_path)

@@ -191,7 +191,9 @@ def test_cli_fleet_writes_results(tmp_path):
 @pytest.mark.parametrize("change,slice_no", [
     (["--policy-checkpoint", GRIDWORLD_POLICY,
       "--semantic-search-walkthrough"], None),
-    ({"sensor": object()}, 3),
+    # a learned sensor runs (a blank one: every frame seen as class 0)
+    ({"sensor": lambda obs: np.zeros(np.asarray(obs["rgb"]).shape[:2]
+                                     + (1,), np.int32)}, None),
     (["--use-feature-matching", "--backbone-checkpoint", BACKBONE], None),
     (["--one-phase"], None),
     (["--frontier-exploration"], None),
@@ -204,10 +206,19 @@ def test_cli_fleet_writes_results(tmp_path):
 def test_fleet_refuses_later_slices(change, slice_no, tmp_path):
     """The fleet refuses what later slices port; the goal heads' flags
     (``slice_no`` None, ``change`` CLI flags) run: a --fleet-size 2 CPU
-    run of tasks 2-3 writes results/2.json."""
+    run of tasks 2-3 writes results/2.json; a learned sensor (``change``
+    the evaluator's arguments) runs once a tick."""
     from mass_tpu_torch.agent import cli
     from mass_tpu_torch.parallel.evaluator import FleetEvaluator
 
+    if slice_no is None and isinstance(change, dict):
+        evaluator = FleetEvaluator(
+            _config("torch"), [_recording_sampler("torch", s, [], 30)
+                               for s in SEEDS], device="cpu", **change)
+        assert len(evaluator.run()) == len(SEEDS)
+        counts = evaluator.timer.counts
+        assert counts["segmentation"] == counts["mapping"] > 0
+        return
     if slice_no is None:
         cli.main(SMALL + change + ["--fleet-size", "2", "--start-task", "2",
                                    "--total-tasks", "2", "--logdir",

@@ -633,3 +633,93 @@ def test_fm_protocol_task0_on_card(cuda, tmp_path):
     for k in committed:
         if k != "timing":
             assert out["cuda"][k] == out["cpu"][k] == committed[k], k
+
+
+# ----------------------------------------------------------------------
+# greedy NMS (csrc/nms.cu) and the detector on the card
+# ----------------------------------------------------------------------
+
+def _nms_both(cuda, boxes, scores, threshold, outputs):
+    from mass_tpu_torch.ops import detection as D
+
+    before = D.LAUNCHES
+    got = D.nms(torch.from_numpy(boxes).to(cuda),
+                torch.from_numpy(scores).to(cuda), threshold, outputs)
+    torch.cuda.synchronize()
+    assert D.LAUNCHES == before + 1
+    want = D.nms_reference(torch.from_numpy(boxes),
+                           torch.from_numpy(scores), threshold, outputs)
+    return got.cpu(), want
+
+
+@pytest.mark.parametrize("name", sorted(TS.NMS_STREAMS))
+def test_nms_kernel_on_streams(cuda, name):
+    """Each chosen stream alone: the kernel's keep row equals the plain
+    loop on the CPU exactly (ties, signed zeros, repeated zero-area picks,
+    dead boxes, class islands, the widest problem)."""
+    boxes, scores, threshold, outputs = TS.nms_stream(name)
+    got, want = _nms_both(cuda, boxes[None], scores[None], threshold,
+                          outputs)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cycled", [False, True])
+def test_nms_kernel_on_a_padded_batch(cuda, cycled):
+    """Every stream in one launch, padded with -inf scores, a cap per
+    problem; or the batch twice over with the caps cycled (the RPN's
+    levels of B frames)."""
+    boxes, scores, _, outputs = TS.nms_batch(sorted(TS.NMS_STREAMS), seed=3)
+    if cycled:
+        boxes = np.concatenate([boxes, boxes])
+        scores = np.concatenate([scores, scores])
+    got, want = _nms_both(cuda, boxes, scores, 0.5, outputs)
+    assert torch.equal(got, want)
+
+
+def test_nms_kernel_wrapper_rejects_bad_inputs(cuda):
+    from mass_tpu_torch.ops import detection as D
+
+    boxes = torch.rand(1, 8, 4, device=cuda)
+    scores = torch.rand(1, 8, device=cuda)
+    before = D.LAUNCHES
+    with pytest.raises(ValueError):
+        D.nms(boxes.double(), scores, 0.5, 4)
+    with pytest.raises(ValueError):
+        D.nms(boxes, scores.cpu(), 0.5, 4)
+    with pytest.raises(ValueError):
+        D.nms(boxes, scores[:, :7], 0.5, 4)
+    with pytest.raises(ValueError):
+        D.nms(boxes, scores, 0.5, [4, 4, 4])
+    wide = torch.rand(1, TS.NMS_MAX_BOXES + 1, 4, device=cuda)
+    with pytest.raises(ValueError):
+        D.nms(wide, torch.rand(1, TS.NMS_MAX_BOXES + 1, device=cuda), 0.5, 4)
+    assert D.LAUNCHES == before
+
+
+def test_detector_on_card_equals_cpu(cuda):
+    """The small random detector (7 classes, 48 px) on two frames, on the
+    card and on the CPU, by the margin rule; two NMS launches a call (the
+    RPN's levels, the class-aware NMS)."""
+    from mass_tpu_torch.ops import detection as D
+    from mass_tpu_torch.perception import maskrcnn as TM
+    from tests import torch_checkpoints as TC
+    from tests import torch_margins
+
+    cfg = TM.MaskRCNNConfig(num_classes=7, image_size=48, pre_nms_topk=64,
+                            post_nms_topk=32, candidate_pool=64,
+                            max_detections=8)
+    sd = TC.random_maskrcnn_state_dict(0, 7)
+    rgb = torch.from_numpy(np.random.RandomState(5).rand(
+        2, 48, 48, 3).astype(np.float32))
+    cpu_model = TM.from_state_dict(sd, cfg, "cpu")
+    want, probs = TM.detect(cpu_model, rgb,
+                                   TM.device_anchors(cfg, "cpu"),
+                                   with_probs=True)
+    before = D.LAUNCHES
+    model = TM.from_state_dict(sd, cfg, cuda)
+    got = TM.detect(model, rgb.to(cuda), TM.device_anchors(cfg, cuda))
+    torch.cuda.synchronize()
+    assert D.LAUNCHES == before + 2
+    report = torch_margins.compare_detections(
+        want, got, probs, thresholds=(cfg.score_threshold,))
+    assert report["ok"] and report["live_slots"] > 0, report

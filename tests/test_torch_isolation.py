@@ -75,6 +75,26 @@ SCRIPT = textwrap.dedent("""
         assert callable(entry), entry
     backbone, _ = resnet.load_backbone_checkpoint(
         "mass_tpu_torch/checkpoints/backbone-rand.pth", "cpu")
+    from mass_tpu_torch.convert import (maskrcnn_state_dict_from_jax,
+                                        unet_state_dict_from_jax)
+    from mass_tpu_torch.ops import detection
+    from mass_tpu_torch.perception import detector, maskrcnn, segmentation
+    for name in ("mass_tpu_torch.ops.detection",
+                 "mass_tpu_torch.perception.maskrcnn",
+                 "mass_tpu_torch.perception.segmentation",
+                 "mass_tpu_torch.perception.detector"):
+        assert name in names, name
+    for entry in (detection.nms, detection.nms_reference, detection.box_iou,
+                  detection.roi_align, maskrcnn.MaskRCNN, maskrcnn.detect,
+                  maskrcnn.load_torch_checkpoint, maskrcnn.make_detector,
+                  segmentation.detections_to_semantic,
+                  segmentation.make_batched_sensor,
+                  segmentation.SegmentationSampler, detector.SegmenterUNet,
+                  detector.instances_from_logits,
+                  maskrcnn_state_dict_from_jax, unet_state_dict_from_jax,
+                  resnet.ResNet50):
+        assert callable(entry), entry
+    import tests.torch_checkpoints, tests.torch_margins, tests.torch_streams
     print(len(names))
 """)
 
@@ -84,7 +104,7 @@ def test_port_imports_without_jax_or_mass_tpu():
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=REPO))
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 31
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 35
 
 
 def test_kernel_sources_stand_alone():
@@ -93,19 +113,21 @@ def test_kernel_sources_stand_alone():
     in seconds) and its launch and limit entry points.  The single-map,
     multi-map and frames kernels share one source and one library; the
     dense-row splat (the counterpart of an XLA scatter, not of a TPU
-    kernel) has its own."""
+    kernel) and the detector's greedy NMS (the counterpart of a
+    ``fori_loop``) have their own."""
     from mass_tpu_torch.ops import splat
 
     assert splat.KERNELS == ("splat_onehot", "splat_onehot_multi",
-                             "splat_onehot_frames", "splat_dense")
-    assert splat.LIBRARIES == ("splat_onehot", "splat_dense")
+                             "splat_onehot_frames", "splat_dense", "nms")
+    assert splat.LIBRARIES == ("splat_onehot", "splat_dense", "nms")
     assert {lib for lib, _ in splat._ENTRIES.values()} == set(
         splat.LIBRARIES)
     for gone in ("splat_onehot_multi.cu", "splat_onehot_frames.cu"):
         assert not os.path.exists(os.path.join(
             REPO, "mass_tpu_torch", "csrc", gone))
     replaces = {"splat_onehot": "mass_tpu/ops/pallas_splat.py",
-                "splat_dense": "mass_tpu/ops/scatter.py"}
+                "splat_dense": "mass_tpu/ops/scatter.py",
+                "nms": "mass_tpu/ops/detection.py"}
     for name in splat.LIBRARIES:
         source, library = splat._paths(name)
         with open(source) as f:
@@ -115,7 +137,7 @@ def test_kernel_sources_stand_alone():
         kernels = [k for k, (lib, _) in splat._ENTRIES.items()
                    if lib == name]
         for entry in [f"{k}_launch(" for k in kernels] + [
-                f"{name}_max_features("]:
+                f"{query}(" for query in splat._LIMITS[name]]:
             assert f'extern "C" int {entry}' in text, (name, entry)
         assert library.endswith(f"build/kernels/lib{name}.so")
     with open(splat._paths("splat_onehot")[0]) as f:

@@ -251,3 +251,126 @@ def dense_stream(name: str, num_features: int, seed: int = 0):
     feats = rng.randn(ids.shape[0] // 8, num_features).astype(np.float32)
     data = rng.rand(NUM_VOXELS, num_features).astype(np.float32)
     return ids, weights, feats, data
+
+
+# ----------------------------------------------------------------------
+# greedy NMS (ops/detection.nms and csrc/nms.cu): chosen box streams
+# ----------------------------------------------------------------------
+
+NMS_MAX_BOXES = 1024    # csrc/nms.cu: kPer * kMaxThreads
+
+
+def _random_boxes(rng, n: int, size: float = 224.0, scale: float = 60.0):
+    xy = rng.uniform(0, size - 4, (n, 2))
+    wh = rng.uniform(1.0, scale, (n, 2))
+    return np.concatenate([xy, np.minimum(xy + wh, size)], 1)
+
+
+def _nms_random(rng):
+    return _random_boxes(rng, 200), rng.rand(200), 0.5, 50
+
+
+def _nms_rpn_level(rng):
+    # one RPN level: 500 boxes after the per-level top-k, 256 outputs
+    return _random_boxes(rng, 500, scale=120.0), rng.randn(500), 0.7, 256
+
+
+def _nms_equal_scores(rng):
+    # every score equal: the lowest live index wins each pick
+    return _random_boxes(rng, 300), np.ones(300), 0.5, 100
+
+
+def _nms_signed_zeros(rng):
+    # +0 and -0 compare equal, as in the float compare of an argmax
+    scores = np.where(rng.rand(64) < 0.5, 0.0, -0.0)
+    scores[::7] = -1.0
+    return _random_boxes(rng, 64), scores, 0.5, 64
+
+
+def _nms_zero_area(rng):
+    # live zero-area boxes with the best scores: IoU 0 with themselves,
+    # so each is picked again until the outputs run out
+    boxes = _random_boxes(rng, 40)
+    boxes[[3, 11], 2] = boxes[[3, 11], 0]
+    boxes[17, 3] = boxes[17, 1]
+    scores = rng.rand(40)
+    scores[[3, 11, 17]] = [5.0, 4.0, 3.0]
+    return boxes, scores, 0.5, 40
+
+
+def _nms_zero_area_after(rng):
+    # a zero-area box below the others: it repeats once they are gone
+    boxes = _random_boxes(rng, 30)
+    boxes[5, 2] = boxes[5, 0]
+    scores = rng.rand(30)
+    scores[5] = -10.0
+    return boxes, scores, 0.3, 30
+
+
+def _nms_all_dead(rng):
+    return _random_boxes(rng, 50), np.full(50, -np.inf), 0.5, 20
+
+
+def _nms_partly_dead(rng):
+    scores = rng.randn(128)
+    scores[rng.rand(128) < 0.6] = -np.inf
+    return _random_boxes(rng, 128), scores, 0.5, 100
+
+
+def _nms_class_offsets(rng):
+    # the detector's class-aware NMS: 512 candidates offset by class into
+    # islands of side image + 2, scores in [0, 1) and -inf where gated
+    classes = rng.randint(0, 54, 512)
+    boxes = _random_boxes(rng, 512) + (classes * 226.0)[:, None]
+    scores = rng.rand(512)
+    scores[scores < 0.05] = -np.inf
+    return boxes, scores, 0.5, 64
+
+
+def _nms_duplicates(rng):
+    # exact duplicates (IoU exactly 1) and nested boxes
+    base = _random_boxes(rng, 20)
+    boxes = np.concatenate([base, base, base * 0.5 + 10.0])
+    return boxes, rng.rand(60), 0.5, 60
+
+
+def _nms_widest(rng):
+    return (_random_boxes(rng, NMS_MAX_BOXES, scale=30.0),
+            rng.rand(NMS_MAX_BOXES), 0.4, 300)
+
+
+NMS_STREAMS = {
+    "random": _nms_random,
+    "rpn_level": _nms_rpn_level,
+    "equal_scores": _nms_equal_scores,
+    "signed_zeros": _nms_signed_zeros,
+    "zero_area": _nms_zero_area,
+    "zero_area_after": _nms_zero_area_after,
+    "all_dead": _nms_all_dead,
+    "partly_dead": _nms_partly_dead,
+    "class_offsets": _nms_class_offsets,
+    "duplicates": _nms_duplicates,
+    "widest": _nms_widest,
+}
+
+
+def nms_stream(name: str, seed: int = 0):
+    """``(boxes [N, 4], scores [N] float32, iou_threshold, max_outputs)``
+    of a chosen stream."""
+    boxes, scores, threshold, outputs = NMS_STREAMS[name](
+        np.random.RandomState(seed))
+    return (boxes.astype(np.float32), scores.astype(np.float32), threshold,
+            outputs)
+
+
+def nms_batch(names, seed: int = 0):
+    """Several streams as one padded batch: ``boxes [P, N, 4]``, ``scores
+    [P, N]`` (-inf padding), the streams' thresholds and output caps."""
+    streams = [nms_stream(name, seed) for name in names]
+    n = max(s[0].shape[0] for s in streams)
+    boxes = np.zeros((len(streams), n, 4), np.float32)
+    scores = np.full((len(streams), n), -np.inf, np.float32)
+    for p, (b, s, _, _) in enumerate(streams):
+        boxes[p, :len(b)] = b
+        scores[p, :len(s)] = s
+    return boxes, scores, [s[2] for s in streams], [s[3] for s in streams]
