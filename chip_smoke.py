@@ -146,10 +146,13 @@ def host_ms(fn, iters: int) -> float:
     return 1e3 * (time.perf_counter() - t0) / iters
 
 
-def kernel_device_ms(fn, iters: int, flush: torch.Tensor,
-                     kernel: str = "splat_onehot_kernel") -> float:
-    """Mean device time of ``kernel`` per call of ``fn``, read from
-    torch.profiler's trace (no launch latency in it), cold L2."""
+def profiled_launches(fn, iters: int, flush: torch.Tensor,
+                      kernel: str = "splat_onehot_kernel",
+                      per_call: int = 1) -> dict:
+    """``kernel``'s device time per recorded launch in a torch.profiler
+    trace of ``iters`` calls of ``fn`` (cold L2, no launch latency), the
+    launches the trace recorded and those made (``per_call`` a call): a
+    trace can miss launches, so the time is never divided by the calls."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -157,9 +160,17 @@ def kernel_device_ms(fn, iters: int, flush: torch.Tensor,
             flush.zero_()
             fn()
         torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages()
-                if kernel in e.key)
-    return total / 1e3 / iters
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    count = sum(e.count for e in hits)
+    total = sum(e.device_time_total for e in hits)
+    return dict(device_ms=total / 1e3 / max(count, 1),
+                profiled_launches=count, launches_made=iters * per_call)
+
+
+def recorded(k: dict) -> str:
+    """The launches a trace recorded against those made."""
+    return (f"profiler: {k['profiled_launches']} of {k['launches_made']} "
+            "launches recorded")
 
 
 def bound(bytes_moved: int, flops: int) -> dict:
@@ -542,7 +553,7 @@ def time_frames(data, records, flush) -> dict:
     result = dict(
         ms=cuda_ms(lambda: SP.apply_frame_records(scratch, records, 0.5),
                    20, flush),
-        device_ms=kernel_device_ms(
+        **profiled_launches(
             lambda: SP.apply_frame_records(scratch, records, 0.5), 20,
             flush),
         plain_ms=cuda_ms(lambda: SP.splat_onehot_frames_reference(
@@ -1213,8 +1224,12 @@ def phase_fleet_maps(dev) -> dict:
     # episode-sized map set (the work of 8 sequential agents' step)
     fr = fleet_room_frames(3, origins)
     step_ms = host_ms(lambda: fleet.update_batch(**fr), 5)
+    before = SP.LAUNCHES + SP.MULTI_LAUNCHES
+    fleet.update_batch(**fr)
+    per_step = SP.LAUNCHES + SP.MULTI_LAUNCHES - before
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    kernel_ms = kernel_device_ms(lambda: fleet.update_batch(**fr), 5, flush)
+    kernel = profiled_launches(lambda: fleet.update_batch(**fr), 5, flush,
+                               per_call=per_step)
     del flush
     geo_kw = {k: v for k, v in FULL_MAP.items() if k != "feature_size"}
     maps = MapSet(semantic0=SemanticMap(cam, 54, device=dev, **geo_kw),
@@ -1234,7 +1249,8 @@ def phase_fleet_maps(dev) -> dict:
                 buffer_bytes=sum(FLEET * geo.num_voxels * 4 * f
                                  for f in FLEET_FAMILIES.values()),
                 peak_memory_bytes=peak, step_ms=step_ms,
-                step_kernel_device_ms=kernel_ms,
+                step_kernel_device_ms=kernel["device_ms"] * per_step,
+                step_kernel_trace=kernel,
                 sequential_update_group_ms=sequential_ms)
 
 
@@ -1617,12 +1633,12 @@ def phase_dense_kernel(dev) -> dict:
     iw = 0.5
     out["ms"] = cuda_ms(lambda: SP.apply_dense_records(
         vm.data, records, feats, iw), 20, flush)
-    out["device_ms"] = kernel_device_ms(lambda: SP.apply_dense_records(
+    out["device"] = profiled_launches(lambda: SP.apply_dense_records(
         vm.data, records, feats, iw), 20, flush, "splat_dense_kernel")
     window = SP.DenseRecords(*(t[:32].contiguous() for t in records))
     out["one_window_ms"] = cuda_ms(lambda: SP.apply_dense_records(
         vm.data, window, feats, iw), 20, flush)
-    out["one_window_device_ms"] = kernel_device_ms(
+    out["one_window_device"] = profiled_launches(
         lambda: SP.apply_dense_records(vm.data, window, feats, iw), 20,
         flush, "splat_dense_kernel")
     out["plain_ms"] = cuda_ms(lambda: SP.splat_dense_reference(
@@ -1647,7 +1663,7 @@ def phase_dense_kernel(dev) -> dict:
           f"the wall frame's longest run is {skewed['longest_run']}")
     skewed["ms"] = cuda_ms(lambda: SP.apply_dense_records(
         vm.data, wall_records, feats, iw), 20, flush)
-    skewed["device_ms"] = kernel_device_ms(lambda: SP.apply_dense_records(
+    skewed["device"] = profiled_launches(lambda: SP.apply_dense_records(
         vm.data, wall_records, feats, iw), 20, flush, "splat_dense_kernel")
     skewed.update(dense_bound(skewed["valid_records"], pixels,
                               skewed["touched_voxels"], DENSE_FEATURES))
@@ -1884,10 +1900,15 @@ LEARNED_THRESHOLD = 0.3
 SMALL_DETECTOR = dict(num_classes=7, image_size=48, pre_nms_topk=64,
                       post_nms_topk=32, candidate_pool=64, max_detections=8)
 SMALL_THRESHOLD = 0.2
-# one round of the NMS kernel's dependent chain (two five-step shuffle
-# trees, a barrier, a shared-memory round trip: about 200 cycles at
-# 1.98 GHz); a problem's iterations cannot overlap
-NMS_ROUND_US = 0.1
+# the NMS kernel's times in its first design (a block per problem, one
+# block-wide argmax round per output slot; NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md)
+NMS_BEFORE_MS = {"rpn_b1": 0.1638, "detection_b1": 0.0570, "rpn_b8": 0.1659}
+# fp32 operations of one IoU test: four min/max, two subtractions and two
+# clamps for the overlap's sides, its product, the union's add and
+# subtract, its clamp, the division and the compare
+NMS_PAIR_FLOPS = 14
+NMS_BOX_FLOPS = 5           # a box's area: two subtractions, clamps, product
 
 
 def full_args(learned: bool):
@@ -1988,45 +2009,59 @@ class NMSRecorder:
         TM.nms = self._nms
 
 
-def nms_bound(outputs, n: int, problems: int) -> dict:
-    """The NMS kernel's least time: its longest problem's iterations, one
-    dependent round each (:data:`NMS_ROUND_US`); beside it the bytes and
-    operations bounds, both far below."""
-    counts = [outputs] if isinstance(outputs, int) else list(outputs)
-    rounds = min(max(counts), n)
-    by_bytes = (problems * n * 20 + problems * max(counts) * 4) \
-        / HBM_BYTES_PER_S
-    flops = sum(min(counts[p % len(counts)], n) for p in range(problems)) \
-        * n * 16
-    return dict(bound_ms=1e-3 * rounds * NMS_ROUND_US,
-                bound_by="operations", chain_rounds=rounds,
-                bytes_bound_ms=1e3 * by_bytes,
-                flops_bound_ms=1e3 * flops / FP32_FLOPS)
+def dependent_steps(dev) -> dict:
+    """Two dependent chains on the card, one warp each step waiting on the
+    last: a shared-memory load (the probe of ``csrc/nms.cu`` walks a cycle
+    of 65,536 loads) and a logic operation (65,536 of them), timed by
+    the SM's cycle counter and the global nanosecond timer."""
+    import ctypes
 
+    from mass_tpu_torch.ops import detection as D
+    from mass_tpu_torch.ops import splat as SP
 
-def profiled_launches(fn, iters: int, flush: torch.Tensor,
-                      kernel: str) -> dict:
-    """``kernel``'s device time per recorded launch in a torch.profiler
-    trace of ``iters`` calls of ``fn`` (cold L2), and the launches the
-    trace recorded: a trace that misses launches would make the time per
-    call look shorter than it is."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
+    probe = D._library().nms_step_probe
+    probe.restype = ctypes.c_int
+    probe.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    out = torch.zeros(5, dtype=torch.int64, device=dev)
+    steps = 1 << 16
+    for _ in range(2):                     # the first call warms up
+        SP._raise_on(probe(steps, out.data_ptr(), SP._stream(dev)),
+                     "dependent-step probe")
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel in e.key]
-    count = sum(e.count for e in hits)
-    total = sum(e.device_time_total for e in hits)
-    return dict(device_ms=total / 1e3 / max(count, 1),
-                profiled_launches=count, profiled_calls=iters)
+    load_cycles, load_ns, op_cycles, op_ns, _ = out.tolist()
+    return dict(load_cycles=load_cycles / steps, load_ns=load_ns / steps,
+                op_cycles=op_cycles / steps, op_ns=op_ns / steps,
+                sm_ghz=load_cycles / load_ns)
+
+
+def nms_bound(problem: dict, op_ns: float) -> dict:
+    """The NMS kernel's least time on these inputs, the largest of three
+    terms: the bytes (20 B a box read, 4 B a keep slot written); the fp32
+    operations of the live pairs (each problem's L(L+1)/2 IoU tests and L
+    areas) at the card's fp32 peak; and the greedy chain, whose picks
+    each wait on the last: the longest problem's taken positions times
+    one dependent operation (:func:`dependent_steps`)."""
+    problems, n = problem["shape"]
+    width = max(problem["outputs"]) if isinstance(problem["outputs"], list) \
+        else problem["outputs"]
+    terms = {
+        "bytes": (problems * n * 20 + problems * width * 4)
+        / HBM_BYTES_PER_S,
+        "fp32 operations": (NMS_PAIR_FLOPS * problem["live_pairs"]
+                            + NMS_BOX_FLOPS * problem["live_boxes"])
+        / FP32_FLOPS,
+        "greedy chain": problem["taken_max"] * op_ns * 1e-9}
+    term = max(terms, key=terms.get)
+    return dict(bound_ms=1e3 * terms[term],
+                bound_by="bytes" if term == "bytes" else "operations",
+                bound_term=term,
+                terms_ms={k: 1e3 * v for k, v in terms.items()})
 
 
 def check_nms(dev, boxes, scores, threshold, outputs) -> dict:
     """The kernel on the card against the plain loop on the CPU: equal
-    keep indices, every slot."""
+    keep indices, every slot; with what the bound counts (live boxes and
+    pairs, the most distinct positions one problem takes)."""
     from mass_tpu_torch.ops import detection as D
 
     got = D.nms(boxes.to(dev), scores.to(dev), threshold, outputs).cpu()
@@ -2034,11 +2069,17 @@ def check_nms(dev, boxes, scores, threshold, outputs) -> dict:
     equal = torch.equal(got, want)
     check(equal, f"NMS kernel differs from the plain loop on "
           f"{tuple(boxes.shape)}: {int((got != want).sum())} slots")
-    return dict(shape=list(boxes.shape), outputs=outputs,
-                kept=int((want >= 0).sum()), equal=equal)
+    live = (scores.cpu() > float("-inf")).sum(1)
+    taken = [len({int(i) for i in row if i >= 0}) for row in want]
+    return dict(shape=list(boxes.shape[:2]), outputs=outputs,
+                kept=int((want >= 0).sum()), equal=equal,
+                live_boxes=int(live.sum()),
+                live_pairs=int((live * (live + 1) // 2).sum()),
+                taken_max=max(taken, default=0))
 
 
-def time_nms(dev, boxes, scores, threshold, outputs) -> dict:
+def time_nms(dev, problem: dict, boxes, scores, threshold, outputs,
+             op_ns: float) -> dict:
     from mass_tpu_torch.ops import detection as D
 
     boxes, scores = boxes.to(dev), scores.to(dev)
@@ -2062,8 +2103,7 @@ def time_nms(dev, boxes, scores, threshold, outputs) -> dict:
                **profiled_launches(launch, 20, flush, "nms_kernel"),
                plain_ms=host_ms(lambda: D.nms_reference(
                    boxes, scores, threshold, outputs), 2),
-               library_ms=None,
-               **nms_bound(outputs, boxes.shape[1], boxes.shape[0]))
+               library_ms=None, **nms_bound(problem, op_ns))
     del flush
     return out
 
@@ -2071,12 +2111,15 @@ def time_nms(dev, boxes, scores, threshold, outputs) -> dict:
 def phase_nms(dev) -> dict:
     """The NMS kernel against the plain loop on the CPU, exact keep
     indices: the detector's own NMS problems (the RPN's five levels of one
-    frame and of eight, the class-aware NMS of one frame; random weights
-    on grid-world frames) and the chosen streams of tests/torch_streams.py,
-    each alone and all in one padded launch.  Times at the RPN and the
-    detection shapes: CUDA events after an L2 flush, the profiler's device
-    time, the plain loop on the card, the chain bound."""
+    frame and of eight, the class-aware NMS of one frame and of eight;
+    random weights on grid-world frames) and the chosen streams of
+    tests/torch_streams.py, each alone, all in one padded launch and that
+    batch twice over with its caps cycled.  Times at the RPN and the
+    class-aware shapes: CUDA events after an L2 flush, the profiler's
+    device time a recorded launch, the plain loop on the card, the bound
+    with its dependent step measured."""
     from tests import torch_streams as TS
+    from mass_tpu_torch.ops import detection as D
     from mass_tpu_torch.perception import maskrcnn as TM
 
     model, _ = load_full_detector(dev)
@@ -2096,13 +2139,20 @@ def phase_nms(dev) -> dict:
                                   torch.from_numpy(scores)[None], threshold,
                                   outputs)
     boxes, scores, _, outputs = TS.nms_batch(sorted(TS.NMS_STREAMS))
-    streams["all_in_one_launch"] = check_nms(
-        dev, torch.from_numpy(boxes), torch.from_numpy(scores), 0.5,
+    boxes, scores = torch.from_numpy(boxes), torch.from_numpy(scores)
+    streams["all_in_one_launch"] = check_nms(dev, boxes, scores, 0.5,
+                                             outputs)
+    streams["all_twice_caps_cycled"] = check_nms(
+        dev, torch.cat([boxes, boxes]), torch.cat([scores, scores]), 0.5,
         outputs)
     out["streams"] = streams
-    out["rpn_b1"] = time_nms(dev, *shapes["rpn_b1"])
-    out["detection_b1"] = time_nms(dev, *shapes["detection_b1"])
-    out["rpn_b8"] = time_nms(dev, *shapes["rpn_b8"])
+    out["step"] = dependent_steps(dev)
+    for key in ("rpn_b1", "detection_b1", "rpn_b8"):
+        out[key] = time_nms(dev, out["problems"][key], *shapes[key],
+                            out["step"]["op_ns"])
+        out[key]["before_ms"] = NMS_BEFORE_MS[key]
+    out["config"] = {n: D.nms_config(n) for n in sorted(
+        {p["shape"][1] for p in out["problems"].values()})}
     out["max_abs_err"] = 0.0          # keep indices, compared exactly
     del model
     return out
@@ -2298,11 +2348,45 @@ def print_frames(tag: str, what: str, k: dict) -> None:
           f" two runs bit-identical: {k['bit_identical_runs']}; equal to "
           f"the plain CPU version: {k['bitwise_equal_cpu_plain']}")
     print(f"[{tag}] kernel {k['ms']:.4f} ms per launch{before}, device "
-          f"time {k['device_ms']:.4f} ms (profiler); bound "
+          f"time {k['device_ms']:.4f} ms a recorded launch ({recorded(k)}); "
+          "bound "
           f"{k['bound_ms']:.4f} ms ({k['bytes']} B: id, weight, class and "
           f"frame per valid record, each touched row read and written "
           f"once, at 3.35 TB/s), {k['ms'] / k['bound_ms']:.2f}x the bound;"
           f" plain {k['plain_ms']:.3f} ms; library call: none")
+
+
+def print_nms(nms: dict) -> None:
+    st = nms["step"]
+    for key, what in (("rpn_b1", "RPN, one frame"),
+                      ("detection_b1", "class-aware, one frame"),
+                      ("rpn_b8", "RPN, eight frames")):
+        k, prob = nms[key], nms["problems"][key]
+        terms = ", ".join(f"{t} {v:.5f} ms" for t, v in
+                          k["terms_ms"].items())
+        print(f"[nms] {what} {prob['shape']} (caps {prob['outputs']}; "
+              f"{prob['live_boxes']} live boxes, {prob['live_pairs']} live "
+              f"pairs, at most {prob['taken_max']} positions taken): kernel "
+              f"{k['ms']:.4f} ms (before: {k['before_ms']:.4f} ms), "
+              f"{k['back_to_back_ms']:.4f} ms a launch back to back, device "
+              f"time {k['device_ms']:.4f} ms a recorded launch "
+              f"({recorded(k)}); bound {k['bound_ms']:.5f} ms by the "
+              f"{k['bound_term']} ({terms}), {k['ms'] / k['bound_ms']:.1f}x "
+              f"the bound; plain loop on the card {k['plain_ms']:.2f} ms; "
+              "library call: none")
+    print(f"[nms] dependent steps: a shared-memory load "
+          f"{st['load_cycles']:.1f} cycles ({st['load_ns']:.2f} ns), a logic "
+          f"operation {st['op_cycles']:.1f} cycles ({st['op_ns']:.2f} ns); SM "
+          f"at {st['sm_ghz']:.2f} GHz")
+    for n, c in nms["config"].items():
+        print(f"[nms] N={n}: {c['threads']} threads a block, "
+              f"{c['cluster_blocks']} blocks a cluster (one a problem), "
+              f"{c['registers']} registers and {c['spill_bytes']} B spilled "
+              f"a thread, {c['shared_bytes']} B of dynamic shared memory a "
+              f"block, {c['resident_clusters']} clusters resident at once")
+    print(f"[nms] keep indices equal to the plain loop on the CPU: the "
+          f"detector's problems {sorted(nms['problems'])}, the streams "
+          f"{sorted(nms['streams'])}")
 
 
 def print_episode(tag: str, full: dict) -> None:
@@ -2419,11 +2503,13 @@ def main() -> int:
               f"{k['untouched_rows_unchanged']}; kernel {k['ms']:.4f} ms, "
               f"bound {k['bound_ms']:.4f} ms ({k['bytes']} B), "
               f"{k['ms'] / k['bound_ms']:.2f}x the bound")
-    print(f"[{tag}] device time (torch.profiler): room frame "
-          f"{dense['device_ms']:.4f} ms, wall frame "
-          f"{dense['wall']['device_ms']:.4f} ms; the room frame's first 32 "
-          f"records alone (one window) {dense['one_window_ms']:.4f} ms, "
-          f"device {dense['one_window_device_ms']:.4f} ms")
+    for what, k in (("room frame", dense["device"]),
+                    ("wall frame", dense["wall"]["device"]),
+                    ("the room frame's first 32 records alone (one window)",
+                     dense["one_window_device"])):
+        print(f"[{tag}] device time (torch.profiler), {what}: "
+              f"{k['device_ms']:.4f} ms a recorded launch ({recorded(k)})")
+    print(f"[{tag}] one window: {dense['one_window_ms']:.4f} ms (events)")
     print(f"[{tag}] room frame: kernel {dense['ms']:.4f} ms beside its "
           f"record prep (sort, gathers) {dense['prep_ms']:.4f} ms; map "
           f"{dense['map_bytes'] / 2**30:.2f} GiB; plain "
@@ -2479,7 +2565,9 @@ def main() -> int:
           f"{maps['runs_identical']}")
     print(f"[fleet maps] unmasked step {maps['step_ms']:.2f} ms (host clock, "
           f"card synced; splat kernel device time "
-          f"{maps['step_kernel_device_ms']:.3f} ms) against "
+          f"{maps['step_kernel_device_ms']:.3f} ms: a recorded launch's "
+          f"times the step's launches, "
+          f"{recorded(maps['step_kernel_trace'])}) against "
           f"{maps['sequential_update_group_ms']:.2f} ms for {FLEET} "
           f"MapSet.update_group calls of the same frames")
     for flag, key in ((False, "small_episodes"),
@@ -2619,22 +2707,7 @@ def main() -> int:
     print(f"[{tag}] fleet_timing {json.dumps(fleet['fleet_timing'])}")
 
     nms = report["nms"] = phase_nms(dev)
-    for key, what in (("rpn_b1", "RPN, one frame"),
-                      ("detection_b1", "class-aware, one frame"),
-                      ("rpn_b8", "RPN, eight frames")):
-        k = nms[key]
-        print(f"[nms] {what} {nms['problems'][key]['shape']} (caps "
-              f"{nms['problems'][key]['outputs']}): kernel {k['ms']:.4f} ms,"
-              f" {k['back_to_back_ms']:.4f} ms a launch back to back, device"
-              f" time {k['device_ms']:.4f} ms a recorded launch (profiler: "
-              f"{k['profiled_launches']} of {k['profiled_calls']}); bound "
-              f"{k['bound_ms']:.4f} ms ({k['chain_rounds']} dependent "
-              f"rounds at {NMS_ROUND_US} us; bytes {k['bytes_bound_ms']:.5f}"
-              f" ms, operations {k['flops_bound_ms']:.5f} ms); plain loop on"
-              f" the card {k['plain_ms']:.2f} ms; library call: none")
-    print(f"[nms] keep indices equal to the plain loop on the CPU: the "
-          f"detector's problems {sorted(nms['problems'])}, the streams "
-          f"{sorted(nms['streams'])}")
+    print_nms(nms)
     det = report["detector"] = phase_detector(dev)
     for batch in (1, 2):
         d = det[f"b{batch}"]

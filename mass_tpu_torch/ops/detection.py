@@ -8,11 +8,13 @@ kills the live boxes whose IoU with it reaches the threshold), and
 ROIAlign samples bilinearly with coordinates clipped to ``[0, h - 1]``.
 
 :func:`nms` takes a batch of independent problems.  On CUDA tensors it
-launches the hand-written kernel of ``csrc/nms.cu`` (one block per
-problem; built with the splat kernels by ``ops/splat.build``) and counts
-the launch in ``LAUNCHES``; on CPU tensors it runs :func:`nms_reference`,
-a literal port of the ``fori_loop``.  There is no fallback: a CUDA launch
-that fails raises.
+launches the hand-written kernel of ``csrc/nms.cu`` (a thread-block
+cluster per problem: the live boxes ranked by key, a suppression bitmask
+over the sorted pairs, one warp's walk along it; built with the splat
+kernels by ``ops/splat.build``) and counts the launch in ``LAUNCHES``; on
+CPU tensors it runs :func:`nms_reference`, a literal port of the
+``fori_loop``.  There is no fallback: a CUDA launch that fails or is
+refused raises.
 """
 
 from __future__ import annotations
@@ -128,6 +130,22 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor,
         splat._stream(boxes.device)), "nms")
     LAUNCHES += 1
     return keep
+
+
+def nms_config(n: int) -> dict:
+    """The built NMS kernel's shape for ``n`` boxes a problem: threads a
+    block, blocks a cluster (one cluster a problem), registers and spilled
+    bytes a thread as the compiler left them, dynamic shared memory a
+    block, and how many such clusters the card holds at once."""
+    from mass_tpu_torch.ops import splat
+    query = _library().nms_config
+    query.restype = ctypes.c_int
+    query.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 6)()
+    splat._raise_on(query(int(n), out), "nms config")
+    return dict(zip(("threads", "cluster_blocks", "registers",
+                     "spill_bytes", "shared_bytes", "resident_clusters"),
+                    out))
 
 
 def _bilinear_pool(table: torch.Tensor, offset: torch.Tensor,

@@ -329,13 +329,18 @@ def _paths(name: str):
             os.path.join(BUILD_DIR, f"lib{name}.so"))
 
 
+def nvcc() -> str:
+    """The CUDA compiler: on the path, else under CUDA_HOME."""
+    return shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+
+
 def build(names: Sequence[str] = LIBRARIES) -> Dict[str, float]:
     """Compile the named ``csrc/<name>.cu`` sources for sm_90a, one
     ``nvcc`` each, all started together, skipping a library newer than
     its source.  Returns the seconds until each one was ready."""
     t0 = time.perf_counter()
-    nvcc = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    compiler = nvcc()
     jobs, seconds = {}, {}
     for name in names:
         source, library = _paths(name)
@@ -343,7 +348,7 @@ def build(names: Sequence[str] = LIBRARIES) -> Dict[str, float]:
                 and os.path.getmtime(library) >= os.path.getmtime(source)):
             seconds[name] = 0.0
             continue
-        if not os.path.exists(nvcc):
+        if not os.path.exists(compiler):
             raise RuntimeError(
                 f"nvcc not found: the kernels are built from "
                 f"{os.path.dirname(source)} at first use and need the CUDA "
@@ -351,7 +356,8 @@ def build(names: Sequence[str] = LIBRARIES) -> Dict[str, float]:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{library}.tmp{os.getpid()}"
         jobs[name] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, source], stdout=subprocess.PIPE,
+            [compiler, *NVCC_FLAGS, "-o", tmp, source],
+            stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True), tmp, library, source)
     failed = []
     for name, (proc, tmp, library, source) in jobs.items():

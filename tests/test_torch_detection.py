@@ -72,6 +72,151 @@ def test_nms_batch_equals_each_problem():
                          0.5, [1, 2])
 
 
+# ----------------------------------------------------------------------
+# a CPU model of csrc/nms.cu's algorithm: rank by key, suppression
+# bitmask over the sorted pairs, one warp's walk along the words
+# ----------------------------------------------------------------------
+
+FULL = 0xffffffff
+
+
+def _model_keys(scores):
+    """The kernel's order as one 64-bit key: the score's order bits (-0
+    read as +0) over ~index, so a tie goes to the lower index; 0 for a
+    dead box (-inf or NaN)."""
+    s = np.where(scores == 0, np.float32(0), scores).astype(np.float32)
+    u = s.view(np.uint32)
+    u = np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000))
+    index = ~np.arange(s.shape[0], dtype=np.uint32)
+    keys = (u.astype(np.uint64) << np.uint64(32)) | index.astype(np.uint64)
+    return np.where(s > -np.inf, keys, np.uint64(0))
+
+
+def _model_midpoint(t):
+    """csrc/nms.cu's threshold_midpoint: the midpoint between float32 t
+    and the float below it, in float64, and whether a tie rounds to t."""
+    if np.isnan(t):
+        return np.nan, False
+    if t <= 0:
+        return -np.inf, True
+    above = 2.0 ** 128 if np.isinf(t) else float(t)
+    below = float(np.nextafter(t, np.float32(0)))
+    return 0.5 * (below + above), int(t.view(np.uint32)) % 2 == 0
+
+
+def _model_rows(boxes, threshold):
+    """Bit (r, c) = iou(box r, box c) >= threshold in the kernel's fp32
+    order (fminf/fmaxf ignore NaN, as np.fmin/np.fmax), checked equal to
+    the kernel's test against the threshold's midpoint, packed into
+    32-bit words with position 32w + b at bit 31 - b of word w; words left
+    of the diagonal zero."""
+    zero = np.float32(0)
+    x0, y0, x1, y1 = (boxes[:, k] for k in range(4))
+    area = np.fmax(x1 - x0, zero) * np.fmax(y1 - y0, zero)
+    w = np.fmax(np.fmin(x1[:, None], x1[None]) - np.fmax(x0[:, None],
+                                                          x0[None]), zero)
+    h = np.fmax(np.fmin(y1[:, None], y1[None]) - np.fmax(y0[:, None],
+                                                          y0[None]), zero)
+    inter = w * h
+    divisor = np.fmax((area[:, None] + area[None]) - inter, np.float32(1e-9))
+    with np.errstate(invalid="ignore"):
+        bits = inter / divisor >= np.float32(threshold)
+    # the kernel decides the same bits without the division
+    midpoint, ties_reach = _model_midpoint(np.float32(threshold))
+    product = midpoint * divisor.astype(np.float64)
+    exact = (inter > product) | ((inter == product) & ties_reach)
+    np.testing.assert_array_equal(exact, bits)
+    live = boxes.shape[0]
+    words = -(-live // 32)
+    bits = np.pad(bits, ((0, 0), (0, 32 * words - live)))
+    rows = np.packbits(bits, axis=1).view(">u4").astype(np.int64)
+    for r in range(live):
+        rows[r, :r // 32] = 0
+    return rows
+
+
+def nms_model(boxes, scores, threshold, max_outputs):
+    """The kernel's algorithm in numpy, for ``boxes [P, N, 4]``, ``scores
+    [P, N]`` and caps as :func:`nms_reference` takes them."""
+    P, n = scores.shape
+    counts = TD._counts(max_outputs, P)
+    keep = np.full((P, max(counts)), -1, np.int32)
+    for p in range(P):
+        keys = _model_keys(scores[p])
+        live = np.flatnonzero(keys)
+        position = (keys[None, :] > keys[live][:, None]).sum(1)
+        order = np.empty(live.shape[0], np.int64)
+        order[position] = live
+        rows = _model_rows(boxes[p][order], threshold)
+        words = rows.shape[1]
+        removed = np.zeros(words, np.int64)
+        if live.shape[0] % 32:
+            removed[-1] = FULL >> (live.shape[0] % 32)
+        cap, taken = min(counts[p % len(counts)], n), []
+        for wi in range(words):
+            if len(taken) >= cap:
+                break
+            # the greedy loop over the word's 32 positions on the rows'
+            # own words; a taken box its row leaves free (zero area) is
+            # taken again to the cap
+            cur, word = int(removed[wi]), []
+            for b in range(32):
+                if not (cur >> (31 - b)) & 1:
+                    pos = 32 * wi + b
+                    cur |= int(rows[pos, wi])
+                    word.append(pos)
+                    if not (int(rows[pos, wi]) >> (31 - b)) & 1:
+                        break
+            word = word[:cap - len(taken)]
+            taken += word
+            if word and not (int(rows[word[-1], wi]) >> (31 - word[-1] % 32)
+                             ) & 1:
+                taken += [word[-1]] * (cap - len(taken))
+                break
+            for pos in word:
+                removed[wi + 1:] |= rows[pos, wi + 1:]
+        keep[p, :len(taken)] = order[taken]
+    return keep
+
+
+def _model_and_reference(boxes, scores, threshold, outputs):
+    want = TD.nms_reference(torch.from_numpy(boxes),
+                            torch.from_numpy(scores), threshold, outputs)
+    return nms_model(boxes, scores, threshold, outputs), want.numpy()
+
+
+@pytest.mark.parametrize("name", sorted(TS.NMS_STREAMS))
+def test_nms_model_matches_reference(name):
+    """The kernel's algorithm, rehearsed in numpy, keeps the plain loop's
+    indices on every chosen stream."""
+    boxes, scores, thr, outputs = TS.nms_stream(name)
+    got, want = _model_and_reference(boxes[None], scores[None], thr,
+                                     outputs)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("cycled", [False, True])
+def test_nms_model_on_a_padded_batch(cycled):
+    """Every stream in one padded batch, a cap per problem, or the batch
+    twice over with the caps cycled."""
+    boxes, scores, _, outputs = TS.nms_batch(sorted(TS.NMS_STREAMS), seed=3)
+    if cycled:
+        boxes = np.concatenate([boxes, boxes])
+        scores = np.concatenate([scores, scores])
+    got, want = _model_and_reference(boxes, scores, 0.5, outputs)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("threshold", TS.NMS_SWEEP_THRESHOLDS)
+def test_nms_model_random_sweep(threshold):
+    """Seeded random problems of 1 to 1,024 boxes (ties, dead, zero-area
+    and copied boxes, caps past N) at each threshold."""
+    for boxes, scores, cap in TS.nms_sweep(threshold):
+        got, want = _model_and_reference(boxes[None], scores[None],
+                                         threshold, cap)
+        np.testing.assert_array_equal(got, want, err_msg=f"N={len(scores)}")
+
+
 def test_roi_align_matches_jax():
     rng = np.random.RandomState(1)
     feat = rng.randn(13, 11, 5).astype(np.float32)

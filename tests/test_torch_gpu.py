@@ -655,8 +655,9 @@ def _nms_both(cuda, boxes, scores, threshold, outputs):
 @pytest.mark.parametrize("name", sorted(TS.NMS_STREAMS))
 def test_nms_kernel_on_streams(cuda, name):
     """Each chosen stream alone: the kernel's keep row equals the plain
-    loop on the CPU exactly (ties, signed zeros, repeated zero-area picks,
-    dead boxes, class islands, the widest problem)."""
+    loop on the CPU exactly (ties, +inf and signed-zero scores, repeated
+    zero-area picks, dead boxes, class islands, words of the bitmask, caps
+    above the survivors, thresholds 0 and 1, the widest problem)."""
     boxes, scores, threshold, outputs = TS.nms_stream(name)
     got, want = _nms_both(cuda, boxes[None], scores[None], threshold,
                           outputs)
@@ -674,6 +675,38 @@ def test_nms_kernel_on_a_padded_batch(cuda, cycled):
         scores = np.concatenate([scores, scores])
     got, want = _nms_both(cuda, boxes, scores, 0.5, outputs)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("threshold", TS.NMS_SWEEP_THRESHOLDS)
+def test_nms_kernel_random_sweep(cuda, threshold):
+    """Seeded random problems of 1 to 1,024 boxes at each threshold, each
+    alone and all in one launch padded with -inf scores."""
+    problems = TS.nms_sweep(threshold)
+    for boxes, scores, cap in problems:
+        got, want = _nms_both(cuda, boxes[None], scores[None], threshold,
+                              cap)
+        assert torch.equal(got, want), f"N={len(scores)}"
+    n = max(len(s) for _, s, _ in problems)
+    boxes = np.zeros((len(problems), n, 4), np.float32)
+    scores = np.full((len(problems), n), -np.inf, np.float32)
+    for p, (b, s, _) in enumerate(problems):
+        boxes[p, :len(s)], scores[p, :len(s)] = b, s
+    got, want = _nms_both(cuda, boxes, scores, threshold,
+                          [cap for _, _, cap in problems])
+    assert torch.equal(got, want)
+
+
+def test_nms_kernel_config(cuda):
+    """A cluster of blocks a problem, no spills, and at N = 1,024 (128 KB
+    of rows) a cluster still fits the card."""
+    from mass_tpu_torch.ops import detection as D
+
+    for n in (1, 500, TS.NMS_MAX_BOXES):
+        config = D.nms_config(n)
+        assert config["cluster_blocks"] > 1 and config["spill_bytes"] == 0
+        assert config["resident_clusters"] >= 1, config
+    with pytest.raises(RuntimeError):
+        D.nms_config(TS.NMS_MAX_BOXES + 1)
 
 
 def test_nms_kernel_wrapper_rejects_bad_inputs(cuda):

@@ -142,3 +142,7 @@ def test_kernel_sources_stand_alone():
         assert library.endswith(f"build/kernels/lib{name}.so")
     with open(splat._paths("splat_onehot")[0]) as f:
         assert 'extern "C" int splat_onehot_tile(' in f.read()
+    with open(splat._paths("nms")[0]) as f:
+        text = f.read()
+    for entry in ("nms_config(", "nms_step_probe("):
+        assert f'extern "C" int {entry}' in text, entry

@@ -257,7 +257,7 @@ def dense_stream(name: str, num_features: int, seed: int = 0):
 # greedy NMS (ops/detection.nms and csrc/nms.cu): chosen box streams
 # ----------------------------------------------------------------------
 
-NMS_MAX_BOXES = 1024    # csrc/nms.cu: kPer * kMaxThreads
+NMS_MAX_BOXES = 1024    # csrc/nms.cu: kMaxBoxes
 
 
 def _random_boxes(rng, n: int, size: float = 224.0, scale: float = 60.0):
@@ -339,6 +339,119 @@ def _nms_widest(rng):
             rng.rand(NMS_MAX_BOXES), 0.4, 300)
 
 
+def _integer_boxes(rng, n: int, size: int = 224, scale: int = 60):
+    # integer corners: every area and intersection is exact in float32,
+    # so an IoU of exactly 1 or exactly the threshold is the same number
+    # in every framework's operation order
+    xy = rng.randint(0, size - 4, (n, 2))
+    wh = rng.randint(1, scale, (n, 2))
+    return np.concatenate([xy, np.minimum(xy + wh, size)], 1)
+
+
+def _nms_single_box(rng):
+    return _integer_boxes(rng, 1), rng.rand(1), 0.5, 3
+
+
+def _nms_word_boundaries(rng):
+    # scores fall with the index, so sorted position = index; copies of
+    # boxes in the word before sit just past 32, 64 and 96, and chains
+    # of suppression cross each boundary (a victim of a suppressed box
+    # survives)
+    boxes = _integer_boxes(rng, 97, scale=40)
+    for src, dst in ((31, 32), (30, 33), (0, 64), (63, 64), (62, 65),
+                     (95, 96), (33, 96), (1, 95), (29, 63)):
+        boxes[dst] = boxes[src] + np.array([1, 0, 1, 1])
+    boxes[34] = boxes[32] + np.array([0, 2, 0, 2])     # its killer dies
+    return boxes, np.linspace(1.0, 0.0, 97), 0.5, 97
+
+
+def _nms_cap_above_live(rng):
+    # ten islands of six overlapping boxes: ten survive, the cap is 50
+    xy = rng.randint(0, 180, (10, 2)) + (np.arange(10) * 210)[:, None]
+    base = np.concatenate([xy, xy + rng.randint(12, 20, (10, 2))], 1)
+    jitter = rng.randint(0, 2, (10, 6, 4))
+    boxes = (base[:, None, :] + jitter).reshape(60, 4)
+    return boxes, rng.rand(60), 0.5, 50
+
+
+def _nms_positive_inf_scores(rng):
+    # +inf scores tie: the lowest index among them is picked first
+    boxes = _integer_boxes(rng, 80)
+    boxes[[21, 50]] = boxes[3]
+    scores = rng.randn(80)
+    scores[[7, 3, 50, 21, 66]] = np.inf
+    scores[[5, 12]] = -np.inf
+    return boxes, scores, 0.5, 40
+
+
+def _nms_threshold_one(rng):
+    # exact duplicates (IoU exactly 1) suppress at threshold 1.0; no
+    # other pair reaches it
+    base = _integer_boxes(rng, 30)
+    boxes = np.concatenate([base, base, base[::2]])
+    return boxes, rng.rand(boxes.shape[0]), 1.0, boxes.shape[0]
+
+
+def _nms_threshold_zero(rng):
+    # IoU >= 0 always: the first pick, a zero-area box, suppresses all,
+    # itself included
+    boxes = _integer_boxes(rng, 50)
+    boxes[9, 2] = boxes[9, 0]
+    scores = rng.rand(50)
+    scores[9] = 2.0
+    return boxes, scores, 0.0, 20
+
+
+def _nms_zero_area_mid_word(rng):
+    # a zero-area box at sorted position 40 of 100: the boxes before it
+    # are taken in order, then it repeats to the cap
+    boxes = _integer_boxes(rng, 100)
+    scores = rng.rand(100)
+    z = np.argsort(-scores, kind="stable")[40]
+    boxes[z, 3] = boxes[z, 1]
+    return boxes, scores, 0.5, 100
+
+
+def _iou32(a, b):
+    # box_iou's float32 operation order for one pair
+    f = np.float32
+    area = [f(max(f(x[2] - x[0]), f(0))) * f(max(f(x[3] - x[1]), f(0)))
+            for x in (a, b)]
+    w = max(f(min(a[2], b[2]) - max(a[0], b[0])), f(0))
+    h = max(f(min(a[3], b[3]) - max(a[1], b[1])), f(0))
+    inter = f(w * h)
+    return f(inter / max(f(f(area[0] + area[1]) - inter), f(1e-9)))
+
+
+def _nms_threshold_ulps(rng):
+    # pairs whose float32 IoU is the threshold itself, the float below it
+    # and the float above: each larger box is picked, and its partner is
+    # suppressed exactly when the IoU reaches 0.7 in float32
+    t = np.float32(0.7)
+    targets = [np.nextafter(t, np.float32(0)), t,
+               np.nextafter(t, np.float32(1))]
+    boxes, scores = [], []
+    for island in range(24):
+        target = targets[island % 3]
+        while True:
+            x0, y0 = rng.uniform(0, 150, 2).astype(np.float32) + 200 * island
+            big = np.array([x0, y0, x0 + rng.uniform(20, 60),
+                            y0 + rng.uniform(20, 60)], np.float32)
+            small = big.copy()
+            small[2] = x0 + (big[2] - x0) * t
+            for _ in range(64):          # walk the edge to the target IoU
+                got = _iou32(big, small)
+                if got == target:
+                    break
+                small[2] = np.nextafter(small[2], np.float32(
+                    np.inf if got < target else -np.inf))
+            if _iou32(big, small) == target:
+                break
+        boxes += [big, small]
+        scores += [1.0 - island / 100, 0.5 - island / 100]
+    return np.array(boxes), np.array(scores), float(t), 48
+
+
 NMS_STREAMS = {
     "random": _nms_random,
     "rpn_level": _nms_rpn_level,
@@ -351,6 +464,14 @@ NMS_STREAMS = {
     "class_offsets": _nms_class_offsets,
     "duplicates": _nms_duplicates,
     "widest": _nms_widest,
+    "single_box": _nms_single_box,
+    "word_boundaries": _nms_word_boundaries,
+    "cap_above_live": _nms_cap_above_live,
+    "positive_inf_scores": _nms_positive_inf_scores,
+    "threshold_one": _nms_threshold_one,
+    "threshold_zero": _nms_threshold_zero,
+    "zero_area_mid_word": _nms_zero_area_mid_word,
+    "threshold_ulps": _nms_threshold_ulps,
 }
 
 
@@ -374,3 +495,30 @@ def nms_batch(names, seed: int = 0):
         boxes[p, :len(b)] = b
         scores[p, :len(s)] = s
     return boxes, scores, [s[2] for s in streams], [s[3] for s in streams]
+
+
+# sizes of the seeded NMS sweep: 1 to NMS_MAX_BOXES, around the 32-box
+# words of the kernel's bitmask and the detector's 500 and 512
+NMS_SWEEP_SIZES = (1, 2, 31, 32, 33, 64, 97, 200, 500, 512, 777, 1024)
+NMS_SWEEP_THRESHOLDS = (0.0, 0.3, 0.5, 0.7, 1.0)
+
+
+def nms_sweep(threshold: float, seed: int = 0):
+    """Seeded random NMS problems, one of each size of
+    :data:`NMS_SWEEP_SIZES`: ``[(boxes [N, 4], scores [N] float32,
+    max_outputs)]``.  Scores rounded to two decimals (ties), a tenth
+    dead (-inf), a twentieth of the boxes zero-area and a tenth exact
+    copies of another box; caps from 1 to N + 8."""
+    rng = np.random.RandomState(seed + int(round(1000 * threshold)))
+    out = []
+    for n in NMS_SWEEP_SIZES:
+        boxes = _random_boxes(rng, n, scale=rng.choice([20.0, 60.0, 120.0]))
+        copies = rng.rand(n) < 0.1
+        boxes[copies] = boxes[rng.randint(0, n, int(copies.sum()))]
+        flat = rng.rand(n) < 0.05
+        boxes[flat, 2] = boxes[flat, 0]
+        scores = np.round(rng.rand(n), 2)
+        scores[rng.rand(n) < 0.1] = -np.inf
+        out.append((boxes.astype(np.float32), scores.astype(np.float32),
+                    int(rng.randint(1, n + 9))))
+    return out
