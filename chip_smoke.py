@@ -55,7 +55,19 @@ against the CPU by the margin rule of ``tests/torch_margins.py``, with
 ms a frame by stage; a small learned episode on the card and the CPU
 (equal); the full-width learned episode through the CLI
 (``--detector-checkpoint``), and a ``--fleet-size 2 --seed -2`` learned
-fleet whose task 2 must equal it.
+fleet whose task 2 must equal it.  Then training: the search-data
+collector (``python -m mass_tpu_torch.search.dataset``) over tasks 0-7
+at its defaults on the card, task 0 again on the CPU (equal cells and
+counts, snapshots within one float16 ulp), every frame one group splat
+and one launch (the walkthrough's pair on the multi-map kernel, the
+unshuffle's map on the single-map kernel), and one task at full width;
+``search.train.fit`` at its defaults, plain and ``--conditioned``, twice
+on the card (bit-equal) with its first steps against the CPU, each
+``.pth`` through a small ``--policy-checkpoint`` episode; the policy's
+training step at batch 8 on the full-width snapshots against its FLOP
+bound; and the UNet: ``detector_dataset`` at camera 224, two epochs of
+``train_detector`` on the card, its ``segmenter.pth`` through a small
+``--detector-arch unet`` episode.
 
 Exits non-zero when there is no CUDA card, when a kernel fails to build,
 launch or agree, or when any phase fails.  The line before the last is
@@ -66,10 +78,13 @@ Details also go to ``build/chip_smoke/report.json``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2309,6 +2324,448 @@ def phase_small_learned() -> dict:
                 metrics=outcome(gpu), **counts)
 
 
+# ----------------------------------------------------------------------
+# training (search/dataset.py, search/train.py, tools/detector_dataset.py,
+# perception/train_detector.py)
+# ----------------------------------------------------------------------
+
+SEARCH_TASKS = 8
+SEARCH_DIR = os.path.join("build", "chip_smoke", "search-data")
+SEARCH_FULL_DIR = os.path.join("build", "chip_smoke", "search-data-full")
+# the collector at full width: the CLI's geometry, budgets 5 + 5
+SEARCH_FULL_ARGS = [
+    "--camera-size", "224", "--map-height", "384", "--map-width", "384",
+    "--map-depth", "96", "--grid-resolution", "0.05", "--step-size", "5",
+    "--obstacle-padding", "4", "--map-slice-start", "20",
+    "--map-slice-stop", "48", "--exploration-goals", "5"]
+# the first steps' losses of a fit on the card against the CPU: cuDNN and
+# the CPU sum each conv in another order (the CPU tests hold the port to
+# JAX at the same rtol)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_CHECK_STEPS = 10
+SEGMENTER_DIR = os.path.join("build", "chip_smoke", "segmenter")
+
+
+class UpdateTimer:
+    """Host time, card synced, of every ``MapSet.update_group`` call (one
+    frame folded into the named maps)."""
+
+    def __enter__(self):
+        from mass_tpu_torch.maps import layers as L
+
+        self.ms = []
+        self._update_group = L.MapSet.update_group
+
+        def update_group(maps, names, observation):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self._update_group(maps, names, observation)
+            torch.cuda.synchronize()
+            self.ms.append(1e3 * (time.perf_counter() - t0))
+        L.MapSet.update_group = update_group
+        return self
+
+    def __exit__(self, *exc):
+        from mass_tpu_torch.maps import layers as L
+
+        L.MapSet.update_group = self._update_group
+
+
+def collector_launches(counter: SplatCounter, single: int,
+                       multi: int) -> dict:
+    """Every collector frame is one group splat and one launch: the
+    walkthrough's (occupancy, semantic0) pair on the multi-map kernel,
+    the unshuffle's semantic1 on the single-map kernel."""
+    pairs = sum(1 for n in counter.splats if n == 2)
+    ones = sum(1 for n in counter.splats if n == 1)
+    check(pairs + ones == len(counter.splats) > 0,
+          f"collector group splats of sizes {sorted(set(counter.splats))}")
+    check(single == ones and multi == pairs,
+          f"{single} single-map + {multi} multi-map launches for {ones} "
+          f"one-map and {pairs} two-map group splats")
+    names = set(counter.update_groups)
+    check(names == {("occupancy", "semantic0"), ("semantic1",)},
+          f"collector update_group calls name {names}")
+    return dict(launches=single, multi_launches=multi,
+                group_splats=len(counter.splats))
+
+
+def npz_tasks(logdir: str) -> dict:
+    out = {}
+    for name in sorted(os.listdir(logdir)):
+        with np.load(os.path.join(logdir, name)) as z:
+            out[name] = {k: z[k] for k in z.files}
+    return out
+
+
+def phase_search_data() -> dict:
+    """``python -m mass_tpu_torch.search.dataset`` at its defaults (80x80x24
+    at 0.125 m, camera 48, budgets 3 + 2) over tasks 0-7 on the card, and
+    task 0 again on the CPU: equal cells and snapshot counts, snapshots
+    within one float16 ulp; one launch per group splat."""
+    from mass_tpu_torch.ops import splat as SP
+    from mass_tpu_torch.search import dataset as SD
+
+    gpu_dir, cpu_dir = SEARCH_DIR, SEARCH_DIR + "-cpu"
+    for d in (gpu_dir, cpu_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    per_task = []
+    with SplatCounter() as counter:
+        # the collector's path starts here
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = 0
+        t0 = time.perf_counter()
+        for task in range(SEARCH_TASKS):
+            SD.main(["--logdir", gpu_dir, "--start-task", str(task),
+                     "--total-tasks", "1"])
+            torch.cuda.synchronize()
+            per_task.append(time.perf_counter() - t0 - sum(per_task))
+        single, multi = SP.LAUNCHES, SP.MULTI_LAUNCHES
+        # and ends here
+    counts = collector_launches(counter, single, multi)
+    t0 = time.perf_counter()
+    SD.main(["--logdir", cpu_dir, "--total-tasks", "1", "--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    gpu, cpu = npz_tasks(gpu_dir), npz_tasks(cpu_dir)
+    check(len(gpu) == SEARCH_TASKS, f"{len(gpu)} task files")
+    a, b = gpu["task-0.npz"], cpu["task-0.npz"]
+    for key in ("cells0", "cells1"):
+        check(np.array_equal(a[key], b[key]), f"task 0 {key}: cuda "
+              f"{a[key].tolist()} against cpu {b[key].tolist()}")
+    worst = 0.0
+    for key in ("tops0", "tops1"):
+        check(a[key].shape == b[key].shape, f"task 0 {key} shapes "
+              f"{a[key].shape} against {b[key].shape}")
+        ulp = np.spacing(np.maximum(np.abs(a[key]), np.abs(b[key])))
+        diff = np.abs(a[key].astype(np.float32) - b[key].astype(np.float32))
+        check((diff <= ulp.astype(np.float32)).all(),
+              f"task 0 {key}: cuda and cpu differ by {diff.max()}")
+        worst = max(worst, float(diff.max()))
+    snapshots = sum(len(t["tops0"]) + len(t["tops1"]) for t in gpu.values())
+    labels = sum(len(t["cells0"]) for t in gpu.values())
+    return dict(tasks=SEARCH_TASKS, wall_s_per_task=per_task,
+                cpu_task0_s=cpu_s, snapshots=snapshots, labels=labels,
+                max_abs_diff_cpu=worst,
+                map_updates=len(counter.update_groups), **counts)
+
+
+def phase_search_data_full() -> dict:
+    """One collector task at full width (384x384x96x54, camera 224, budgets
+    5 + 5): wall, host time per map update (card synced), launches by
+    kernel, snapshots, peak memory."""
+    from mass_tpu_torch.ops import splat as SP
+    from mass_tpu_torch.search import dataset as SD
+
+    shutil.rmtree(SEARCH_FULL_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with SplatCounter() as counter, UpdateTimer() as timer:
+        # the collector's path starts here
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = 0
+        t0 = time.perf_counter()
+        SD.main(["--logdir", SEARCH_FULL_DIR, "--total-tasks", "1"]
+                + SEARCH_FULL_ARGS)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        single, multi = SP.LAUNCHES, SP.MULTI_LAUNCHES
+        # and ends here
+    counts = collector_launches(counter, single, multi)
+    data = npz_tasks(SEARCH_FULL_DIR)["task-0.npz"]
+    args = SD.build_parser().parse_args(["--logdir", SEARCH_FULL_DIR]
+                                        + SEARCH_FULL_ARGS)
+    shape = (args.map_height, args.map_width, 54)
+    check(data["tops0"].shape[1:] == data["tops1"].shape[1:] == shape
+          and len(data["tops0"]) > 0 and len(data["tops1"]) > 1,
+          f"full-width snapshots {data['tops0'].shape} and "
+          f"{data['tops1'].shape}")
+    check(bool(data["tops0"][-1].any()), "the full-width walkthrough map "
+          "stayed empty")
+    return dict(wall_s=wall_s, map_updates=len(timer.ms),
+                update_ms_mean=float(np.mean(timer.ms)),
+                update_ms_median=float(np.median(timer.ms)),
+                snapshots=len(data["tops0"]) + len(data["tops1"]),
+                labels=len(data["cells0"]),
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                **counts)
+
+
+class LossRecorder:
+    """The loss of every ``search.train.train_step`` call in a fit."""
+
+    def __enter__(self):
+        from mass_tpu_torch.search import train as ST
+
+        self.losses = []
+        self._step = ST.train_step
+
+        def step(*args):
+            loss = self._step(*args)
+            self.losses.append(loss.item())
+            return loss
+        ST.train_step = step
+        return self
+
+    def __exit__(self, *exc):
+        from mass_tpu_torch.search import train as ST
+
+        ST.train_step = self._step
+
+
+def small_policy_episode(path: str, conditioned: bool) -> dict:
+    """A small policy-head episode through the CLI on the card (80x80x24,
+    camera 48, task 2): the plain .pth on both phases' goals, the
+    conditioned one with inhibition; one launch per group splat."""
+    from mass_tpu_torch.agent import cli
+    from mass_tpu_torch.ops import splat as SP
+
+    logdir = os.path.join("build", "chip_smoke",
+                          f"policy-episode-{int(conditioned)}")
+    flags = ["--ground-truth-segmentation", "--semantic-search-walkthrough",
+             "--semantic-search-unshuffle", "--policy-checkpoint", path]
+    if conditioned:
+        flags += ["--policy-inhibition-radius", "8"]
+    with SplatCounter() as counter:
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = 0
+        t0 = time.perf_counter()
+        metrics = cli.main(SMALL_CLI_ARGS + flags + ["--logdir", logdir])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        single, multi = SP.LAUNCHES, SP.MULTI_LAUNCHES
+    check(len(metrics) == 1, "the CLI ran no policy episode")
+    with open(os.path.join(logdir, "results", "2.json")) as f:
+        results = json.load(f)
+    updates = results["timing"]["mapping"]["count"]
+    counts = counter.check_sequential(single, multi, updates, False)
+    check(results["timing"]["search_policy"]["count"] > 0,
+          "the policy chose no goal")
+    return dict(wall_s=wall_s, prop_fixed=results["unshuffle/prop_fixed"],
+                policy_goals=results["timing"]["search_policy"]["count"],
+                **counts)
+
+
+# the small episode geometry (small_config) as CLI flags
+SMALL_CLI_ARGS = [
+    "--backend", "gridworld", "--camera-size", "48", "--map-height", "80",
+    "--map-width", "80", "--map-depth", "24", "--grid-resolution", "0.125",
+    "--step-size", "2", "--obstacle-padding", "2", "--map-slice-start", "0",
+    "--map-slice-stop", "12", "--ground-truth-disagreement",
+    "--exploration-budget-one", "2", "--exploration-budget-two", "2",
+    "--num-objects", "2", "--num-misplaced", "1", "--num-opened", "0",
+    "--start-task", "2", "--total-tasks", "1"]
+
+
+def phase_search_train() -> dict:
+    """``search.train.fit`` at its defaults (600 steps, batch 8, sigma 2,
+    decay 1e-4, augmentation) on the collected 80x80 data, plain (the host
+    path) and ``--conditioned`` (the device path): wall per step, the best
+    validation NLL against uniform; the first steps' losses on the card
+    against a CPU fit; a second card fit bit-equal; each .pth through a
+    small policy-head episode on the card."""
+    from mass_tpu_torch.search import train as ST
+
+    out = {}
+    for conditioned in (False, True):
+        tag = "conditioned" if conditioned else "plain"
+        paths = [os.path.join("build", "chip_smoke", f"policy-{tag}-{k}.pth")
+                 for k in range(2)]
+        runs = []
+        for path in paths:
+            log = io.StringIO()
+            with LossRecorder() as rec, contextlib.redirect_stdout(log):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                nll, dist = ST.fit(SEARCH_DIR, path, conditioned=conditioned)
+                torch.cuda.synchronize()
+                runs.append(dict(wall_s=time.perf_counter() - t0, nll=nll,
+                                 dist=dist, losses=rec.losses,
+                                 log=log.getvalue().splitlines()))
+        a, b = (torch.load(p, map_location="cpu", weights_only=True)
+                for p in paths)
+        equal = sorted(a) == sorted(b) and all(
+            torch.equal(a[k], b[k]) for k in a)
+        check(equal, f"{tag}: two card fits from one seed differ")
+        check(runs[0]["losses"] == runs[1]["losses"],
+              f"{tag}: two card fits' losses differ")
+        with LossRecorder() as rec, contextlib.redirect_stdout(io.StringIO()):
+            ST.fit(SEARCH_DIR, os.path.join("build", "chip_smoke",
+                                            f"policy-{tag}-cpu.pth"),
+                   steps=TRAIN_CHECK_STEPS, conditioned=conditioned,
+                   device="cpu")
+        card = np.asarray(runs[0]["losses"][:TRAIN_CHECK_STEPS])
+        cpu = np.asarray(rec.losses)
+        rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+        check(rel <= TRAIN_LOSS_RTOL, f"{tag}: the first "
+              f"{TRAIN_CHECK_STEPS} losses differ card against cpu by "
+              f"{rel:.3g} (rtol {TRAIN_LOSS_RTOL})")
+        h = w = 80
+        channels = int(a["0.weight"].shape[1])
+        check(channels == (108 if conditioned else 54),
+              f"{tag}: the .pth's first conv takes {channels} channels")
+        check(np.isfinite(runs[0]["nll"]) and runs[0]["nll"] < np.log(h * w),
+              f"{tag}: best val NLL {runs[0]['nll']} not below uniform")
+        out[tag] = dict(
+            steps=len(runs[0]["losses"]), channels=channels,
+            wall_s=runs[0]["wall_s"],
+            ms_per_step=1e3 * runs[0]["wall_s"] / len(runs[0]["losses"]),
+            best_val_nll=runs[0]["nll"], val_argmax_dist=runs[0]["dist"],
+            uniform_nll=float(np.log(h * w)), first_loss=card[0],
+            last_loss=runs[0]["losses"][-1], card_cpu_loss_rel_diff=rel,
+            runs_bit_equal=equal, log=runs[0]["log"],
+            best_line=next(line for line in runs[0]["log"]
+                           if line.startswith("best:")),
+            episode=small_policy_episode(paths[0], conditioned))
+    return out
+
+
+def policy_train_flops(batch: int, h: int, w: int, channels: int) -> int:
+    """Forward, input-gradient and weight-gradient passes of the five
+    convs: three times the forward's multiply-adds, two operations each."""
+    return 3 * batch * conv_flops(h, w, channels)
+
+
+def phase_search_train_full(dev) -> dict:
+    """``train_step`` at batch 8 on the full-width snapshots (384x384, 54
+    channels, and 108 with the walkthrough context): median of 20 steps
+    after warm-up (CUDA events), peak memory, the FLOP bound."""
+    from mass_tpu_torch.search import train as ST
+
+    data = npz_tasks(SEARCH_FULL_DIR)["task-0.npz"]
+    tops = np.concatenate([data["tops0"], data["tops1"]])
+    cells = np.concatenate([data["cells0"], data["cells1"]])
+    batch = 8
+    pick = np.arange(batch) % len(tops)
+    x54 = torch.from_numpy(tops[pick].astype(np.float32)).to(dev)
+    goals = torch.from_numpy(cells[np.arange(batch) % len(cells)]).to(dev)
+    ctx = torch.from_numpy(data["tops0"][-1].astype(np.float32)).to(dev)
+    out = {}
+    for channels in (54, 108):
+        x = x54 if channels == 54 else torch.cat(
+            [x54, ctx.expand_as(x54)], dim=-1)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = ST.create_train_state(torch.Generator().manual_seed(0),
+                                      channels, 3e-4, 1e-4, dev)
+        for _ in range(3):
+            ST.train_step(state, x, goals, 2.0)
+        times = []
+        for _ in range(20):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = ST.train_step(state, x, goals, 2.0)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        check(np.isfinite(loss.item()), f"{channels} channels: loss {loss}")
+        h, w = x.shape[1:3]
+        flops = policy_train_flops(batch, h, w, channels)
+        out[channels] = dict(
+            batch=batch, ms=float(np.median(times)),
+            peak_memory_bytes=torch.cuda.max_memory_allocated(),
+            **bound(0, flops))
+        del state, x
+    return out
+
+
+def unet_forward_flops(size: int, num_classes: int = 54,
+                       widths=(32, 64, 128, 256)) -> int:
+    """Multiply-adds (two operations each) of the UNet's convs on one
+    ``size`` x ``size`` image; norms, pools and upsampling add under 2%."""
+    macs, cin, s = 0, 3, size
+    for w in widths[:-1]:
+        macs += 9 * s * s * (cin * w + w * w)
+        cin, s = w, s // 2
+    macs += 9 * s * s * (cin * widths[-1] + widths[-1] ** 2)
+    cin = widths[-1]
+    for w in reversed(widths[:-1]):
+        s *= 2
+        macs += 9 * s * s * ((cin + w) * w + w * w)
+        cin = w
+    macs += s * s * cin * num_classes
+    return 2 * macs
+
+
+def phase_segmenter_train(dev) -> dict:
+    """``detector_dataset generate`` at camera 224 (2 tasks x 8 poses) and
+    ``format`` (a quarter for validation), ``train_detector.train`` for two
+    epochs at batch 8 on the card: the loss falls and pixel accuracy rises
+    over the untrained network; ms per step against the FLOP bound;
+    ``segmenter.pth`` through a small ``--detector-arch unet`` episode on
+    the card."""
+    from mass_tpu_torch.agent import cli
+    from mass_tpu_torch.ops import splat as SP
+    from mass_tpu_torch.perception import detector as PD
+    from mass_tpu_torch.perception import train_detector as TD
+    from mass_tpu_torch.tools import detector_dataset as DD
+
+    data, logdir = SEGMENTER_DIR + "-data", SEGMENTER_DIR
+    for d in (data, logdir):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    DD.main(["generate", "--logdir", data, "--total-tasks", "2",
+             "--poses-per-scene", "8", "--camera-size", "224"])
+    DD.main(["format", "--logdir", data, "--validation-fraction", "0.25"])
+    dataset_s = time.perf_counter() - t0
+    val = TD.load_split(data, "validation")
+    before = TD.evaluate(PD.init_segmenter(
+        torch.Generator().manual_seed(0)).to(dev), *val)
+    steps = []
+    make_step = TD.make_train_step
+
+    def timed_make_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def timed(rgb, sem):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = step(rgb, sem)
+            end.record()
+            torch.cuda.synchronize()
+            steps.append(start.elapsed_time(end))
+            return loss
+        return timed
+    TD.make_train_step = timed_make_step
+    try:
+        t0 = time.perf_counter()
+        _, history = TD.train(data, logdir, epochs=2, batch_size=8)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        TD.make_train_step = make_step
+    after = history[-1]
+    check(history[-1]["loss"] < history[0]["loss"],
+          f"segmenter loss {[h['loss'] for h in history]} did not fall")
+    check(after["pixel_accuracy"] > before["pixel_accuracy"],
+          f"pixel accuracy {after['pixel_accuracy']} not above the "
+          f"untrained {before['pixel_accuracy']}")
+    path = os.path.join(logdir, "segmenter.pth")
+    episode_dir = os.path.join("build", "chip_smoke", "unet-episode")
+    with SplatCounter() as counter:
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = 0
+        t0 = time.perf_counter()
+        metrics = cli.main(SMALL_CLI_ARGS + [
+            "--detector-arch", "unet", "--detector-checkpoint", path,
+            "--logdir", episode_dir])
+        torch.cuda.synchronize()
+        episode_s = time.perf_counter() - t0
+        single, multi = SP.LAUNCHES, SP.MULTI_LAUNCHES
+    check(len(metrics) == 1, "the CLI ran no UNet episode")
+    with open(os.path.join(episode_dir, "results", "2.json")) as f:
+        results = json.load(f)
+    counts = counter.check_sequential(
+        single, multi, results["timing"]["mapping"]["count"], False)
+    with open(os.path.join(data, "training.json")) as f:
+        train_images = len(json.load(f))
+    flops = 3 * 8 * unet_forward_flops(224)
+    return dict(train_images=train_images, val_images=len(val[0]),
+                dataset_s=dataset_s, train_s=train_s,
+                steps=len(steps), ms=float(np.median(steps)),
+                **bound(0, flops), before=before, history=history,
+                episode=dict(wall_s=episode_s, **counts))
+
+
 def kernel_line(name: str, replaces: str, launches: int,
                 phase: dict) -> dict:
     from mass_tpu_torch.ops import splat as SP
@@ -2762,6 +3219,78 @@ def main() -> int:
           f"calls of 2 frames ({fleet['sensor_mean_ms']:.2f} ms each)")
     print(f"[{tag}] fleet_timing {json.dumps(fleet['fleet_timing'])}")
 
+    training_start = time.perf_counter()
+    data = report["search_data"] = phase_search_data()
+    tag = "search data 80x80x24"
+    print(f"[{tag}] tasks 0-{data['tasks'] - 1} on cuda: "
+          f"{data['snapshots']} snapshots, {data['labels']} labels; wall s "
+          f"per task {' '.join(f'{s:.2f}' for s in data['wall_s_per_task'])}"
+          f"; task 0 on cpu {data['cpu_task0_s']:.1f} s: cells and counts "
+          f"equal, snapshots within one float16 ulp (largest difference "
+          f"{data['max_abs_diff_cpu']:.3g})")
+    print(f"[{tag}] launches: splat_onehot {data['launches']} (unshuffle, "
+          f"semantic1), splat_onehot_multi {data['multi_launches']} "
+          f"(walkthrough, occupancy + semantic0) for {data['group_splats']} "
+          f"group splats and {data['map_updates']} map updates")
+    full_data = report["search_data_full"] = phase_search_data_full()
+    tag = "search data 384x384x96x54"
+    print(f"[{tag}] one task, camera 224, budgets 5 + 5: wall "
+          f"{full_data['wall_s']:.1f} s, {full_data['snapshots']} snapshots, "
+          f"{full_data['labels']} labels; map update "
+          f"{full_data['update_ms_mean']:.2f} ms mean, "
+          f"{full_data['update_ms_median']:.2f} median (host clock, card "
+          f"synced; {full_data['map_updates']} updates); launches "
+          f"splat_onehot {full_data['launches']}, splat_onehot_multi "
+          f"{full_data['multi_launches']}; peak memory "
+          f"{full_data['peak_memory_bytes'] / 2**30:.2f} GiB")
+    trained = report["search_train"] = phase_search_train()
+    for variant, t in trained.items():
+        ep = t["episode"]
+        print(f"[search train] {variant} ({t['channels']} channels), "
+              f"{t['steps']} steps: {t['ms_per_step']:.2f} ms a step (fit "
+              f"wall {t['wall_s']:.1f} s, validation included); best val "
+              f"NLL {t['best_val_nll']:.3f} against uniform "
+              f"{t['uniform_nll']:.3f}, argmax distance "
+              f"{t['val_argmax_dist']:.1f} cells; loss {t['first_loss']:.3f}"
+              f" -> {t['last_loss']:.3f}; first {TRAIN_CHECK_STEPS} losses "
+              f"card vs cpu {t['card_cpu_loss_rel_diff']:.3g} (rtol "
+              f"{TRAIN_LOSS_RTOL}); two card fits bit-equal: "
+              f"{t['runs_bit_equal']}")
+        print(f"[search train] {variant}: {t['best_line']}")
+        print(f"[search train] {variant} .pth through the CLI on cuda: "
+              f"{ep['policy_goals']} policy goals, wall {ep['wall_s']:.1f} s, "
+              f"prop_fixed {ep['prop_fixed']}; launches splat_onehot "
+              f"{ep['launches']} for {ep['group_splats']} group splats")
+    full_train = report["search_train_full"] = phase_search_train_full(dev)
+    for channels, t in full_train.items():
+        print(f"[search train 384x384] {channels} channels, batch "
+              f"{t['batch']}: {t['ms']:.2f} ms a step (median of 20 after "
+              f"warm-up, CUDA events); bound {t['bound_ms']:.2f} ms by "
+              f"{t['bound_by']}: {t['flops'] / 1e12:.3f} TFLOP at "
+              f"{FP32_FLOPS / 1e12:.0f} TFLOP/s fp32 "
+              f"({t['ms'] / t['bound_ms']:.1f}x the bound); peak memory "
+              f"{t['peak_memory_bytes'] / 2**30:.2f} GiB")
+    seg = report["segmenter_train"] = phase_segmenter_train(dev)
+    hist = seg["history"]
+    print(f"[segmenter train] camera 224, {seg['train_images']} training + "
+          f"{seg['val_images']} validation images (generate and format "
+          f"{seg['dataset_s']:.1f} s); 2 epochs at batch 8, {seg['steps']} "
+          f"steps in {seg['train_s']:.1f} s: loss "
+          f"{hist[0]['loss']:.3f} -> {hist[-1]['loss']:.3f}, pixel accuracy "
+          f"{seg['before']['pixel_accuracy']:.3f} untrained -> "
+          f"{hist[-1]['pixel_accuracy']:.3f}, mIoU "
+          f"{seg['before']['miou']:.3f} -> {hist[-1]['miou']:.3f}")
+    print(f"[segmenter train] {seg['ms']:.2f} ms a step (median, CUDA "
+          f"events); bound {seg['bound_ms']:.2f} ms by {seg['bound_by']}: "
+          f"{seg['flops'] / 1e12:.3f} TFLOP at {FP32_FLOPS / 1e12:.0f} "
+          f"TFLOP/s fp32; segmenter.pth through --detector-arch unet on "
+          f"cuda: wall {seg['episode']['wall_s']:.1f} s, launches "
+          f"splat_onehot {seg['episode']['launches']} for "
+          f"{seg['episode']['group_splats']} group splats")
+    report["training_s"] = time.perf_counter() - training_start
+    print(f"[training] the five training phases took "
+          f"{report['training_s']:.1f} s")
+
     kernels = [
         kernel_line("splat_onehot", "mass_tpu/ops/pallas_splat.py:756",
                     full["launches"], kernel),
@@ -2785,7 +3314,7 @@ def main() -> int:
     print(f"[total] {report['total_s']:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -36,11 +36,9 @@ from mass_tpu_torch.config import (AgentConfig, CameraConfig, MatchConfig,
                                    NavConfig)
 
 
-def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser("mass_tpu_torch rearrangement agent")
-    p.add_argument("--logdir", type=str, default="./mass-tpu-logs")
-    p.add_argument("--backend", type=str, default="gridworld",
-                   choices=["gridworld", "thor"])
+def add_device_flags(p: argparse.ArgumentParser) -> None:
+    """``--device`` and its alias ``--platform cpu`` (the JAX package's
+    spelling), shared by the port's entry points."""
     p.add_argument("--device", type=str, default=None,
                    choices=["cuda", "cpu"],
                    help="where the maps live and the kernels run (default "
@@ -50,6 +48,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mass_tpu's spelling of --device cpu, accepted so "
                         "its command lines run unchanged; conflicts with "
                         "--device cuda")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("mass_tpu_torch rearrangement agent")
+    p.add_argument("--logdir", type=str, default="./mass-tpu-logs")
+    p.add_argument("--backend", type=str, default="gridworld",
+                   choices=["gridworld", "thor"])
+    add_device_flags(p)
 
     p.add_argument("--stage", type=str, default="train")
     p.add_argument("--start-task", type=int, default=0)
@@ -129,6 +135,14 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def unported(flag: str, slice_no: int,
+             entry: str = "mass_tpu.agent.cli") -> str:
+    """The message that stops a flag whose code arrives with a later
+    slice of the port, naming the JAX entry point that runs it."""
+    return (f"{flag} is not ported yet: it arrives with slice {slice_no} "
+            f"of mass_tpu_torch (ROADMAP.md); run {entry} for it")
+
+
 def unported_flags(args) -> Optional[str]:
     """Why these flags cannot run on this slice of the port, or None."""
     checks = [
@@ -139,9 +153,7 @@ def unported_flags(args) -> Optional[str]:
     ]
     for hit, flag, slice_no in checks:
         if hit:
-            return (f"{flag} is not ported yet: it arrives with slice "
-                    f"{slice_no} of mass_tpu_torch (ROADMAP.md); run "
-                    f"mass_tpu.agent.cli for it")
+            return unported(flag, slice_no)
     return None
 
 

@@ -17,7 +17,6 @@ with TF32 off and deterministic cuDNN.
 
 from __future__ import annotations
 
-import os
 from typing import Sequence
 
 import numpy as np
@@ -29,31 +28,30 @@ from mass_tpu_torch import resolve_device, taxonomy
 from mass_tpu_torch.ops.components import extract_instances
 from mass_tpu_torch.ops.detection import nms
 from mass_tpu_torch.perception.segmentation import Detections
+from mass_tpu_torch.utils.checkpoint import load_state_dict
+from mass_tpu_torch.utils.training import flax_init_
 
 WIDTHS = (32, 64, 128, 256)
 
 
-class FlaxGroupNorm(nn.Module):
+class FlaxGroupNorm(nn.GroupNorm):
     """``flax.linen.GroupNorm`` on NCHW: per-group mean and E[x^2] -
     E[x]^2 variance, then ``(x - mean) * (rsqrt(var + eps) * scale) +
-    bias``."""
+    bias`` (``nn.GroupNorm``'s parameters, flax's arithmetic)."""
 
     def __init__(self, channels: int, groups: int = 8, eps: float = 1e-6):
-        super().__init__()
-        self.groups = groups
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
+        super().__init__(groups, channels, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
-        g = x.view(b, self.groups, c // self.groups, h, w)
+        groups = self.num_groups
+        g = x.view(b, groups, c // groups, h, w)
         mean = g.mean(dim=(2, 3, 4), keepdim=True)
         mean2 = (g * g).mean(dim=(2, 3, 4), keepdim=True)
         var = (mean2 - mean * mean).clamp_min(0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight.view(
-            1, self.groups, -1, 1, 1)
-        y = (g - mean) * mul + self.bias.view(1, self.groups, -1, 1, 1)
+            1, groups, -1, 1, 1)
+        y = (g - mean) * mul + self.bias.view(1, groups, -1, 1, 1)
         return y.view(b, c, h, w)
 
 
@@ -108,6 +106,14 @@ class SegmenterUNet(nn.Module):
         return x.permute(0, 2, 3, 1)
 
 
+def init_segmenter(generator: torch.Generator,
+                   num_classes: int = taxonomy.NUM_CLASSES) -> SegmenterUNet:
+    """A freshly initialised UNet on the CPU, drawn from ``generator``
+    with flax's defaults (the counterpart of the JAX package's
+    ``init_segmenter``; the draws are torch's)."""
+    return flax_init_(SegmenterUNet(num_classes), generator)
+
+
 def from_state_dict(state_dict, device=None) -> SegmenterUNet:
     """A UNet on ``device`` (``None`` means CUDA) holding ``state_dict``
     (the port's names), its class count read from the head."""
@@ -119,10 +125,7 @@ def from_state_dict(state_dict, device=None) -> SegmenterUNet:
 
 def load_segmenter(path: str, device=None) -> SegmenterUNet:
     """The UNet of a ``.pth`` state dict in the port's names."""
-    if not os.path.exists(path):
-        raise FileNotFoundError(path)
-    return from_state_dict(torch.load(path, map_location="cpu",
-                                      weights_only=True), device)
+    return from_state_dict(load_state_dict(path), device)
 
 
 def make_segmentation_sensor(model: SegmenterUNet):

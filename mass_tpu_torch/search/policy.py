@@ -19,6 +19,8 @@ import torch
 from torch import nn
 
 from mass_tpu_torch.search import prng
+from mass_tpu_torch.utils.checkpoint import load_state_dict
+from mass_tpu_torch.utils.training import flax_init_
 
 NUM_CLASSES = 54  # OccupiedSpace + 43 pickable + 10 openable
 CONV_INDICES = (0, 3, 6, 9, 12)
@@ -104,6 +106,14 @@ def inhibited_sample_cell(logits, height: int, width: int,
     return np.asarray([idx % width, idx // width, 0], np.int64)
 
 
+def init_policy(generator: torch.Generator, channels: int = NUM_CLASSES,
+                hidden: int = 64) -> SearchPolicy:
+    """A freshly initialised policy on the CPU, drawn from ``generator``
+    with flax's defaults (the counterpart of the JAX package's
+    ``init_params``; the draws are torch's, not ``jax.random``'s)."""
+    return flax_init_(SearchPolicy(channels, hidden), generator)
+
+
 def from_state_dict(state_dict: Dict[str, torch.Tensor],
                     device=None) -> SearchPolicy:
     """A :class:`SearchPolicy` holding the reference ``policy.pth``
@@ -119,5 +129,4 @@ def from_state_dict(state_dict: Dict[str, torch.Tensor],
 def load_reference_policy(path: str, device=None) -> SearchPolicy:
     """Load a ``policy.pth`` state dict (read on the CPU) onto
     ``device``."""
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    return from_state_dict(state, device)
+    return from_state_dict(load_state_dict(path), device)

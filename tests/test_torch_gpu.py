@@ -756,3 +756,206 @@ def test_detector_on_card_equals_cpu(cuda):
     report = torch_margins.compare_detections(
         want, got, probs, thresholds=(cfg.score_threshold,))
     assert report["ok"] and report["live_slots"] > 0, report
+
+
+# the trainers: one step on the card against the same step on the CPU in
+# float64 (``python -m mass_tpu_torch.profile_training`` measures each
+# device's float32 gradients against float64: a float32 CPU is not
+# always the closer side).
+TRAIN_TOL = 1e-4
+LEARNING_RATE = 3e-4
+
+
+def _policy_batch(seed=0, b=4, h=24, w=32, c=54):
+    rng = np.random.RandomState(seed)
+    x = rng.rand(b, h, w, c).astype(np.float32)
+    x *= rng.rand(b, h, w, 1) < 0.3
+    g = np.stack([rng.randint(0, w, b), rng.randint(0, h, b)], -1)
+    return torch.from_numpy(x), torch.from_numpy(g.astype(np.int32))
+
+
+def _adam_step(model, loss_fn, optimizer):
+    """(loss, gradients, parameters after the step) of one step."""
+    from mass_tpu_torch.utils.training import exact_convs
+
+    with exact_convs():
+        loss = loss_fn()
+        optimizer.zero_grad()
+        loss.backward()
+    grads = {k: p.grad.detach().cpu().double()
+             for k, p in model.named_parameters()}
+    optimizer.step()
+    return loss.item(), grads, {k: v.detach().cpu().double()
+                                for k, v in model.state_dict().items()}
+
+
+def _check_first_adam_step(card, ref, grad_tol=TRAIN_TOL):
+    """Loss within rtol TRAIN_TOL; every gradient within ``grad_tol`` of
+    the largest one.  A first Adam step is lr * g / (|g| + eps), about
+    lr * sign(g), so it is well defined only where a gradient outweighs
+    the card's rounding: there the parameters agree within TRAIN_TOL;
+    where |g| is under 100 times the card's gradient error (a tiny
+    share) within the step's own bound, twice the learning rate."""
+    (loss, grads, params), (loss64, grads64, params64) = card, ref
+    np.testing.assert_allclose(loss, loss64, rtol=TRAIN_TOL)
+    scale = max(float(g.abs().max()) for g in grads64.values())
+    sensitive = total = 0
+    for key, g64 in grads64.items():
+        err = (grads[key] - g64).abs()
+        assert float(err.max()) <= grad_tol * scale, (key, float(err.max()))
+        loose = g64.abs() < 100 * err
+        tol = torch.where(loose, torch.tensor(2 * LEARNING_RATE,
+                                              dtype=torch.float64),
+                          torch.tensor(TRAIN_TOL, dtype=torch.float64))
+        diff = (params[key] - params64[key]).abs()
+        assert (diff <= tol).all(), (key, float(diff.max()))
+        sensitive += int(loose.sum())
+        total += loose.numel()
+    assert sensitive <= total // 100, (sensitive, total)
+
+
+def test_policy_train_step_on_card_matches_cpu(cuda):
+    """One AdamW step from one seeded initialisation (the last conv's
+    bias has a zero gradient but for rounding: the softmax over cells
+    ignores a shift of every logit, so it is among the sensitive
+    entries)."""
+    from mass_tpu_torch.search import train as ST
+
+    x, g = _policy_batch()
+    runs = []
+    for dev, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        state = ST.create_train_state(torch.Generator().manual_seed(0), 54,
+                                      LEARNING_RATE, 1e-4, "cpu")
+        state.policy.to(dev, dtype)
+        runs.append(_adam_step(state.policy, lambda: ST.goal_cross_entropy(
+            state.policy, x.to(dev, dtype), g.to(dev), 2.0),
+            state.optimizer))
+    _check_first_adam_step(*runs)
+
+
+# The UNet's float32 gradients part from float64 by up to 1.6e-3 of the
+# largest gradient on 32x32 frames, on the card with cuDNN and without it
+# (``python -m mass_tpu_torch.profile_training``): the group norm's
+# E[x^2] - E[x]^2 (flax's arithmetic) cancels.
+UNET_GRAD_TOL = 2e-3
+
+
+def test_unet_train_step_on_card_matches_cpu(cuda):
+    """One AdamW step of the UNet on 64x64 frames."""
+    from mass_tpu_torch.perception import detector as PD
+    from mass_tpu_torch.perception import train_detector as TD
+
+    rng = np.random.RandomState(1)
+    rgb = torch.from_numpy(rng.rand(2, 64, 64, 3))
+    sem = rng.randint(0, 54, (2, 64, 64))
+    sem[:, :32] = 0
+    weights = torch.from_numpy(TD.class_weights(sem))
+    sem = torch.from_numpy(sem)
+    runs = []
+    for dev, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        model = PD.init_segmenter(torch.Generator().manual_seed(0)).to(
+            dev, dtype)
+        opt = torch.optim.AdamW(model.parameters(), LEARNING_RATE,
+                                weight_decay=TD.WEIGHT_DECAY)
+        runs.append(_adam_step(model, lambda: TD.weighted_cross_entropy(
+            model, rgb.to(dev, dtype), sem.to(dev),
+            weights.to(dev, dtype)), opt))
+    _check_first_adam_step(*runs, grad_tol=UNET_GRAD_TOL)
+
+
+def _search_dataset(d, n_tasks=4, size=24, c=54):
+    rng = np.random.RandomState(0)
+    d.mkdir()
+    for tid in range(n_tasks):
+        np.savez_compressed(
+            d / f"task-{tid}.npz",
+            tops0=rng.rand(2, size, size, c).astype(np.float16),
+            cells0=rng.randint(0, size, (2, 2)).astype(np.int32),
+            tops1=rng.rand(2, size, size, c).astype(np.float16),
+            cells1=rng.randint(0, size, (1, 2)).astype(np.int32))
+
+
+@pytest.mark.parametrize("conditioned", [False, True],
+                         ids=["plain", "conditioned"])
+def test_fit_twice_on_card_is_bit_equal(cuda, tmp_path, conditioned):
+    """Two fits from one seed (forward and backward with deterministic
+    cuDNN and no TF32) save equal parameters bit for bit."""
+    from mass_tpu_torch.search import train as ST
+
+    _search_dataset(tmp_path / "data")
+    paths = [str(tmp_path / f"p{k}.pth") for k in range(2)]
+    for path in paths:
+        ST.fit(str(tmp_path / "data"), path, steps=30, batch_size=4,
+               log_every=10, val_fraction=0.25, conditioned=conditioned)
+    a, b = (torch.load(p, map_location="cpu", weights_only=True)
+            for p in paths)
+    assert sorted(a) == sorted(b)
+    for key in a:
+        assert torch.equal(a[key], b[key]), key
+
+
+def test_unet_steps_twice_on_card_are_bit_equal(cuda):
+    from mass_tpu_torch.perception import detector as PD
+    from mass_tpu_torch.perception import train_detector as TD
+
+    rng = np.random.RandomState(2)
+    rgb = rng.rand(4, 32, 32, 3).astype(np.float32)
+    sem = rng.randint(0, 54, (4, 32, 32))
+    runs = []
+    for _ in range(2):
+        model = PD.init_segmenter(torch.Generator().manual_seed(0)).to(cuda)
+        opt = torch.optim.AdamW(model.parameters(), LEARNING_RATE,
+                                weight_decay=TD.WEIGHT_DECAY)
+        step = TD.make_train_step(model, opt, TD.class_weights(sem))
+        for _ in range(3):
+            step(rgb, sem)
+        runs.append(model.state_dict())
+    for key in runs[0]:
+        assert torch.equal(runs[0][key], runs[1][key]), key
+
+
+def test_collector_launches_one_kernel_per_frame(cuda, monkeypatch):
+    """A tiny collector task on the card: every walkthrough frame one
+    multi-map launch (occupancy + semantic0), every unshuffle frame one
+    single-map launch (semantic1); cells equal the CPU's, snapshots within
+    one float16 ulp."""
+    import dataclasses
+
+    from mass_tpu_torch.env.rearrange import GridWorldTaskSampler
+    from mass_tpu_torch.maps import layers as L
+    from mass_tpu_torch.search import dataset as SD
+
+    calls = []
+    update_group = L.MapSet.update_group
+
+    def recording(maps, names, observation):
+        calls.append(tuple(names))
+        return update_group(maps, names, observation)
+    monkeypatch.setattr(L.MapSet, "update_group", recording)
+    cfg = dataclasses.replace(SD.small_scene_config(
+        32, map_height=48, map_width=48, map_depth=12, map_slice_stop=6),
+        exploration_budget_one=2, exploration_budget_two=2)
+
+    def collect(device):
+        sampler = GridWorldTaskSampler([7], camera=cfg.camera, max_steps=80,
+                                       num_objects=2, num_misplaced=1,
+                                       num_opened=0)
+        return SD.collect_task(sampler, cfg, np.random.RandomState(0),
+                               device)
+    single, multi = SP.LAUNCHES, SP.MULTI_LAUNCHES
+    got = collect(cuda)
+    torch.cuda.synchronize()
+    pairs = calls.count(("occupancy", "semantic0"))
+    ones = calls.count(("semantic1",))
+    assert pairs + ones == len(calls) and pairs > 0 and ones > 0
+    assert SP.MULTI_LAUNCHES - multi == pairs
+    assert SP.LAUNCHES - single == ones
+    want = collect("cpu")
+    for key in ("cells0", "cells1"):
+        np.testing.assert_array_equal(got[key], want[key])
+    for key in ("tops0", "tops1"):
+        a, b = got[key], want[key]
+        assert a.shape == b.shape
+        ulp = np.spacing(np.maximum(np.abs(a), np.abs(b))).astype(np.float32)
+        assert (np.abs(a.astype(np.float32) - b.astype(np.float32))
+                <= ulp).all()

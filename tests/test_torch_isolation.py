@@ -94,6 +94,35 @@ SCRIPT = textwrap.dedent("""
                   maskrcnn_state_dict_from_jax, unet_state_dict_from_jax,
                   resnet.ResNet50):
         assert callable(entry), entry
+    from mass_tpu_torch.perception import train_detector
+    from mass_tpu_torch.search import dataset, train
+    from mass_tpu_torch.tools import detector_dataset, search_labels
+    from mass_tpu_torch.utils import checkpoint, training
+    for name in ("mass_tpu_torch.utils.checkpoint",
+                 "mass_tpu_torch.utils.training",
+                 "mass_tpu_torch.search.train",
+                 "mass_tpu_torch.search.dataset",
+                 "mass_tpu_torch.tools.search_labels",
+                 "mass_tpu_torch.tools.detector_dataset",
+                 "mass_tpu_torch.perception.train_detector"):
+        assert name in names, name
+    for entry in (checkpoint.save_state_dict, checkpoint.load_state_dict,
+                  training.flax_init_, training.exact_convs,
+                  policy.init_policy, detector.init_segmenter,
+                  train.create_train_state, train.goal_cross_entropy,
+                  train.train_step, train.load_dataset,
+                  train.load_dataset_conditioned, train.goal_distance,
+                  train._device_dihedral, train._assemble_conditioned,
+                  train.fit, train.main, dataset.collect_task,
+                  dataset.small_scene_config, dataset.main,
+                  search_labels.dump_labels, search_labels.main,
+                  detector_dataset.generate, detector_dataset.format_dataset,
+                  detector_dataset.record_from_frame, detector_dataset.main,
+                  train_detector.load_split, train_detector.batches,
+                  train_detector.class_weights,
+                  train_detector.make_train_step, train_detector.evaluate,
+                  train_detector.train, train_detector.main):
+        assert callable(entry), entry
     import tests.torch_checkpoints, tests.torch_margins, tests.torch_streams
     print(len(names))
 """)
