@@ -65,9 +65,17 @@ unshuffle's map on the single-map kernel), and one task at full width;
 on the card (bit-equal) with its first steps against the CPU, each
 ``.pth`` through a small ``--policy-checkpoint`` episode; the policy's
 training step at batch 8 on the full-width snapshots against its FLOP
-bound; and the UNet: ``detector_dataset`` at camera 224, two epochs of
+bound; the UNet: ``detector_dataset`` at camera 224, two epochs of
 ``train_detector`` on the card, its ``segmenter.pth`` through a small
-``--detector-arch unet`` episode.
+``--detector-arch unet`` episode; and the Mask R-CNN trainer at full
+width (R50-FPN, 224x224, 53 classes, the default ``TrainConfig``) on
+that dataset: one step at batch 2 against float64 on the CPU (targets by
+the margin rule, losses and gradients), a fixed batch's loss falling
+over 8 steps, ms a step at batch 2 and 8 against the FLOP bound, the
+entry point twice on 8 images (byte-equal ``maskrcnn.pth``; the NMS
+launches it makes count into the ``nms`` entry), ``--eval-only`` with
+and without ``--tta``, and its ``maskrcnn.pth`` through a small
+``--detector-checkpoint`` episode.
 
 Exits non-zero when there is no CUDA card, when a kernel fails to build,
 launch or agree, or when any phase fails.  The line before the last is
@@ -1968,14 +1976,17 @@ class SensorTimer:
 
         DetectorSegmentation.semantic = self._semantic
 
-    def check(self, nms_launches: int, batch: int) -> dict:
+    def check(self, nms_launches: int, batch: int,
+              need_fused: bool = True) -> dict:
         """Two NMS launches a sensor call (the RPN levels of its frames,
-        the class-aware NMS); detections fused into some frames."""
+        the class-aware NMS); detections fused into some frames, unless
+        ``need_fused`` is False."""
         calls = len(self.times)
         check(calls > 0 and nms_launches == 2 * calls,
               f"{nms_launches} NMS launches for {calls} sensor calls")
         check(self.frames == batch * calls, "sensor frames miscounted")
-        check(max(self.fused) > 0, "no detection survived the threshold")
+        check(max(self.fused) > 0 or not need_fused,
+              "no detection survived the threshold")
         return dict(nms_launches=nms_launches, sensor_calls=calls,
                     sensor_mean_ms=1e3 * float(np.mean(self.times)),
                     sensor_median_ms=1e3 * float(np.median(self.times)),
@@ -2766,6 +2777,262 @@ def phase_segmenter_train(dev) -> dict:
                 episode=dict(wall_s=episode_s, **counts))
 
 
+# the Mask R-CNN trainer at the detector's full width: R50-FPN at 224 px,
+# 53 classes (the dataset skips class 0), the default TrainConfig
+MASKRCNN_DIR = os.path.join("build", "chip_smoke", "maskrcnn-train")
+MASKRCNN_CLASSES = 53
+# one step on the card against float64 on the CPU: the losses within
+# rtol 1e-4, every gradient within 1e-4 of the largest (float32 convs
+# summed in cuDNN's order)
+MASKRCNN_TOL = 1e-4
+# steps of the loss-falls check (tests/test_maskrcnn_train.py's 8, its
+# learning rate) and of each run that must repeat bit for bit
+MASKRCNN_FALL_STEPS, MASKRCNN_FALL_LR = 8, 0.0025
+MASKRCNN_RUN_IMAGES = 8
+
+
+def maskrcnn_card_against_float64(model, batch, key, tcfg, dev) -> dict:
+    """One training step of ``model`` (a trainable CPU model, copied to the
+    card in float32 and kept on the CPU in float64) on a host ``batch``
+    with ``key``: the card's sampled targets against float64's by the
+    margin rule (``tests/torch_margins.compare_train_targets``; the
+    anchors' samples, and the ROIs' on the card's own proposals), then the
+    five losses and every gradient in float64 on the card's targets
+    against the card's; and the card's labels and samples equal to the
+    CPU's in float32."""
+    import copy
+
+    from mass_tpu_torch.perception import maskrcnn as TM
+    from mass_tpu_torch.perception import maskrcnn_train as TR
+    from mass_tpu_torch.search import prng
+    from mass_tpu_torch.utils.training import exact_convs
+    from tests import torch_margins
+
+    cfg = model.config
+    card, ref = copy.deepcopy(model).to(dev), copy.deepcopy(model).double()
+    images, boxes, classes, masks, valid = (
+        torch.as_tensor(np.asarray(x)) for x in batch)
+    classes, valid = classes.long(), valid.bool()
+    B = images.shape[0]
+    with exact_convs():
+        losses, targets = TR.batch_loss(
+            card, tcfg, TM.device_anchors(cfg, dev), images.to(dev),
+            boxes.to(dev), classes.to(dev), masks.to(dev), valid.to(dev),
+            key.to(dev))
+        grads = torch.autograd.grad(losses["total"], list(card.parameters()))
+    targets = TR.Targets(*(t.cpu() for t in targets))
+
+    anchors = torch.cat(TM.device_anchors(cfg, "cpu")).double()
+    boxes64, masks64 = boxes.double(), masks.double()
+    maps, rpn_out = TR.network(ref, images.double())
+    sub = prng.split(prng.split(key.cpu(), B), 3)
+    with torch.no_grad():
+        ref_targets = targets._replace(
+            **TR.rpn_samples(tcfg, anchors, boxes64, valid, sub[:, 0],
+                             sub[:, 1]),
+            **TR.roi_samples(cfg, tcfg, targets.proposals.double(), boxes64,
+                             classes, masks64, valid, sub[:, 2]))
+    margin = torch_margins.compare_train_targets(
+        ref_targets, targets, anchors, boxes64, valid, tcfg)
+    check(margin["ok"], f"maskrcnn train: card targets differ from float64 "
+          f"beyond the margin rule: {margin}")
+    # in float32 the CPU's matching and sampling decide as the card's
+    with torch.no_grad():
+        cpu = targets._replace(
+            **TR.rpn_samples(tcfg, anchors.float(), boxes, valid, sub[:, 0],
+                             sub[:, 1]),
+            **TR.roi_samples(cfg, tcfg, targets.proposals, boxes, classes,
+                             masks, valid, sub[:, 2]))
+    for name in ("anchor_label", "rpn_index", "rpn_weight", "rpn_label",
+                 "roi_index", "roi_weight", "roi_label", "fg_class"):
+        check(torch.equal(getattr(cpu, name), getattr(targets, name)),
+              f"maskrcnn train: the card's {name} differ from the CPU's "
+              "float32 sampling")
+    per_image = TR.image_losses(ref, tcfg, maps, rpn_out, TR.Targets(*(
+        t.double() if t.is_floating_point() else t for t in targets)))
+    losses64 = {k: v.mean() for k, v in per_image.items()}
+    losses64["total"] = sum(losses64.values())
+    grads64 = torch.autograd.grad(losses64["total"], list(ref.parameters()))
+    loss_rel = {k: abs(float(losses[k].detach()) - float(v.detach()))
+                / abs(float(v.detach())) for k, v in losses64.items()}
+    check(max(loss_rel.values()) <= MASKRCNN_TOL, f"maskrcnn train: losses "
+          f"card against float64 {loss_rel} (rtol {MASKRCNN_TOL})")
+    scale = max(float(g.abs().max()) for g in grads64)
+    names = [k for k, _ in ref.named_parameters()]
+    errs = {k: float((g.cpu().double() - g64).abs().max()) / scale
+            for k, g, g64 in zip(names, grads, grads64)}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= MASKRCNN_TOL, f"maskrcnn train: gradient {worst} "
+          f"off float64 by {errs[worst]:.3g} of the largest gradient "
+          f"(tol {MASKRCNN_TOL})")
+    return dict(margin=margin, loss_rel_diff=loss_rel,
+                grad_err=errs[worst], grad_err_leaf=worst,
+                largest_grad=scale, parameters=len(names),
+                losses={k: float(v.detach()) for k, v in losses.items()},
+                rpn_positives=float(targets.rpn_label.sum()),
+                roi_foreground=float(
+                    targets.roi_weight[:, :tcfg.roi_fg_samples].sum()))
+
+
+def timed_steps(step, batch, keys) -> tuple:
+    """``step(batch, key)`` for each key: CUDA events around each step;
+    (ms per step, totals)."""
+    times, totals = [], []
+    for key in keys:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses = step(batch, key)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        totals.append(float(losses["total"]))
+    return times, totals
+
+
+def phase_maskrcnn_train(dev) -> dict:
+    """``perception/maskrcnn_train`` at full width on the dataset of
+    ``[segmenter train]`` (camera 224): one step at batch 2 on the card
+    against float64 (:func:`maskrcnn_card_against_float64`); the loss of a
+    fixed batch falls over 8 steps; ms a step at batch 2 and 8 (CUDA
+    events, median after the first) against the FLOP bound, peak memory;
+    ``python -m mass_tpu_torch.perception.maskrcnn_train`` twice on 8
+    images (4 steps and the validation split's fused-mask score), the two
+    ``maskrcnn.pth`` equal byte for byte, the trainer's NMS launches one a
+    step and two a scored frame; ``--eval-only`` with and without
+    ``--tta``; the ``maskrcnn.pth`` through a small learned episode on the
+    card (``--detector-checkpoint``, the CLI's default threshold)."""
+    from mass_tpu_torch.agent import cli
+    from mass_tpu_torch.ops import detection as D
+    from mass_tpu_torch.ops import splat as SP
+    from mass_tpu_torch.perception import maskrcnn as TM
+    from mass_tpu_torch.perception import maskrcnn_train as TR
+    from mass_tpu_torch.search import prng
+
+    t_phase = time.perf_counter()
+    data = SEGMENTER_DIR + "-data"
+    tcfg = TR.TrainConfig()
+    cfg = TM.MaskRCNNConfig(num_classes=MASKRCNN_CLASSES, image_size=CAMERA)
+    train = TR.load_instance_split(data, "training", tcfg.max_gt)
+    with open(os.path.join(data, "validation.json")) as f:
+        val_frames = len(json.load(f))
+    model = TR.init_maskrcnn(torch.Generator().manual_seed(0), cfg)
+    pair = tuple(x[:2] for x in train)
+    t0 = time.perf_counter()
+    out = dict(check=maskrcnn_card_against_float64(
+        model, pair, prng.PRNGKey(1), tcfg, dev))
+    out["check_s"] = time.perf_counter() - t0
+
+    # a fixed batch: the loss falls; the step's time at batch 2 and 8
+    flops = TM.model_flops(cfg, tcfg.roi_fg_samples + tcfg.roi_bg_samples,
+                           tcfg.roi_fg_samples)
+    for batch_size in (2, 8):
+        model = TR.init_maskrcnn(torch.Generator().manual_seed(0),
+                                 cfg).to(dev)
+        optimizer = TR.SGD(model.named_parameters(), MASKRCNN_FALL_LR)
+        step = TR.make_train_step(model, optimizer, tcfg)
+        keys = prng.split(prng.PRNGKey(2), MASKRCNN_FALL_STEPS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, totals = timed_steps(step, tuple(x[:batch_size] for x in train),
+                                    keys)
+        check(all(np.isfinite(totals)), f"batch {batch_size}: losses {totals}")
+        if batch_size == 2:
+            check(totals[-1] < totals[0], f"the loss of a fixed batch did not "
+                  f"fall over {MASKRCNN_FALL_STEPS} steps: {totals}")
+        out[f"b{batch_size}"] = dict(
+            ms=float(np.median(times[1:])), first_ms=times[0], totals=totals,
+            peak_memory_bytes=torch.cuda.max_memory_allocated(),
+            **bound(0, 3 * batch_size * sum(flops.values())))
+        del model, optimizer, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the entry point on 8 images, twice from one seed
+    sub = MASKRCNN_DIR + "-data"
+    os.makedirs(sub, exist_ok=True)
+    with open(os.path.join(data, "training.json")) as f:
+        records = json.load(f)[:MASKRCNN_RUN_IMAGES]
+    with open(os.path.join(sub, "training.json"), "w") as f:
+        json.dump(records, f)
+    shutil.copy(os.path.join(data, "validation.json"), sub)
+    runs = [f"{MASKRCNN_DIR}-run{k}" for k in range(2)]
+    walls = []
+    for k, logdir in enumerate(runs):
+        shutil.rmtree(logdir, ignore_errors=True)
+        # the trainer's path starts here
+        D.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, history = TR.main(["--dataset", sub, "--logdir", logdir])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if k == 0:
+            nms_launches = D.LAUNCHES
+        # and ends here
+    steps = MASKRCNN_RUN_IMAGES // 2
+    check(nms_launches == steps + 2 * val_frames, f"the trainer made "
+          f"{nms_launches} NMS launches for {steps} steps and {val_frames} "
+          "scored frames")
+    paths = [os.path.join(d, "maskrcnn.pth") for d in runs]
+    blobs = []
+    for path in paths:
+        with open(path, "rb") as f:
+            blobs.append(f.read())
+    a, b = (torch.load(p, map_location="cpu", weights_only=True)
+            for p in paths)
+    check(sorted(a["model"]) == sorted(b["model"]) and all(
+        torch.equal(a["model"][k], b["model"][k]) for k in a["model"]),
+        "two trainer runs from one seed saved different weights")
+    check(blobs[0] == blobs[1], "two trainer runs from one seed saved "
+          "different maskrcnn.pth files")
+    check(a["class_offset"] == 1 and TM.num_classes_of(a["model"]) ==
+          MASKRCNN_CLASSES, "maskrcnn.pth: class offset or count")
+    opt = torch.load(os.path.join(runs[0], "maskrcnn-opt.pth"),
+                     weights_only=True)
+    check(opt["count"] == steps, f"schedule count {opt['count']}")
+    out.update(runs_bit_equal=True, run_wall_s=walls, run_steps=steps,
+               run_history=history, nms_launches=nms_launches,
+               val_frames=val_frames)
+
+    evals = {}
+    for tta in (False, True):
+        D.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            metrics = TR.main(["--dataset", sub, "--logdir", runs[0],
+                               "--eval-only"] + (["--tta"] if tta else []))
+        torch.cuda.synchronize()
+        check(D.LAUNCHES == (4 if tta else 2) * val_frames,
+              f"--eval-only{' --tta' if tta else ''}: {D.LAUNCHES} NMS "
+              f"launches for {val_frames} frames")
+        evals["tta" if tta else "plain"] = dict(
+            metrics, wall_s=time.perf_counter() - t0)
+    out["eval"] = evals
+
+    episode_dir = os.path.join("build", "chip_smoke", "maskrcnn-episode")
+    with SensorTimer() as sensor:
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = D.LAUNCHES = 0
+        t0 = time.perf_counter()
+        metrics = cli.main(SMALL_CLI_ARGS + [
+            "--detector-checkpoint", paths[0], "--logdir", episode_dir])
+        torch.cuda.synchronize()
+        episode_s = time.perf_counter() - t0
+        single, multi, nms = SP.LAUNCHES, SP.MULTI_LAUNCHES, D.LAUNCHES
+        counts = sensor.check(nms, batch=1, need_fused=False)
+    check(len(metrics) == 1, "the CLI ran no episode on the trained .pth")
+    with open(os.path.join(episode_dir, "results", "2.json")) as f:
+        results = json.load(f)
+    check_launches(single, multi, results["timing"]["mapping"]["count"],
+                   False)
+    out["episode"] = dict(wall_s=episode_s, launches=single,
+                          prop_fixed=results["unshuffle/prop_fixed"],
+                          **counts)
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def kernel_line(name: str, replaces: str, launches: int,
                 phase: dict) -> dict:
     from mass_tpu_torch.ops import splat as SP
@@ -3287,8 +3554,48 @@ def main() -> int:
           f"cuda: wall {seg['episode']['wall_s']:.1f} s, launches "
           f"splat_onehot {seg['episode']['launches']} for "
           f"{seg['episode']['group_splats']} group splats")
+    mt = report["maskrcnn_train"] = phase_maskrcnn_train(dev)
+    tag = "maskrcnn train"
+    c = mt["check"]
+    print(f"[{tag}] R50-FPN 224x224, {MASKRCNN_CLASSES} classes, default "
+          f"TrainConfig, batch 2, {c['parameters']} parameter tensors: card "
+          f"against float64 on the CPU: losses rtol "
+          f"{max(c['loss_rel_diff'].values()):.3g}, largest gradient error "
+          f"{c['grad_err']:.3g} of the largest gradient ({c['grad_err_leaf']})"
+          f" (tol {MASKRCNN_TOL}); targets by the margin rule: "
+          f"{json.dumps(c['margin'])}; {c['rpn_positives']:.0f} RPN "
+          f"positives, {c['roi_foreground']:.0f} foreground ROIs "
+          f"({mt['check_s']:.1f} s)")
+    for batch_size in (2, 8):
+        t = mt[f"b{batch_size}"]
+        print(f"[{tag}] batch {batch_size}: {t['ms']:.2f} ms a step (median "
+              f"of {MASKRCNN_FALL_STEPS - 1} after the first, "
+              f"{t['first_ms']:.1f} ms; CUDA events); bound "
+              f"{t['bound_ms']:.2f} ms by {t['bound_by']}: "
+              f"{t['flops'] / 1e12:.3f} TFLOP (3x the forward at 128 ROIs "
+              f"and 32 mask ROIs a frame) at {FP32_FLOPS / 1e12:.0f} TFLOP/s "
+              f"fp32 ({t['ms'] / t['bound_ms']:.1f}x the bound); peak memory "
+              f"{t['peak_memory_bytes'] / 2**30:.2f} GiB; total loss "
+              f"{t['totals'][0]:.3f} -> {t['totals'][-1]:.3f} on a fixed batch")
+    print(f"[{tag}] python -m mass_tpu_torch.perception.maskrcnn_train on "
+          f"{MASKRCNN_RUN_IMAGES} images, twice: {mt['run_steps']} steps and "
+          f"{mt['val_frames']} scored frames in "
+          f"{' and '.join(f'{w:.1f}' for w in mt['run_wall_s'])} s; the two "
+          f"maskrcnn.pth equal byte for byte: {mt['runs_bit_equal']}; nms "
+          f"launches {mt['nms_launches']}; {json.dumps(mt['run_history'])}")
+    for name, e in mt["eval"].items():
+        print(f"[{tag}] --eval-only{' --tta' if name == 'tta' else ''}: mIoU "
+              f"{e['miou']:.4f}, pixel accuracy {e['pixel_accuracy']:.4f} "
+              f"({e['wall_s']:.1f} s)")
+    ep = mt["episode"]
+    print(f"[{tag}] maskrcnn.pth through --detector-checkpoint on cuda "
+          f"(80x80x24, camera 48, threshold 0.9): wall {ep['wall_s']:.1f} s, "
+          f"{ep['sensor_calls']} sensor calls, nms {ep['nms_launches']}, "
+          f"fused non-zero pixels {ep['fused_pixels_min']}-"
+          f"{ep['fused_pixels_max']} a frame, splat_onehot {ep['launches']}")
+    print(f"[{tag}] the phase took {mt['wall_s']:.1f} s")
     report["training_s"] = time.perf_counter() - training_start
-    print(f"[training] the five training phases took "
+    print(f"[training] the six training phases took "
           f"{report['training_s']:.1f} s")
 
     kernels = [
@@ -3304,7 +3611,7 @@ def main() -> int:
                     full_features["dense_launches"], dense),
         # not a TPU kernel: the counterpart of the fori_loop of nms
         kernel_line("nms", "mass_tpu/ops/detection.py:31",
-                    learned["nms_launches"],
+                    learned["nms_launches"] + mt["nms_launches"],
                     dict(nms["rpn_b1"], max_abs_err=nms["max_abs_err"]))]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - start

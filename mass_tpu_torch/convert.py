@@ -8,8 +8,9 @@ scales and biases) become the reference ``Sequential`` layout that
 ``search/policy.py`` reads, and the stage-1 ResNet's flax variables the
 torchvision-named state dict that ``perception/resnet.py`` reads; the
 Mask R-CNN's flax variables become the detectron2-named state dict of
-``perception/maskrcnn.py`` and the segmentation UNet's parameters the
-state dict of ``perception/detector.py``.  The functions here take and
+``perception/maskrcnn.py`` (its trainer's gradients and optimizer state
+the same names) and the segmentation UNet's parameters the state dict of
+``perception/detector.py``.  The functions here take and
 give plain numpy arrays, so neither package imports the other.
 """
 
@@ -162,8 +163,46 @@ def maskrcnn_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
     does it.  Conv kernels HWIO -> OIHW, dense kernels transposed, fc6's
     input axis from flax's ``[S, S, C]`` flattening to torch's
     ``[C, S, S]``, the deconv kernel ``[in, out, 2, 2]`` as it is."""
-    p = variables["params"]
-    stats = variables["batch_stats"]["backbone"]
+    return _maskrcnn_tree(variables["params"],
+                          variables["batch_stats"]["backbone"])
+
+
+def maskrcnn_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """A pytree shaped as the JAX Mask R-CNN's ``params`` (the parameters,
+    their gradients or an optimizer's momentum trace) in the port's
+    names: the state dict's trainable entries, by the layout rules of
+    :func:`maskrcnn_state_dict_from_jax` (batch norm ``scale``/``bias`` ->
+    ``norm.weight``/``norm.bias``; no statistics)."""
+    return _maskrcnn_tree(tree.get("params", tree), None)
+
+
+def maskrcnn_opt_state_from_jax(opt_state) -> Dict:
+    """The port's optimizer state (``maskrcnn_train.SGD.state_dict``:
+    ``{"momentum": {name: tensor}, "count": int}``) of an optax state of
+    ``chain(clip_by_global_norm, sgd(schedule, momentum))``: the
+    ``trace`` of its ``TraceState`` and the ``count`` of its schedule."""
+    found = {}
+
+    def walk(node):
+        if hasattr(node, "_fields"):
+            for field in ("trace", "count"):
+                if field in node._fields:
+                    found[field] = getattr(node, field)
+        if isinstance(node, (tuple, list)):
+            for child in node:
+                walk(child)
+    walk(opt_state)
+    if set(found) != {"trace", "count"}:
+        raise ValueError(f"no momentum trace and schedule count in "
+                         f"{type(opt_state).__name__}: found {sorted(found)}")
+    return dict(momentum=maskrcnn_params_from_jax(found["trace"]),
+                count=int(np.asarray(found["count"])))
+
+
+def _maskrcnn_tree(p, stats) -> Dict[str, torch.Tensor]:
+    """The detectron2-named tensors of a params-shaped pytree ``p``, with
+    the batch norms' running statistics from ``stats`` (the backbone's
+    ``batch_stats``) unless it is None."""
     sd: Dict[str, torch.Tensor] = {}
 
     def put_conv(key, node, bias=False):
@@ -174,16 +213,23 @@ def maskrcnn_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
     def put_bn(key, bn, st):
         sd[f"{key}.weight"] = _tensor(bn["scale"])
         sd[f"{key}.bias"] = _tensor(bn["bias"])
-        sd[f"{key}.running_mean"] = _tensor(st["mean"])
-        sd[f"{key}.running_var"] = _tensor(st["var"])
+        if st is not None:
+            sd[f"{key}.running_mean"] = _tensor(st["mean"])
+            sd[f"{key}.running_var"] = _tensor(st["var"])
 
     def put_dense(key, node):
         sd[f"{key}.weight"] = _tensor(np.asarray(node["kernel"]).T)
         sd[f"{key}.bias"] = _tensor(node["bias"])
 
+    def stat(*path):
+        node = stats
+        for name in path:
+            node = None if node is None else node[name]
+        return node
+
     bb = p["backbone"]
     put_conv("backbone.bottom_up.stem.conv1", bb["conv1"])
-    put_bn("backbone.bottom_up.stem.conv1.norm", bb["bn1"], stats["bn1"])
+    put_bn("backbone.bottom_up.stem.conv1.norm", bb["bn1"], stat("bn1"))
     for stage, blocks in enumerate(resnet.STAGE_BLOCKS):
         for b in range(blocks):
             name = f"layer{stage + 1}_{b}"
@@ -191,11 +237,11 @@ def maskrcnn_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
             for i in (1, 2, 3):
                 put_conv(f"{prefix}.conv{i}", bb[name][f"conv{i}"])
                 put_bn(f"{prefix}.conv{i}.norm", bb[name][f"bn{i}"],
-                       stats[name][f"bn{i}"])
+                       stat(name, f"bn{i}"))
             if b == 0:
                 put_conv(f"{prefix}.shortcut", bb[name]["down_conv"])
                 put_bn(f"{prefix}.shortcut.norm", bb[name]["down_bn"],
-                       stats[name]["down_bn"])
+                       stat(name, "down_bn"))
     for i in range(4):
         put_conv(f"backbone.fpn_lateral{i + 2}",
                  p["fpn"][f"lateral{i + 2}"], bias=True)

@@ -257,13 +257,16 @@ class MaskRCNN(nn.Module):
         return self.mask_logits(rois).permute(0, 2, 3, 1)
 
 
-def model_flops(config: MaskRCNNConfig) -> Dict[str, int]:
+def model_flops(config: MaskRCNNConfig, rois: int = None,
+                slots: int = None) -> Dict[str, int]:
     """Operations (two per multiply-add) of one frame's convs and linears
-    by stage: the trunk, the FPN, the RPN head, the box head over the
-    ``post_nms_topk`` proposals and the mask head over the
-    ``max_detections`` slots (every slot runs, valid or not)."""
+    by stage: the trunk, the FPN, the RPN head, the box head over
+    ``rois`` ROIs (the ``post_nms_topk`` proposals by default) and the
+    mask head over ``slots`` ROIs (by default the ``max_detections``
+    slots: every slot runs, valid or not)."""
     side = config.image_size
-    rois, slots = config.post_nms_topk, config.max_detections
+    rois = config.post_nms_topk if rois is None else rois
+    slots = config.max_detections if slots is None else slots
     sides = [side]
     for _ in range(5):
         sides.append(-(-sides[-1] // 2))
@@ -337,6 +340,25 @@ def decode_boxes(anchors: torch.Tensor, deltas: torch.Tensor,
     h = ha * torch.exp(dh)
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
                        dim=-1)
+
+
+def encode_boxes(anchors: torch.Tensor, boxes: torch.Tensor,
+                 weights=(1.0, 1.0, 1.0, 1.0)) -> torch.Tensor:
+    """Inverse of :func:`decode_boxes` (training targets); widths and
+    heights are floored at 1e-6."""
+    floor = anchors.new_full((), 1e-6)
+    wa = torch.maximum(anchors[..., 2] - anchors[..., 0], floor)
+    ha = torch.maximum(anchors[..., 3] - anchors[..., 1], floor)
+    cxa = anchors[..., 0] + wa / 2
+    cya = anchors[..., 1] + ha / 2
+    w = torch.maximum(boxes[..., 2] - boxes[..., 0], floor)
+    h = torch.maximum(boxes[..., 3] - boxes[..., 1], floor)
+    cx = boxes[..., 0] + w / 2
+    cy = boxes[..., 1] + h / 2
+    return torch.stack([weights[0] * (cx - cxa) / wa,
+                        weights[1] * (cy - cya) / ha,
+                        weights[2] * torch.log(w / wa),
+                        weights[3] * torch.log(h / ha)], dim=-1)
 
 
 def clip_boxes(boxes: torch.Tensor, size: float) -> torch.Tensor:

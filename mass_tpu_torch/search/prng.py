@@ -5,7 +5,9 @@ bit for bit, on torch tensors (port of the threefry2x32 stream of
 
 A key is an int64 tensor ``[2]`` holding two unsigned 32-bit words;
 every word of the hash lives in an int64 tensor masked to 32 bits, so
-the functions run unchanged on any device.  Keys are passed explicitly:
+the functions run unchanged on any device.  A stack of keys ``[..., 2]``
+works wherever one key does, as ``jax.vmap`` over the keys would: the
+results gain the keys' leading axes.  Keys are passed explicitly:
 nothing here touches a global torch generator.
 
     key = PRNGKey(seed)
@@ -66,18 +68,37 @@ def _counters(shape: Sequence[int], device) -> Tuple[torch.Tensor,
             (flat & _MASK).reshape(tuple(shape)))
 
 
+def _words(key: torch.Tensor, ndim: int) -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
+    """The two words of a key ``[..., 2]``, shaped to broadcast against
+    ``ndim`` trailing axes of counters."""
+    lead = tuple(key.shape[:-1]) + (1,) * ndim
+    return key[..., 0].reshape(lead), key[..., 1].reshape(lead)
+
+
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split(key, num)``: ``[num, 2]`` new keys."""
+    """``jax.random.split(key, num)``: ``[..., num, 2]`` new keys."""
     hi, lo = _counters((num,), key.device)
-    b1, b2 = threefry2x32(key[0], key[1], hi, lo)
+    b1, b2 = threefry2x32(*_words(key, 1), hi, lo)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``: the hash of the counter pair
+    ``(0, data)`` (``data`` as an unsigned 32-bit word) under the key,
+    ``[..., 2]``."""
+    k1, k2 = _words(key, 0)
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(k1),
+                          torch.full_like(k1, int(data) & _MASK))
     return torch.stack([b1, b2], dim=-1)
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int] = ()
                 ) -> torch.Tensor:
-    """32 random bits per element of ``shape`` (int64 tensor)."""
+    """32 random bits per element of ``shape`` (int64 tensor
+    ``[..., *shape]``)."""
     hi, lo = _counters(shape, key.device)
-    b1, b2 = threefry2x32(key[0], key[1], hi, lo)
+    b1, b2 = threefry2x32(*_words(key, len(tuple(shape))), hi, lo)
     return b1 ^ b2
 
 

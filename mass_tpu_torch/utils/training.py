@@ -27,15 +27,24 @@ from torch import nn
 TRUNCATED_STD = 0.87962566103423978
 
 
-def lecun_normal_(weight: torch.Tensor,
-                  generator: torch.Generator) -> torch.Tensor:
-    """Fill a conv kernel ``[out, in, kh, kw]`` in place as flax's
-    ``lecun_normal`` does: fan-in = in * kh * kw."""
-    fan_in = weight.shape[1] * math.prod(weight.shape[2:])
-    std = math.sqrt(1.0 / fan_in) / TRUNCATED_STD
+def truncated_normal_(weight: torch.Tensor, std: float,
+                      generator: torch.Generator) -> torch.Tensor:
+    """Fill ``weight`` in place as flax's truncated-normal variance
+    scaling does: a normal truncated at two standard deviations, rescaled
+    so that the kept draws have standard deviation ``std``."""
+    std = std / TRUNCATED_STD
     with torch.no_grad():
         return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
                                      generator=generator)
+
+
+def lecun_normal_(weight: torch.Tensor,
+                  generator: torch.Generator) -> torch.Tensor:
+    """Fill a conv kernel ``[out, in, kh, kw]`` (or a linear weight
+    ``[out, in]``) in place as flax's ``lecun_normal`` does: fan-in = in *
+    kh * kw."""
+    fan_in = weight.shape[1] * math.prod(weight.shape[2:])
+    return truncated_normal_(weight, math.sqrt(1.0 / fan_in), generator)
 
 
 def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:

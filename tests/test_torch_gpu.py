@@ -959,3 +959,89 @@ def test_collector_launches_one_kernel_per_frame(cuda, monkeypatch):
         ulp = np.spacing(np.maximum(np.abs(a), np.abs(b))).astype(np.float32)
         assert (np.abs(a.astype(np.float32) - b.astype(np.float32))
                 <= ulp).all()
+
+
+# the Mask R-CNN trainer at the JAX tests' size (64 px, 3 classes, their
+# caps and sampling counts); chip_smoke.py runs the same checks at 224 px
+def _maskrcnn_small():
+    from mass_tpu_torch.perception import maskrcnn as TM
+    from mass_tpu_torch.perception import maskrcnn_train as TR
+
+    cfg = TM.MaskRCNNConfig(num_classes=3, image_size=64, pre_nms_topk=32,
+                            post_nms_topk=16, candidate_pool=32,
+                            max_detections=8)
+    tcfg = TR.TrainConfig(max_gt=4, rpn_pos_samples=8, rpn_neg_samples=24,
+                          roi_fg_samples=8, roi_bg_samples=24)
+    return cfg, tcfg
+
+
+def _instance_scenes(seed, n, side=64, max_gt=4):
+    """``n`` frames, each with two bright rectangles of classes 0 and 1
+    (the JAX tests' scene): (images, boxes, classes, masks, valid)."""
+    rng = np.random.RandomState(seed)
+    images = np.full((n, side, side, 3), 0.1, np.float32)
+    boxes = np.zeros((n, max_gt, 4), np.float32)
+    classes = np.zeros((n, max_gt), np.int32)
+    masks = np.zeros((n, max_gt, side, side), np.float32)
+    valid = np.zeros((n, max_gt), bool)
+    for f in range(n):
+        for i in range(2):
+            w, h = rng.randint(12, 20, 2)
+            x = rng.randint(2, side - w - 2)
+            y = rng.randint(2, side - h - 2)
+            images[f, y:y + h, x:x + w, i] = 0.9
+            boxes[f, i] = (x, y, x + w, y + h)
+            classes[f, i] = i
+            masks[f, i, y:y + h, x:x + w] = 1.0
+            valid[f, i] = True
+    return images, boxes, classes, masks, valid
+
+
+def test_maskrcnn_train_step_on_card_matches_float64(cuda):
+    """One step from flax's initialisation: the card's targets against
+    float64's by the margin rule and equal to the CPU's float32 sampling,
+    the five losses within rtol 1e-4 and every gradient within 1e-4 of
+    the largest of a float64 step on the card's targets."""
+    import chip_smoke
+    from mass_tpu_torch.perception import maskrcnn_train as TR
+    from mass_tpu_torch.search import prng
+
+    cfg, tcfg = _maskrcnn_small()
+    model = TR.init_maskrcnn(torch.Generator().manual_seed(0), cfg)
+    out = chip_smoke.maskrcnn_card_against_float64(
+        model, _instance_scenes(0, 2), prng.PRNGKey(1), tcfg, cuda)
+    assert out["margin"]["ok"], out["margin"]
+    assert out["grad_err"] <= chip_smoke.MASKRCNN_TOL
+    assert out["roi_foreground"] >= 2
+
+
+def test_maskrcnn_train_steps_twice_on_card_are_bit_equal(cuda):
+    """Three clipped SGD steps, twice from one seed: parameters, momentum
+    and count equal bit for bit (the ROIAlign's backward sums its
+    duplicates after a sort); one NMS launch a step."""
+    from mass_tpu_torch.ops import detection as D
+    from mass_tpu_torch.perception import maskrcnn_train as TR
+    from mass_tpu_torch.search import prng
+
+    cfg, tcfg = _maskrcnn_small()
+    batch = _instance_scenes(1, 2)
+    runs = []
+    for _ in range(2):
+        model = TR.init_maskrcnn(torch.Generator().manual_seed(0), cfg).to(
+            cuda)
+        opt = TR.SGD(model.named_parameters(), 0.0025, {1: 0.1, 2: 0.1})
+        step = TR.make_train_step(model, opt, tcfg)
+        key = prng.PRNGKey(3)
+        before = D.LAUNCHES
+        for _ in range(3):
+            key, sub = prng.split(key)
+            step(batch, sub)
+        torch.cuda.synchronize()
+        assert D.LAUNCHES == before + 3
+        runs.append((model.state_dict(), opt.state_dict()))
+    (a, opt_a), (b, opt_b) = runs
+    assert opt_a["count"] == opt_b["count"] == 3
+    for key in a:
+        assert torch.equal(a[key], b[key]), key
+    for key in opt_a["momentum"]:
+        assert torch.equal(opt_a["momentum"][key], opt_b["momentum"][key]), key

@@ -123,7 +123,27 @@ SCRIPT = textwrap.dedent("""
                   train_detector.make_train_step, train_detector.evaluate,
                   train_detector.train, train_detector.main):
         assert callable(entry), entry
+    from mass_tpu_torch.convert import (maskrcnn_opt_state_from_jax,
+                                        maskrcnn_params_from_jax)
+    from mass_tpu_torch.perception import maskrcnn_train
+    assert "mass_tpu_torch.perception.maskrcnn_train" in names
+    for entry in (prng.fold_in, maskrcnn.encode_boxes,
+                  maskrcnn_params_from_jax, maskrcnn_opt_state_from_jax,
+                  training.truncated_normal_, maskrcnn_train.TrainConfig,
+                  maskrcnn_train.init_maskrcnn,
+                  maskrcnn_train.train_norm_affines_,
+                  maskrcnn_train.load_weights, maskrcnn_train.sample_eligible,
+                  maskrcnn_train.rpn_targets, maskrcnn_train.rpn_samples,
+                  maskrcnn_train.roi_samples, maskrcnn_train.sample_targets,
+                  maskrcnn_train.image_losses, maskrcnn_train.batch_loss,
+                  maskrcnn_train.SGD, maskrcnn_train.make_train_step,
+                  maskrcnn_train.rasterize_record,
+                  maskrcnn_train.load_instance_split,
+                  maskrcnn_train.flip_batch, maskrcnn_train.evaluate_fused,
+                  maskrcnn_train.train, maskrcnn_train.main):
+        assert callable(entry), entry
     import tests.torch_checkpoints, tests.torch_margins, tests.torch_streams
+    assert callable(tests.torch_margins.compare_train_targets)
     print(len(names))
 """)
 

@@ -128,3 +128,35 @@ def test_categorical_ties_go_to_the_first_index():
                            -prng.gumbel(prng.PRNGKey(3), (1, 50)))
     want = np.asarray(jax.random.categorical(key, -noise))
     assert int(got[0]) == int(want[0]) == 0
+
+
+@settings(max_examples=40, deadline=None)
+@given(seed=SEEDS, data=st.sampled_from([0, 1, 2, 7, 12345, (1 << 31) - 1,
+                                         (1 << 32) - 1]))
+def test_fold_in_equals_jax(seed, data):
+    """``fold_in`` (the Mask R-CNN trainer's background-ROI key) bit for
+    bit, on a key and on a split of it."""
+    key = jax.random.PRNGKey(seed)
+    got = prng.PRNGKey(seed)
+    for _ in range(2):
+        np.testing.assert_array_equal(
+            prng.fold_in(got, data).numpy(),
+            _key_words(jax.random.fold_in(key, data)))
+        key, got = jax.random.split(key)[1], prng.split(got)[1]
+
+
+@pytest.mark.parametrize("seed", [0, 3, 2024])
+def test_batched_keys_equal_vmap(seed):
+    """A stack of keys ``[B, 2]`` through split, fold_in and uniform gives
+    what ``jax.vmap`` over the keys gives, as the trainer draws one key a
+    frame."""
+    keys = jax.random.split(jax.random.PRNGKey(seed), 3)
+    got = prng.split(prng.PRNGKey(seed), 3)
+    np.testing.assert_array_equal(
+        prng.split(got, 4).numpy(),
+        _key_words(jax.vmap(lambda k: jax.random.split(k, 4))(keys)))
+    np.testing.assert_array_equal(
+        prng.fold_in(got, 1).numpy(),
+        _key_words(jax.vmap(lambda k: jax.random.fold_in(k, 1))(keys)))
+    assert _same_bits(prng.uniform(got, (5, 7)), jax.vmap(
+        lambda k: jax.random.uniform(k, (5, 7)))(keys))
