@@ -75,7 +75,21 @@ over 8 steps, ms a step at batch 2 and 8 against the FLOP bound, the
 entry point twice on 8 images (byte-equal ``maskrcnn.pth``; the NMS
 launches it makes count into the ``nms`` entry), ``--eval-only`` with
 and without ``--tta``, and its ``maskrcnn.pth`` through a small
-``--detector-checkpoint`` episode.
+``--detector-checkpoint`` episode.  Then the tooling: the small default
+episode with ``--videos --snapshot-maps`` and the compat episode (the
+multi-map kernel) with both on the card and on the CPU (equal results,
+frames within one level, npz bit-equal, the mp4 decoded back), a
+``--fleet-size 2 --snapshot-maps`` run whose npz files equal the
+sequential runs' and whose results carry ``task_id``; the full-width
+default episode with ``--videos --snapshot-maps`` (the outcome without
+them; render and snapshot times, npz size, peak memory); two 40-frame
+captures of ``python -m mass_tpu_torch.env.replay`` (``diff``:
+IDENTICAL), ``verify`` at 80x80x24 on the card and the CPU (equal
+digests) and at full width on the card (two single-map launches a
+frame); ``--backend thor`` on a grid-backed fake of the THOR stack
+(``tests/torch_fake_thor.py``), sequential and ``--fleet-size 2``,
+against ``--backend gridworld``; and ``tools.analyze`` and
+``tools.submission`` over the logdirs those phases wrote.
 
 Exits non-zero when there is no CUDA card, when a kernel fails to build,
 launch or agree, or when any phase fails.  The line before the last is
@@ -89,6 +103,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import gzip
 import io
 import json
 import os
@@ -3033,6 +3048,560 @@ def phase_maskrcnn_train(dev) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# tooling: episode videos, map snapshots, trajectory replay, the THOR
+# gateway and the results tools
+# ----------------------------------------------------------------------
+
+TOOLING_DIR = os.path.join("build", "chip_smoke", "tooling")
+# the small episode through the CLI: 80x80x24 at 0.125 m, camera 48,
+# budgets 2 + 2, task 2 (the small-episode phases' geometry)
+TOOL_ARGS = [
+    "--backend", "gridworld", "--camera-size", "48", "--map-height", "80",
+    "--map-width", "80", "--map-depth", "24", "--grid-resolution", "0.125",
+    "--map-slice-start", "0", "--map-slice-stop", "12", "--step-size", "2",
+    "--obstacle-padding", "2", "--max-goal-steps", "80",
+    "--exploration-budget-one", "2", "--exploration-budget-two", "2",
+    "--ground-truth-segmentation", "--ground-truth-disagreement",
+    "--num-objects", "2", "--num-misplaced", "1", "--num-opened", "0"]
+REPLAY_FRAMES = 40          # a capture of 39 scripted actions
+# uint8 frames, card against CPU: the density's norm sums in another
+# order on the card, and the cast to uint8 truncates
+FRAME_LEVELS = 1
+
+
+class VideoRecorder:
+    """Wraps the CLI's ``VideoWriter.write`` (the mp4 is still written):
+    every frame handed to a writer, by the writer's path, and the host
+    time, card synced, of every video callback of the agent (the three
+    panels rendered, the frame composed and written) and of its parts:
+    the density panel, the two class panels, the composed frame and the
+    mp4 write (cv2's encode)."""
+
+    PARTS = ("render_occupancy", "render_semantic", "episode_frame")
+
+    def __init__(self, keep: bool):
+        self.keep = keep
+
+    def __enter__(self):
+        from mass_tpu_torch.agent import cli
+        from mass_tpu_torch.agent.loop import RearrangementAgent
+        from mass_tpu_torch.utils import visualization as V
+
+        self.frames, self.times = {}, []
+        self.parts = {name: [] for name in self.PARTS + ("write",)}
+        self._write = cli.VideoWriter.write
+        self._make = RearrangementAgent._make_callback
+        self._parts = {name: getattr(V, name) for name in self.PARTS}
+
+        def timed_part(name):
+            def part(*args, **kwargs):
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = self._parts[name](*args, **kwargs)
+                self.parts[name].append(time.perf_counter() - t0)
+                return out
+            return part
+        for name in self.PARTS:
+            setattr(V, name, timed_part(name))
+
+        def write(writer, frame):
+            kept = self.frames.setdefault(writer.path, [])
+            kept.append(np.array(frame) if self.keep else None)
+            t0 = time.perf_counter()
+            out = self._write(writer, frame)
+            self.parts["write"].append(time.perf_counter() - t0)
+            return out
+
+        def make(agent, writer):
+            callback = self._make(agent, writer)
+
+            def timed(obs):
+                if agent.device.type == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                callback(obs)
+                if agent.device.type == "cuda":
+                    torch.cuda.synchronize()
+                self.times.append(time.perf_counter() - t0)
+            return timed
+        cli.VideoWriter.write = write
+        RearrangementAgent._make_callback = make
+        return self
+
+    def __exit__(self, *exc):
+        from mass_tpu_torch.agent import cli
+        from mass_tpu_torch.agent.loop import RearrangementAgent
+        from mass_tpu_torch.utils import visualization as V
+
+        cli.VideoWriter.write = self._write
+        RearrangementAgent._make_callback = self._make
+        for name, fn in self._parts.items():
+            setattr(V, name, fn)
+
+    def split_ms(self) -> dict:
+        """Mean ms a frame of each part (the class panels: both maps)."""
+        frames = max(len(self.times), 1)
+        return {name: 1e3 * sum(t) / frames
+                for name, t in self.parts.items()}
+
+
+class SnapshotTimer:
+    """Host time, card synced, of every ``write_map_snapshots`` call (the
+    float16 cast on the maps' device, the copy to the host and
+    ``np.savez_compressed``) and the files written."""
+
+    def __enter__(self):
+        from mass_tpu_torch.agent import metrics as M
+
+        self.times, self.paths = [], []
+        self._write = M.write_map_snapshots
+
+        def write(logdir, task_id, maps):
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = self._write(logdir, task_id, maps)
+            self.times.append(time.perf_counter() - t0)
+            self.paths.append(path)
+            return path
+        M.write_map_snapshots = write
+        return self
+
+    def __exit__(self, *exc):
+        from mass_tpu_torch.agent import metrics as M
+
+        M.write_map_snapshots = self._write
+
+
+def mp4_frames(path: str) -> int:
+    """The frames ``cv2.VideoCapture`` decodes from an mp4."""
+    import cv2
+
+    video = cv2.VideoCapture(path)
+    check(video.isOpened(), f"cv2.VideoCapture cannot open {path}")
+    frames = 0
+    while video.read()[0]:
+        frames += 1
+    video.release()
+    return frames
+
+
+def npz_equal(path_a: str, path_b: str) -> list:
+    """The arrays of two npz files equal bit for bit (same names and
+    dtypes); returns the names."""
+    with np.load(path_a) as a, np.load(path_b) as b:
+        check(sorted(a.files) == sorted(b.files),
+              f"{path_a} and {path_b} hold other arrays")
+        for key in a.files:
+            check(a[key].dtype == b[key].dtype
+                  and np.array_equal(a[key], b[key]),
+                  f"{key} of {path_a} differs from {path_b}")
+        return sorted(a.files)
+
+
+def npz_shapes(path: str) -> dict:
+    """The shapes of an npz's arrays, from their headers alone (a
+    full-width snapshot inflates to 3 GB)."""
+    import zipfile
+
+    shapes = {}
+    with zipfile.ZipFile(path) as archive:
+        for name in archive.namelist():
+            with archive.open(name) as f:
+                version = np.lib.format.read_magic(f)
+                header = (np.lib.format.read_array_header_1_0 if version
+                          == (1, 0) else np.lib.format.read_array_header_2_0)
+                shapes[name[:-len(".npy")]] = list(header(f)[0])
+    return shapes
+
+
+def tool_run(device: str, flags: list, logdir: str) -> dict:
+    """``python -m mass_tpu_torch.agent.cli`` on ``device`` with the
+    small flags, writing into a fresh ``logdir``; results of the first
+    task."""
+    from mass_tpu_torch.agent import cli
+
+    shutil.rmtree(logdir, ignore_errors=True)
+    cli.main(TOOL_ARGS + flags + ["--device", device, "--logdir", logdir])
+    task = flags[flags.index("--start-task") + 1]
+    with open(os.path.join(logdir, "results", f"{task}.json")) as f:
+        return json.load(f)
+
+
+def phase_tooling_small() -> dict:
+    """``--videos --snapshot-maps`` on the small default episode (task 2)
+    and ``--snapshot-maps`` on the compat episode (the multi-map kernel),
+    each on the card and on the CPU: equal results, the frames handed to
+    the writer within one level (counted), the npz files bit-equal, a
+    frame an observation in the mp4; and a ``--fleet-size 2`` run of
+    tasks 2-3 with snapshots whose npz files equal the sequential runs'
+    (task 3 with its fleet rng seed) and whose results carry
+    ``task_id``."""
+    from mass_tpu_torch.ops import splat as SP
+
+    out, launches = {}, {"single": 0, "multi": 0}
+    for name, flags in (("default", ["--videos", "--snapshot-maps"]),
+                        ("compat", ["--reference-compat",
+                                    "--snapshot-maps"])):
+        videos = "--videos" in flags
+        flags = flags + ["--start-task", "2", "--total-tasks", "1"]
+        runs = {}
+        for device in ("cuda", "cpu"):
+            logdir = os.path.join(TOOLING_DIR, f"{name}-{device}")
+            with VideoRecorder(keep=True) as video:
+                # the tooling path starts here
+                SP.LAUNCHES = SP.MULTI_LAUNCHES = 0
+                t0 = time.perf_counter()
+                results = tool_run(device, flags, logdir)
+                wall = time.perf_counter() - t0
+                single, multi = SP.LAUNCHES, SP.MULTI_LAUNCHES
+            mp4 = os.path.join(logdir, "videos", "2.mp4")
+            frames = video.frames.get(mp4, [])
+            check(len(frames) == len(video.times) == (
+                mp4_frames(mp4) if videos else 0) == (
+                results["timing"]["mapping"]["count"] if videos else 0),
+                f"{name} on {device}: {len(frames)} frames written for "
+                f"{len(video.times)} callbacks")
+            runs[device] = dict(results=results, frames=frames, wall_s=wall,
+                                single=single, multi=multi,
+                                npz=os.path.join(logdir, "results",
+                                                 "maps-2.npz"))
+        gpu, cpu = runs["cuda"], runs["cpu"]
+        check(outcome(gpu["results"]) == outcome(cpu["results"]),
+              f"tooling {name}: cuda and cpu results differ")
+        check(len(gpu["frames"]) == len(cpu["frames"]),
+              f"tooling {name}: {len(gpu['frames'])} frames on the card, "
+              f"{len(cpu['frames'])} on the CPU")
+        diff = [np.abs(a.astype(int) - b.astype(int))
+                for a, b in zip(gpu["frames"], cpu["frames"])]
+        levels = max((int(d.max()) for d in diff), default=0)
+        check(levels <= FRAME_LEVELS, f"tooling {name}: frames differ by "
+              f"{levels} levels")
+        arrays = npz_equal(gpu["npz"], cpu["npz"])
+        updates = gpu["results"]["timing"]["mapping"]["count"]
+        check_launches(gpu["single"], gpu["multi"], updates,
+                       name == "compat")
+        launches["single"] += gpu["single"]
+        launches["multi"] += gpu["multi"]
+        out[name] = dict(cuda_s=gpu["wall_s"], cpu_s=cpu["wall_s"],
+                         frames=len(gpu["frames"]), frame_levels=levels,
+                         differing_pixels=int(sum((d > 0).sum()
+                                                  for d in diff)),
+                         npz_arrays=arrays, launches=gpu["single"],
+                         multi_launches=gpu["multi"], map_updates=updates,
+                         metrics=outcome(gpu["results"]))
+
+    fleet_dir = os.path.join(TOOLING_DIR, "fleet")
+    with SplatCounter() as counter:
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = 0     # fleet path starts here
+        t0 = time.perf_counter()
+        tool_run("cuda", ["--snapshot-maps", "--fleet-size", "2",
+                          "--start-task", "2", "--total-tasks", "2",
+                          "--seed", "-2"], fleet_dir)
+        fleet_s = time.perf_counter() - t0
+        counts = counter.check(SP.LAUNCHES, SP.MULTI_LAUNCHES, False)
+    launches["single"] += counts["launches"]
+    seq3 = os.path.join(TOOLING_DIR, "default-cuda-3")
+    SP.LAUNCHES = 0
+    tool_run("cuda", ["--snapshot-maps", "--start-task", "3",
+                      "--total-tasks", "1", "--seed", "1"], seq3)
+    launches["single"] += SP.LAUNCHES
+    for task, sequential in ((2, os.path.join(TOOLING_DIR, "default-cuda")),
+                             (3, seq3)):
+        npz_equal(os.path.join(fleet_dir, "results", f"maps-{task}.npz"),
+                  os.path.join(sequential, "results", f"maps-{task}.npz"))
+        with open(os.path.join(fleet_dir, "results", f"{task}.json")) as f:
+            check(json.load(f)["task_id"] == task,
+                  f"fleet results of task {task} lack task_id")
+    out["fleet"] = dict(wall_s=fleet_s, **counts)
+    out["launches"] = launches
+    return out
+
+
+def phase_tooling_full(full: dict) -> dict:
+    """The full-width default episode (the ``[episode 384x384x96x54]``
+    flags) through the CLI with ``--videos --snapshot-maps`` on the card:
+    the outcome of the run without them, a frame written an observation
+    and decoded back from the mp4, the render and snapshot times, the npz
+    size, peak memory and the launches."""
+    from mass_tpu_torch.agent import cli
+    from mass_tpu_torch.ops import splat as SP
+
+    logdir = os.path.join(TOOLING_DIR, "full")
+    shutil.rmtree(logdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with VideoRecorder(keep=False) as video, SnapshotTimer() as snap:
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = 0     # main path starts here
+        t0 = time.perf_counter()
+        cli.main(FULL_ARGS + FULL_BUDGETS + ["--videos", "--snapshot-maps",
+                                             "--logdir", logdir])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        single, multi = SP.LAUNCHES, SP.MULTI_LAUNCHES   # and ends here
+    with open(os.path.join(logdir, "results", "2.json")) as f:
+        results = json.load(f)
+    updates = results["timing"]["mapping"]["count"]
+    check_launches(single, multi, updates, False)
+    check(outcome(results) == full["metrics"],
+          "--videos --snapshot-maps changed the full-width episode")
+    mp4 = os.path.join(logdir, "videos", "2.mp4")
+    written = len(video.frames.get(mp4, []))
+    decoded = mp4_frames(mp4)
+    check(written == len(video.times) == decoded > 0,
+          f"{written} frames written, {len(video.times)} callbacks, "
+          f"{decoded} decoded")
+    check(len(snap.paths) == 1, "one snapshot a task")
+    shapes = npz_shapes(snap.paths[0])
+    args = cli.build_parser().parse_args(FULL_ARGS)
+    check(shapes["semantic0"] == [args.map_height, args.map_width,
+                                  args.map_depth, 54],
+          f"snapshot shape {shapes['semantic0']}")
+    render = 1e3 * np.asarray(video.times)
+    return dict(wall_s=wall_s, wall_without_s=full["wall_s"],
+                callbacks=len(video.times), frames_written=written,
+                mp4_frames=decoded, mp4_bytes=os.path.getsize(mp4),
+                render_ms_mean=float(render.mean()),
+                render_ms_median=float(np.median(render)),
+                render_split_ms=video.split_ms(),
+                render_s=float(render.sum() / 1e3),
+                snapshot_s=snap.times[0],
+                npz_bytes=os.path.getsize(snap.paths[0]), npz_shapes=shapes,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                launches=single, multi_launches=multi, map_updates=updates,
+                timing=results["timing"], metrics=outcome(results))
+
+
+def phase_replay() -> dict:
+    """``python -m mass_tpu_torch.env.replay``: two captures of the grid
+    world's task 2 at camera 224 (``REPLAY_FRAMES`` frames each) diff as
+    ``IDENTICAL``; ``verify`` at 80x80x24 on the card equals the CPU's
+    digest; ``verify`` at the CLI's full geometry on the card makes two
+    single-map launches a frame, timed apart from the digest's host
+    statistics."""
+    from mass_tpu_torch.env import replay as R
+    from mass_tpu_torch.ops import splat as SP
+
+    folder = os.path.join(TOOLING_DIR, "replay")
+    os.makedirs(folder, exist_ok=True)
+    capture = ["--camera-size", str(CAMERA), "--ground-truth-segmentation",
+               "--start-task", "2"]
+    paths = [os.path.join(folder, f"{name}.npz") for name in "ab"]
+    t0 = time.perf_counter()
+    for path in paths:
+        with contextlib.redirect_stdout(io.StringIO()):
+            R.main(["capture", "--out", path, "--frames",
+                    str(REPLAY_FRAMES - 1)] + capture)
+    capture_s = (time.perf_counter() - t0) / 2
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        R.main(["diff"] + paths)
+    check(text.getvalue().strip() == "IDENTICAL",
+          f"two captures differ: {text.getvalue()}")
+
+    small = capture + ["--map-height", "80", "--map-width", "80",
+                       "--map-depth", "24", "--grid-resolution", "0.125"]
+    SP.LAUNCHES = 0
+    card = R.replay_digest(paths[0], small + ["--device", "cuda"])
+    small_launches = SP.LAUNCHES
+    cpu = R.replay_digest(paths[0], small + ["--device", "cpu"])
+    check(card == cpu, "the card's digest differs from the CPU's")
+    check(card["frames"] == REPLAY_FRAMES
+          and small_launches == 2 * REPLAY_FRAMES,
+          f"{small_launches} launches for {card['frames']} frames")
+
+    stats = []
+    statistics = R.map_statistics
+
+    def timed(data, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = statistics(data, *args)
+        stats.append(time.perf_counter() - t0)
+        return out
+    R.map_statistics = timed
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        SP.LAUNCHES = 0                       # replay path starts here
+        t0 = time.perf_counter()
+        full = R.replay_digest(paths[0], capture + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        verify_s = time.perf_counter() - t0
+        full_launches = SP.LAUNCHES           # and ends here
+    finally:
+        R.map_statistics = statistics
+    check(full_launches == 2 * REPLAY_FRAMES,
+          f"full-width verify: {full_launches} launches for "
+          f"{full['frames']} frames")
+    check(full["map_semantic"]["nonzero"] > 0
+          and np.isfinite(full["map_semantic"]["sum"]),
+          "the full-width replay map is empty or not finite")
+    return dict(frames=REPLAY_FRAMES, capture_s=capture_s,
+                capture_bytes=os.path.getsize(paths[0]),
+                small_launches=small_launches, digests_equal=True,
+                launches=full_launches, verify_s=verify_s,
+                statistics_s=float(sum(stats)),
+                ms_per_frame=1e3 * (verify_s - sum(stats)) / REPLAY_FRAMES,
+                map_semantic=full["map_semantic"],
+                map_occupancy=full["map_occupancy"])
+
+
+def phase_thor_fake() -> dict:
+    """``--backend thor`` on the grid-backed fake of the THOR stack
+    (``tests/torch_fake_thor.py``), on the card at 80x80x24: sequentially
+    (THOR's first task spec, the grid world's task 0) equal to
+    ``--backend gridworld``'s task 0, and a ``--fleet-size 2
+    --snapshot-maps`` fleet of tasks 2-3 (slot 1 skipping ahead) equal to
+    ``[tooling 80x80x24]``'s grid-world fleet of the same tasks: results,
+    ``task_id`` included, and npz files bit for bit."""
+    from mass_tpu_torch.ops import splat as SP
+    from tests import torch_fake_thor as F
+
+    runs, launches = {}, 0
+    for name, device_flags in (
+            ("thor-seq", ["--backend", "thor", "--start-task", "0",
+                          "--total-tasks", "1"]),
+            ("thor-fleet", ["--backend", "thor", "--snapshot-maps",
+                            "--fleet-size", "2", "--start-task", "2",
+                            "--total-tasks", "2", "--seed", "-2"]),
+            ("grid-0", ["--start-task", "0", "--total-tasks", "1"])):
+        logdir = os.path.join(TOOLING_DIR, name)
+        with F.installed(F.GridBackedSampler):
+            SP.LAUNCHES = 0
+            t0 = time.perf_counter()
+            tool_run("cuda", device_flags, logdir)
+            runs[name] = time.perf_counter() - t0
+        launches += SP.LAUNCHES if name.startswith("thor") else 0
+
+    def results(name, task):
+        with open(os.path.join(TOOLING_DIR, name, "results",
+                               f"{task}.json")) as f:
+            return json.load(f)
+    check(outcome(results("thor-seq", 0)) == outcome(results("grid-0", 0)),
+          "the THOR gateway's episode differs from the grid world's")
+    for task in (2, 3):
+        got, want = results("thor-fleet", task), results("fleet", task)
+        check(outcome(got) == outcome(want) and got["task_id"] == task,
+              f"THOR fleet task {task} differs from the grid-world fleet's")
+        npz_equal(os.path.join(TOOLING_DIR, "thor-fleet", "results",
+                               f"maps-{task}.npz"),
+                  os.path.join(TOOLING_DIR, "fleet", "results",
+                               f"maps-{task}.npz"))
+    return dict(launches=launches, **{f"{n}_s": t for n, t in runs.items()},
+                prop_fixed=[results("thor-fleet", t)["unshuffle/prop_fixed"]
+                            for t in (2, 3)])
+
+
+def phase_tools() -> dict:
+    """``python -m mass_tpu_torch.tools.analyze metrics|failures|pr`` and
+    ``tools.submission`` over the logdirs the tooling phases wrote; the
+    plots too where matplotlib is installed."""
+    from mass_tpu_torch.tools import analyze, submission
+
+    logdirs = [os.path.join(TOOLING_DIR, n)
+               for n in ("default-cuda", "full", "fleet", "thor-seq")]
+    try:
+        import matplotlib  # noqa: F401
+        plots = True
+    except ImportError:
+        plots = False
+    tables = {}
+    for command in ("metrics", "failures", "pr"):
+        out = os.path.join(TOOLING_DIR, f"{command}.png")
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            analyze.main([command] + logdirs
+                         + (["--out", out] if plots else []))
+        tables[command] = text.getvalue()
+        check(text.getvalue().strip(), f"analyze {command} printed nothing")
+        check(not plots or os.path.getsize(out) > 0, f"no {out}")
+    packed = os.path.join(TOOLING_DIR, "submission.json.gz")
+    with contextlib.redirect_stdout(io.StringIO()):
+        submission.main(["--logdirs"] + logdirs + ["--output", packed])
+    with gzip.open(packed, "rt") as f:
+        records = json.load(f)
+    check(len(records) >= 3, f"submission packed {len(records)} records")
+    return dict(plots=plots, tables=tables, submission_records=len(records))
+
+
+def tooling_phases(report: dict, full: dict) -> tuple:
+    """The five tooling phases, printed and kept in ``report``; returns
+    their single-map and multi-map launches."""
+    tooling_start = time.perf_counter()
+    ts = report["tooling_small"] = phase_tooling_small()
+    tag = "tooling 80x80x24"
+    for name in ("default", "compat"):
+        t = ts[name]
+        print(f"[{tag}] {name} task 2 "
+              f"{'--videos ' if t['frames'] else ''}--snapshot-maps: cuda "
+              f"{t['cuda_s']:.1f} s, cpu {t['cpu_s']:.1f} s, results equal; "
+              f"{t['frames']} frames each, the card's within "
+              f"{t['frame_levels']} level of the CPU's "
+              f"({t['differing_pixels']} pixels differ); npz "
+              f"{'/'.join(a for a in t['npz_arrays'] if '_bins_' not in a)}"
+              f" bit-equal; launches splat_onehot {t['launches']}, "
+              f"splat_onehot_multi {t['multi_launches']} for "
+              f"{t['map_updates']} map updates")
+    fl = ts["fleet"]
+    print(f"[{tag}] --fleet-size 2 --snapshot-maps, tasks 2-3: npz equal "
+          f"to the sequential runs' bit for bit, results carry task_id; "
+          f"{fl['wall_s']:.1f} s, launches splat_onehot {fl['launches']} "
+          f"for {fl['group_splats']} group splats")
+    tf = report["tooling_full"] = phase_tooling_full(full)
+    tag = "tooling 384x384x96"
+    print(f"[{tag}] default task 2 --videos --snapshot-maps: outcome equal "
+          f"to [episode 384x384x96x54]; wall {tf['wall_s']:.1f} s against "
+          f"{tf['wall_without_s']:.1f} s without the flags; peak memory "
+          f"{tf['peak_memory_bytes'] / 2**30:.2f} GiB; launches "
+          f"splat_onehot {tf['launches']} for {tf['map_updates']} map "
+          f"updates")
+    print(f"[{tag}] render {tf['render_ms_mean']:.2f} ms a frame (median "
+          f"{tf['render_ms_median']:.2f}; host clock, card synced; "
+          f"{tf['render_s']:.1f} s in all); {tf['frames_written']} frames "
+          f"written for {tf['callbacks']} callbacks, {tf['mp4_frames']} "
+          f"decoded by cv2.VideoCapture ({tf['mp4_bytes'] / 2**20:.1f} MiB "
+          f"mp4)")
+    print(f"[{tag}] render by part, ms a frame: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in tf["render_split_ms"].items())
+        + " (the rest: cells of the pose and path, uint8 cast)")
+    print(f"[{tag}] snapshot {tf['snapshot_s']:.1f} s (float16 cast on the "
+          f"card, copy, np.savez_compressed), npz "
+          f"{tf['npz_bytes'] / 2**20:.1f} MiB")
+    rp = report["replay"] = phase_replay()
+    print(f"[replay] {rp['frames']} frames at camera {CAMERA} "
+          f"({rp['capture_bytes'] / 2**20:.1f} MiB, {rp['capture_s']:.1f} s "
+          f"a capture): two captures IDENTICAL; verify 80x80x24 cuda == cpu "
+          f"digest ({rp['small_launches']} launches); verify 384x384x96 on "
+          f"cuda: {rp['ms_per_frame']:.2f} ms a frame (host clock, card "
+          f"synced), {rp['launches']} single-map launches, digest "
+          f"statistics {rp['statistics_s']:.1f} s; semantic nonzero "
+          f"{rp['map_semantic']['nonzero']}")
+    th = report["thor_fake"] = phase_thor_fake()
+    print(f"[thor fake] --backend thor on the grid-backed fake on cuda: task "
+          f"0 sequentially in {th['thor-seq_s']:.1f} s, equal to --backend "
+          f"gridworld ({th['grid-0_s']:.1f} s); --fleet-size 2 "
+          f"--snapshot-maps, tasks 2-3, in {th['thor-fleet_s']:.1f} s, results"
+          f" (task_id included) and npz equal to the grid-world fleet's; "
+          f"prop_fixed {th['prop_fixed']}; launches splat_onehot "
+          f"{th['launches']}")
+    tools = report["tools"] = phase_tools()
+    print(f"[tools] analyze metrics, failures and pr over 4 logdirs, "
+          f"submission of {tools['submission_records']} records: "
+          + ("tables and plots (matplotlib present)" if tools["plots"]
+             else "tables only (no matplotlib)"))
+    print(tools["tables"]["failures"].rstrip())
+    report["tooling_s"] = time.perf_counter() - tooling_start
+    print(f"[tooling] the five tooling phases took {report['tooling_s']:.1f}"
+          f" s")
+    return (ts["launches"]["single"] + tf["launches"] + rp["small_launches"]
+            + rp["launches"] + th["launches"], ts["launches"]["multi"])
+
+
+
 def kernel_line(name: str, replaces: str, launches: int,
                 phase: dict) -> dict:
     from mass_tpu_torch.ops import splat as SP
@@ -3598,11 +4167,13 @@ def main() -> int:
     print(f"[training] the six training phases took "
           f"{report['training_s']:.1f} s")
 
+    tooling_single, tooling_multi = tooling_phases(report, full)
+
     kernels = [
         kernel_line("splat_onehot", "mass_tpu/ops/pallas_splat.py:756",
-                    full["launches"], kernel),
+                    full["launches"] + tooling_single, kernel),
         kernel_line("splat_onehot_multi", "mass_tpu/ops/pallas_splat.py:671",
-                    compat["multi_launches"], multi),
+                    compat["multi_launches"] + tooling_multi, multi),
         kernel_line("splat_onehot_frames",
                     "mass_tpu/ops/pallas_splat.py:445", frames["launches"],
                     frames),

@@ -2,12 +2,17 @@
 (port of ``mass_tpu.agent.cli``).
 
 Takes ``mass_tpu.agent.cli``'s flags with the same names and defaults
-and writes the same ``results/{id}.json``.  Flags whose code arrives in
-a later slice of the port stop with an error naming that slice.  The
-episode runs on ``--device`` (default ``cuda``); ``--fleet-size B``
-above 1 runs the tasks B at a time in lockstep over shared fleet maps
-(``parallel/evaluator.py``), each task with the rng seed ``--seed`` +
-task.  ``--use-feature-matching`` reads the stage-1 ResNet from
+and writes the same ``results/{id}.json``.  ``--shard-map``, whose code
+arrives with a later slice of the port, stops with an error naming that
+slice.  The episode runs on ``--device`` (default ``cuda``);
+``--fleet-size B`` above 1 runs the tasks B at a time in lockstep over
+shared fleet maps (``parallel/evaluator.py``), each task with the rng
+seed ``--seed`` + task.  ``--backend thor`` runs the AI2-THOR
+rearrangement stack through ``env/thor.py`` (where it is installed),
+a fleet over B persistent THOR samplers.  ``--videos`` writes
+``videos/{id}.mp4`` per sequential episode (cv2, codec mp4v, 10 fps);
+``--snapshot-maps`` writes ``results/maps-{id}.npz``, sequential and in
+the fleet.  ``--use-feature-matching`` reads the stage-1 ResNet from
 ``--backbone-checkpoint <.pth>`` (``mass_tpu_torch/checkpoints/
 backbone-rand.pth`` is the JAX package's ``init_backbone()``).  Without
 ``--ground-truth-segmentation`` the semantic image comes from the
@@ -87,7 +92,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--policy-inhibition-radius", type=float, default=0.0)
     p.add_argument("--use-feature-matching", action="store_true")
     p.add_argument("--record-found-objects", action="store_true")
-    p.add_argument("--snapshot-maps", action="store_true")
+    p.add_argument("--snapshot-maps", action="store_true",
+                   help="write each episode's final voxel maps "
+                        "(results/maps-{id}.npz: float16 grids and their "
+                        "bins), sequential and in the fleet")
     p.add_argument("--one-phase", action="store_true")
     p.add_argument("--reference-compat", action="store_true")
 
@@ -128,7 +136,10 @@ def build_parser() -> argparse.ArgumentParser:
 
     p.add_argument("--policy-checkpoint", type=str, default=None)
     p.add_argument("--backbone-checkpoint", type=str, default=None)
-    p.add_argument("--videos", action="store_true")
+    p.add_argument("--videos", action="store_true",
+                   help="write videos/{id}.mp4 per sequential episode "
+                        "(cv2, codec mp4v, 10 fps); fleets write none, as "
+                        "in mass_tpu")
     p.add_argument("--fleet-size", type=int, default=1)
     p.add_argument("--shard-map", type=int, default=0)
     p.add_argument("--seed", type=int, default=0)
@@ -145,15 +156,8 @@ def unported(flag: str, slice_no: int,
 
 def unported_flags(args) -> Optional[str]:
     """Why these flags cannot run on this slice of the port, or None."""
-    checks = [
-        (args.backend == "thor", "--backend thor", 3),
-        (args.shard_map > 1, "--shard-map", 4),
-        (args.videos, "--videos", 3),
-        (args.snapshot_maps, "--snapshot-maps", 3),
-    ]
-    for hit, flag, slice_no in checks:
-        if hit:
-            return unported(flag, slice_no)
+    if args.shard_map > 1:
+        return unported("--shard-map", 4)
     return None
 
 
@@ -198,29 +202,44 @@ def config_from_args(args) -> AgentConfig:
         policy_inhibition_radius=args.policy_inhibition_radius,
         use_feature_matching=args.use_feature_matching,
         record_found_objects=args.record_found_objects,
+        snapshot_maps=args.snapshot_maps,
         one_phase=args.one_phase,
         logdir=args.logdir, stage=args.stage,
         start_task=args.start_task, every_tasks=args.every_tasks,
         total_tasks=args.total_tasks, resume=args.resume)
 
 
+def thor_sampler(args):
+    """One THOR rearrangement sampler of the flags' stage and camera
+    (ground-truth frames: a learned sensor replaces ``semantic`` after
+    it)."""
+    from mass_tpu_torch.env.thor import ThorTaskSampler
+    return ThorTaskSampler(
+        stage=args.stage, ground_truth=True,
+        detection_threshold=args.detection_threshold,
+        screen_size=args.camera_size, one_phase=args.one_phase)
+
+
 def make_sampler(args, config: AgentConfig, seeds=None, sensor=None):
-    """The grid-world task sampler over ``seeds`` (default: the task
-    range the flags name), its tasks' ``semantic`` replaced by
-    ``sensor``'s when one is given (the learned segmentation of a
-    sequential run)."""
-    from mass_tpu_torch.env.rearrange import GridWorldTaskSampler
-    if seeds is None:
-        seeds = range(args.start_task, args.start_task
-                      + args.total_tasks * args.every_tasks + 1)
-    sampler = GridWorldTaskSampler(
-        list(seeds), camera=config.camera, max_steps=args.max_steps,
-        one_phase=args.one_phase,
-        num_objects=args.num_objects, num_misplaced=args.num_misplaced,
-        num_opened=args.num_opened,
-        duplicate_class_pairs=args.duplicate_class_pairs,
-        room=(args.room_size, 2.5, args.room_size),
-        num_rooms=args.num_rooms)
+    """The task sampler of ``--backend``: THOR's, or the grid world's over
+    ``seeds`` (default: the task range the flags name); its tasks'
+    ``semantic`` replaced by ``sensor``'s when one is given (the learned
+    segmentation of a sequential run)."""
+    if args.backend == "thor":
+        sampler = thor_sampler(args)
+    else:
+        from mass_tpu_torch.env.rearrange import GridWorldTaskSampler
+        if seeds is None:
+            seeds = range(args.start_task, args.start_task
+                          + args.total_tasks * args.every_tasks + 1)
+        sampler = GridWorldTaskSampler(
+            list(seeds), camera=config.camera, max_steps=args.max_steps,
+            one_phase=args.one_phase,
+            num_objects=args.num_objects, num_misplaced=args.num_misplaced,
+            num_opened=args.num_opened,
+            duplicate_class_pairs=args.duplicate_class_pairs,
+            room=(args.room_size, 2.5, args.room_size),
+            num_rooms=args.num_rooms)
     if sensor is not None:
         from mass_tpu_torch.perception.segmentation import \
             SegmentationSampler
@@ -308,38 +327,115 @@ def load_segmentation_sensor(args, device):
     return DetectorSegmentation(detector, args.detection_threshold)
 
 
+def make_video_factory(args):
+    """``task_id -> writer`` of ``videos/{task_id}.mp4`` under
+    ``--logdir`` with ``--videos``, else None."""
+    if not args.videos:
+        return None
+
+    def factory(task_id: int):
+        path = os.path.join(args.logdir, "videos", f"{task_id}.mp4")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        return VideoWriter(path)
+    return factory
+
+
+class VideoWriter:
+    """An mp4 through cv2 (codec mp4v, 10 fps; cv2 rather than imageio,
+    which GPU hosts may lack), opened at the first frame, whose size it
+    takes.
+    Frames are RGB uint8; cv2 writes BGR.  A writer that does not open,
+    or a frame of another size (which cv2 would drop without a word),
+    stops the run."""
+
+    CODEC = "mp4v"
+    FPS = 10
+
+    def __init__(self, path: str):
+        self.path = path
+        self.frames = 0
+        self._writer = None
+        self._size = None
+
+    def write(self, frame: np.ndarray) -> None:
+        import cv2
+        size = (frame.shape[1], frame.shape[0])
+        if self._writer is None:
+            self._writer = cv2.VideoWriter(
+                self.path, cv2.VideoWriter_fourcc(*self.CODEC), self.FPS,
+                size)
+            if not self._writer.isOpened():
+                raise RuntimeError(f"cv2.VideoWriter could not open "
+                                   f"{self.path} with codec {self.CODEC}")
+            self._size = size
+        if size != self._size:
+            raise ValueError(f"{self.path}: a {size} frame in a video of "
+                             f"{self._size} frames")
+        self._writer.write(np.ascontiguousarray(frame[..., ::-1]))
+        self.frames += 1
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.release()
+
+
 def run_fleet(args, config: AgentConfig, device: str, policy=None,
               backbone=None, sensor=None):
     """Lockstep fleet evaluation over the task range: batches of
-    ``--fleet-size`` episodes, each from a sampler of its own task's seed
-    with the rng seed ``--seed`` + task, so an episode equals the
-    sequential agent's on that sampler and seed.  A learned ``sensor``
-    runs inside the evaluator, on the whole fleet's frames at once (the
-    samplers stay ground truth)."""
+    ``--fleet-size`` episodes with the rng seed ``--seed`` + task, so an
+    episode equals the sequential agent's on that sampler and seed.  The
+    grid world gives each episode a sampler of its own task's seed; THOR
+    keeps ``--fleet-size`` persistent samplers (one simulator each) and
+    skips each slot's task-spec iterator ahead to its next task between
+    batches.  Results carry ``task_id``, the task's index.  A learned
+    ``sensor`` runs inside the evaluator, on the whole fleet's frames at
+    once (the samplers stay ground truth)."""
     from mass_tpu_torch.agent import metrics as M
     from mass_tpu_torch.parallel.evaluator import FleetEvaluator
 
     tasks = [args.start_task + k * args.every_tasks
              for k in range(args.total_tasks)]
 
+    if args.backend == "thor":
+        slots = [thor_sampler(args)
+                 for _ in range(min(args.fleet_size, max(len(tasks), 1)))]
+        consumed = [0] * len(slots)         # task specs each slot has used
+
+        def samplers_of(batch):
+            for i, task in enumerate(batch):
+                while consumed[i] < task:   # skip to this task
+                    slots[i].skip_task()
+                    consumed[i] += 1
+                consumed[i] += 1            # the episode uses it
+            return slots[:len(batch)]
+    else:
+        def samplers_of(batch):
+            return [make_sampler(args, config, [s]) for s in batch]
+
     def run_batch(batch):
         evaluator = FleetEvaluator(
-            config, [make_sampler(args, config, [s]) for s in batch],
+            config, samplers_of(batch),
             seeds=[args.seed + s for s in batch], policy=policy,
             sensor=sensor, feature_backbone=backbone, device=device)
         results = evaluator.run()
         for task, ep, result in zip(batch, evaluator.episodes, results):
+            result["task_id"] = task
             if not config.logdir:
                 continue
             M.write_task_metrics(config.logdir, task, result)
-            if not config.record_found_objects:
-                continue
-            tracks = [("unshuffle", ep.unshuffle_track)]
-            if not config.one_phase:    # one-phase has no walkthrough task
-                tracks.insert(0, ("walkthrough", ep.walk_track))
-            for phase, track in tracks:
-                M.write_found_objects(config.logdir, task, phase, track,
-                                      ep.found_positions, ep.found_types)
+            if config.record_found_objects:
+                tracks = [("unshuffle", ep.unshuffle_track)]
+                if not config.one_phase:    # one-phase: no walkthrough
+                    tracks.insert(0, ("walkthrough", ep.walk_track))
+                for phase, track in tracks:
+                    M.write_found_objects(config.logdir, task, phase, track,
+                                          ep.found_positions,
+                                          ep.found_types)
+            if config.snapshot_maps:
+                fleet = evaluator.fleet
+                M.write_map_snapshots(
+                    config.logdir, task,
+                    {n: fleet.view(n, ep.index) for n in fleet.buffers})
         return results
 
     results = []
@@ -382,7 +478,8 @@ def main(argv=None):
         agent = RearrangementAgent(
             config, make_sampler(args, config, sensor=sensor),
             rng=np.random.RandomState(args.seed), device=device,
-            policy=policy, feature_backbone=backbone)
+            policy=policy, feature_backbone=backbone,
+            video_writer_factory=make_video_factory(args))
         return agent.run()
 
     metrics = run_with_restart(run)

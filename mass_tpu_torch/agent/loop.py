@@ -13,7 +13,11 @@ whose observations carry the goal world's render, so both maps build
 from one pass (:class:`OnePhaseMapSet`).  ``--use-feature-matching``
 adds a pair of dense ResNet feature maps (``feature0`` in phase one,
 ``feature1`` in phase two), whose pooled embeddings pair same-class
-instances in the matcher.
+instances in the matcher.  ``video_writer_factory`` records a frame
+per observation (camera view beside the navigation map's density and
+both semantic maps, rendered on the maps' device), and
+``config.snapshot_maps`` writes each episode's final maps; neither
+changes an episode.
 
 Every numpy random draw happens in the JAX package's order, and the
 policy's draws replay ``jax.random``'s threefry stream, so a seeded
@@ -40,6 +44,7 @@ from mass_tpu_torch.match.differences import predict_scene_differences
 from mass_tpu_torch.nav.controller import NavigationController
 from mass_tpu_torch.search import policy as search_policy
 from mass_tpu_torch.search import prng
+from mass_tpu_torch.utils import visualization as viz
 from mass_tpu_torch.utils.profiling import StageTimer
 
 PHASE_ONE_MAPS = ["occupancy", "semantic0", "feature0"]
@@ -52,8 +57,6 @@ def _unported(config: AgentConfig) -> Optional[str]:
     """The later slice a configuration needs, or None."""
     if config.shard_map > 1:
         return "row-sharded maps (--shard-map) are ported in slice 4"
-    if config.snapshot_maps:
-        return "map snapshots (--snapshot-maps) are ported in slice 3"
     return None
 
 
@@ -177,13 +180,16 @@ class RearrangementAgent:
       feature_backbone: RGB ``[h, w, 3]`` -> ``[h/4, w/4, feature_size]``
         embedding function (``perception/resnet.make_backbone``), needed
         when ``config.use_feature_matching``.
+      video_writer_factory: optional ``task_id -> writer`` with
+        ``write(frame_uint8)`` / ``close()`` for episode videos.
     """
 
     def __init__(self, config: AgentConfig, sampler,
                  rng: Optional[np.random.RandomState] = None,
                  device=None, policy=None,
                  feature_backbone: Optional[Callable] = None,
-                 feature_size: int = 256):
+                 feature_size: int = 256,
+                 video_writer_factory: Optional[Callable] = None):
         reason = _unported(config)
         if reason is not None:
             raise NotImplementedError(reason)
@@ -195,6 +201,8 @@ class RearrangementAgent:
         self.rng = rng or np.random.RandomState(0)
         self.device = resolve_device(device)
         self.timer = StageTimer(self.device)
+        self.video_writer_factory = video_writer_factory
+        self._writer = self._callback = None
 
         cam = config.camera
         geo_kw = dict(map_height=config.map_height,
@@ -237,16 +245,21 @@ class RearrangementAgent:
             goal = self.heads.next_goal(controller, semantic_name,
                                         gt_goals, use_policy, revisit_ok,
                                         self.timer)
-            for _ in controller.navigate_to(goal, update_map=update_maps):
-                if tracker is not None:
-                    loc = controller.task.agent_location()
-                    tracker.append(np.asarray([loc.x, loc.z]))
+            for obs in controller.navigate_to(goal, update_map=update_maps):
+                self._observed(controller, obs, tracker)
 
     def _navigate(self, controller, goal, tracker) -> None:
-        for _ in controller.navigate_to(goal, update_map=self.phase_two):
-            if tracker is not None:
-                loc = controller.task.agent_location()
-                tracker.append(np.asarray([loc.x, loc.z]))
+        for obs in controller.navigate_to(goal, update_map=self.phase_two):
+            self._observed(controller, obs, tracker)
+
+    def _observed(self, controller, obs, tracker) -> None:
+        """Per observation: the video frame, then the found-object
+        track."""
+        if self._callback is not None:
+            self._callback(obs)
+        if tracker is not None:
+            loc = controller.task.agent_location()
+            tracker.append(np.asarray([loc.x, loc.z]))
 
     def _rearrange(self, controller, object_ids_to_move,
                    objects_moved: set, tracker) -> None:
@@ -302,9 +315,9 @@ class RearrangementAgent:
 
     # ----------------------------------------------------------- tasks
 
-    def _start_task(self):
-        """A fresh episode's first task, maps, controller and stage
-        timer, the agent looking down (it behaves better so)."""
+    def _start_task(self, task_id: int):
+        """A fresh episode's first task, maps, controller, stage timer and
+        video writer, the agent looking down (it behaves better so)."""
         self.timer = StageTimer(self.device)    # fresh per-task timing
         self.heads.reset()
         task = self.sampler.next_task()
@@ -313,6 +326,10 @@ class RearrangementAgent:
         controller = NavigationController(
             task, self.navigation_map, self.maps, self.config.nav,
             rng=self.rng, timer=self.timer)
+        self._writer = (self.video_writer_factory(task_id)
+                        if self.video_writer_factory else None)
+        self._callback = (self._make_callback(self._writer)
+                          if self._writer is not None else None)
         task.step(task.action_names().index("look_down"))
         return task, controller
 
@@ -339,6 +356,9 @@ class RearrangementAgent:
         cfg = self.config
         if not task.is_done():
             task.step(task.action_names().index("done"))
+        if self._writer is not None:
+            self._writer.close()
+            self._writer = self._callback = None
         self._final_analytics(task, analytics)
         results = task.metrics()
         results["unshuffle/objects_moved"] = [
@@ -363,13 +383,15 @@ class RearrangementAgent:
                 for phase, track in tracks.items():
                     M.write_found_objects(cfg.logdir, task_id, phase,
                                           track or [], positions, types)
+            if cfg.snapshot_maps:
+                M.write_map_snapshots(cfg.logdir, task_id, self.maps)
         return results
 
     def run_task(self, task_id: int) -> Dict:
         if self.config.one_phase:
             return self._run_task_one_phase(task_id)
         cfg = self.config
-        walkthrough, controller = self._start_task()
+        walkthrough, controller = self._start_task(task_id)
 
         analytics = self._initial_analytics(walkthrough)
         gt_goals_walk, gt_goals_unshuffle = [], []
@@ -418,7 +440,7 @@ class RearrangementAgent:
         both budgets builds both maps; rearrangement then runs as
         usual."""
         cfg = self.config
-        task, controller = self._start_task()
+        task, controller = self._start_task(task_id)
 
         analytics = self._initial_analytics(task)
         gt_goals: List[np.ndarray] = []
@@ -491,3 +513,31 @@ class RearrangementAgent:
             counts[rec["type"]] = counts.get(rec["type"], 0) + 1
         for rec in records:
             rec["num_instances"] = counts[rec["type"]]
+
+    # ----------------------------------------------------------- video
+
+    def _make_callback(self, writer):
+        """The per-observation video frame: the camera view beside the
+        navigation map's density (agent and planned path drawn over it)
+        and both semantic maps' class colors, as uint8."""
+        cfg = self.config
+
+        def callback(obs):
+            nav = self.maps[self.navigation_map].voxel_map
+            cell = nav.world_to_map(
+                np.asarray(obs["position"], np.float32)).cpu().numpy()
+            path_cells = None
+            if "path" in obs:
+                path_cells = nav.world_to_map(
+                    np.asarray(obs["path"], np.float32)).cpu().numpy()
+            frame = viz.episode_frame(
+                np.asarray(obs["rgb"], np.float32),
+                viz.render_occupancy(
+                    nav, cell, obs.get("yaw", 0.0), path_cells,
+                    cfg.nav.map_slice_start, cfg.nav.map_slice_stop),
+                viz.render_semantic(self.maps["semantic0"].voxel_map, 0,
+                                    cfg.nav.map_slice_stop),
+                viz.render_semantic(self.maps["semantic1"].voxel_map, 0,
+                                    cfg.nav.map_slice_stop))
+            writer.write((frame * 255).astype(np.uint8))
+        return callback

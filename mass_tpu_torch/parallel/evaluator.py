@@ -2,7 +2,8 @@
 device step per stage (port of ``mass_tpu.parallel.evaluator``).
 
 The sequential agent (``agent/loop.py``) runs one episode at a time.
-This evaluator advances B grid-world episodes in lockstep instead:
+This evaluator advances B episodes in lockstep instead (grid-world
+samplers, or THOR's, which it reaches only through the Task protocol):
 
   * mapping: every live episode's frame folds into the fleet's map
     buffers in one sort and one splat launch per group of families that
@@ -18,12 +19,14 @@ This evaluator advances B grid-world episodes in lockstep instead:
     sequential agent's actions given the same rng seed.
 
 It runs the sequential port's configurations: two-phase and one-phase
-episodes with ground-truth segmentation, every goal head (ground truth,
-the semantic-search policy, revisit, frontier, random), ground-truth or
-predicted disagreement, feature matching and ``--reference-compat``.
-One-phase ticks make a second batched map update for the goal-fed maps,
-since the goal render's depth has its own binning.  Learned segmentation
-raises ``NotImplementedError`` naming its slice.
+episodes with ground-truth or learned segmentation, every goal head
+(ground truth, the semantic-search policy, revisit, frontier, random),
+ground-truth or predicted disagreement, feature matching and
+``--reference-compat``.  One-phase ticks make a second batched map
+update for the goal-fed maps, since the goal render's depth has its own
+binning.  Row-sharded maps (``--shard-map``) raise
+``NotImplementedError`` naming their slice.  The CLI writes each
+episode's snapshot from its views of the fleet's buffers.
 """
 
 from __future__ import annotations

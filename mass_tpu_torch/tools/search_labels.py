@@ -8,7 +8,7 @@ files).  Only the grid's bin edges are built, on ``--device`` (default
 ``cuda``): a full 384x384x96x54 map would be 3 GB a task for nothing.
 
     python -m mass_tpu_torch.tools.search_labels --total-tasks 20 \\
-        --logdir /tmp/labels
+        --logdir /tmp/labels [--backend thor]
 """
 
 from __future__ import annotations
@@ -62,8 +62,7 @@ def dump_labels(sampler, geometry: MapGeometry, logdir: str,
 
 def main(argv=None):
     from mass_tpu_torch.agent.cli import (add_device_flags,
-                                          resolve_device_flags, unported)
-    from mass_tpu_torch.env.rearrange import GridWorldTaskSampler
+                                          resolve_device_flags)
 
     p = argparse.ArgumentParser("search-label dumper")
     p.add_argument("--logdir", type=str, required=True)
@@ -78,14 +77,17 @@ def main(argv=None):
     p.add_argument("--camera-size", type=int, default=224)
     add_device_flags(p)
     args = p.parse_args(argv)
-    if args.backend == "thor":
-        raise SystemExit(unported("--backend thor", 3,
-                                  "mass_tpu.tools.search_labels"))
 
-    camera = CameraConfig(height=args.camera_size, width=args.camera_size)
-    sampler = GridWorldTaskSampler(
-        list(range(args.start_task, args.start_task + args.total_tasks)),
-        camera=camera)
+    if args.backend == "thor":
+        from mass_tpu_torch.env.thor import ThorTaskSampler
+        sampler = ThorTaskSampler(screen_size=args.camera_size)
+    else:
+        from mass_tpu_torch.env.rearrange import GridWorldTaskSampler
+        sampler = GridWorldTaskSampler(
+            list(range(args.start_task,
+                       args.start_task + args.total_tasks)),
+            camera=CameraConfig(height=args.camera_size,
+                                width=args.camera_size))
     geometry = MapGeometry(args.map_height, args.map_width, args.map_depth,
                            grid_resolution=args.grid_resolution)
     n = dump_labels(sampler, geometry, args.logdir, args.start_task,

@@ -163,7 +163,7 @@ BACKBONE = os.path.join(REPO, "mass_tpu_torch", "checkpoints",
 
 
 @pytest.mark.parametrize("flags,slice_no", [
-    (["--backend", "thor"], 3),
+    (["--backend", "thor"], None),
     # learned segmentation without a detector: stops naming the flag
     ([], "a learned detector is required"),
     (["--policy-checkpoint", GRIDWORLD_POLICY,
@@ -173,21 +173,43 @@ BACKBONE = os.path.join(REPO, "mass_tpu_torch", "checkpoints",
     (["--use-feature-matching", "--backbone-checkpoint", BACKBONE], None),
     (["--one-phase"], None),
     (["--shard-map", "8"], 4),
-    (["--snapshot-maps"], 3),
-    (["--videos"], 3),
+    (["--snapshot-maps"], None),
+    (["--videos"], None),
 ])
 def test_cli_rejects_flags_of_later_slices(flags, slice_no, tmp_path):
     """Flags of later slices stop before anything is written (a string
-    ``slice_no`` is the message expected instead of the slice); the goal
-    heads' flags (``slice_no`` None) run: a CPU run writes
-    results/2.json."""
+    ``slice_no`` is the message expected instead of the slice); the
+    ported flags (``slice_no`` None) run: a CPU run writes
+    results/2.json, ``--snapshot-maps`` the episode's maps, ``--videos``
+    its mp4 (a frame per observation), and ``--backend thor`` (on the
+    grid-backed fake of the THOR stack) the first episode of THOR's own
+    task specs."""
     from mass_tpu_torch.agent import cli
+    from tests import torch_fake_thor
 
     if slice_no is None:
-        cli.main(SMALL + flags + ["--start-task", "2", "--total-tasks", "1",
-                                  "--logdir", str(tmp_path)])
+        thor = "thor" in flags
+        with torch_fake_thor.installed(torch_fake_thor.GridBackedSampler):
+            metrics = cli.main(SMALL + flags + [
+                "--start-task", "2", "--total-tasks", "1",
+                "--logdir", str(tmp_path)])
         with open(tmp_path / "results" / "2.json") as f:
-            assert json.load(f)["task_id"] == 2
+            assert json.load(f)["task_id"] == (0 if thor else 2)
+        if "--snapshot-maps" in flags:
+            with np.load(tmp_path / "results" / "maps-2.npz") as z:
+                assert z["semantic0"].shape == (32, 32, 8, 54)
+                assert z["semantic0"].dtype == np.float16
+                assert np.count_nonzero(z["semantic1"]) > 0
+                assert z["semantic1_bins_z"].shape == (9,)
+        if "--videos" in flags:
+            import cv2
+            video = cv2.VideoCapture(str(tmp_path / "videos" / "2.mp4"))
+            frames = 0
+            while video.read()[0]:
+                frames += 1
+            video.release()
+            steps = metrics[0]["timing"]["mapping"]["count"]
+            assert frames == steps > 0      # one frame an observation
         return
     base = [] if flags == [] else ["--ground-truth-segmentation"]
     match = (slice_no if isinstance(slice_no, str)

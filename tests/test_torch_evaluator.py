@@ -201,13 +201,14 @@ def test_cli_fleet_writes_results(tmp_path):
     (["--use-feature-matching", "--backbone-checkpoint", BACKBONE,
       "--one-phase"], None),
     ({"shard_map": 4}, 4),
-    ({"snapshot_maps": True}, 3),
+    (["--snapshot-maps"], None),
 ])
 def test_fleet_refuses_later_slices(change, slice_no, tmp_path):
-    """The fleet refuses what later slices port; the goal heads' flags
+    """The fleet refuses what later slices port; the ported flags
     (``slice_no`` None, ``change`` CLI flags) run: a --fleet-size 2 CPU
-    run of tasks 2-3 writes results/2.json; a learned sensor (``change``
-    the evaluator's arguments) runs once a tick."""
+    run of tasks 2-3 writes results/2.json (and with --snapshot-maps each
+    task's maps); a learned sensor (``change`` the evaluator's arguments)
+    runs once a tick."""
     from mass_tpu_torch.agent import cli
     from mass_tpu_torch.parallel.evaluator import FleetEvaluator
 
@@ -225,6 +226,11 @@ def test_fleet_refuses_later_slices(change, slice_no, tmp_path):
                                    str(tmp_path)])
         with open(tmp_path / "results" / "2.json") as f:
             assert json.load(f)["task_id"] == 2
+        if "--snapshot-maps" in change:
+            for task in (2, 3):
+                with np.load(tmp_path / "results" / f"maps-{task}.npz") as z:
+                    assert z["semantic1"].shape == (32, 32, 8, 54)
+                    assert np.count_nonzero(z["semantic0"]) > 0
         return
     args = {k: v for k, v in change.items()
             if k in ("sensor", "feature_backbone")}

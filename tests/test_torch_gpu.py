@@ -1045,3 +1045,70 @@ def test_maskrcnn_train_steps_twice_on_card_are_bit_equal(cuda):
         assert torch.equal(a[key], b[key]), key
     for key in opt_a["momentum"]:
         assert torch.equal(opt_a["momentum"][key], opt_b["momentum"][key]), key
+
+
+def _sparse_map(device, seed: int, features: int = 54):
+    """An 80x80x24 map of sparse seeded values (ties included)."""
+    rng = np.random.RandomState(seed)
+    grid = rng.rand(80, 80, 24, features).astype(np.float32)
+    grid *= rng.rand(80, 80, 24, 1) < 0.1
+    grid[5, 6, 3] = 0.5
+    geo = MapGeometry(map_height=80, map_width=80, map_depth=24,
+                      feature_size=features, grid_resolution=0.125)
+    return VoxelMap.create(geo, (0.5, -1.0, 0.25), device).with_grid(
+        torch.from_numpy(grid))
+
+
+def test_renders_on_card_equal_cpu(cuda):
+    """The video panels reduce the map on the card: the semantic render
+    equals the CPU's, the density within 1e-6; the feature query within
+    1e-5, its temperature of 100 scaling the cosines' rounding (1.2e-6
+    seen on the card)."""
+    from mass_tpu_torch.utils import visualization as V
+
+    for features in (1, 54):
+        cpu, card = _sparse_map("cpu", 0, features), _sparse_map(cuda, 0,
+                                                                 features)
+        kwargs = dict(position_cell=np.asarray([30, 41]), yaw=1.2,
+                      path_cells=np.asarray([[3, 4], [30, 41]]),
+                      z_start=2, z_stop=20)
+        np.testing.assert_allclose(V.render_occupancy(card, **kwargs),
+                                   V.render_occupancy(cpu, **kwargs),
+                                   atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(V.render_semantic(card, 0, 12),
+                                  V.render_semantic(cpu, 0, 12))
+    queries = np.random.RandomState(1).randn(2, 54).astype(np.float32)
+    np.testing.assert_allclose(V.render_feature_query(card, queries),
+                               V.render_feature_query(cpu, queries),
+                               atol=1e-5, rtol=0)
+
+
+def test_snapshot_of_card_map_equals_cpu(cuda, tmp_path):
+    """write_map_snapshots casts a card map on the card: the npz equals
+    the CPU map's bit for bit."""
+    from mass_tpu_torch.agent import metrics as M
+
+    paths = [M.write_map_snapshots(str(tmp_path / str(dev)), 3,
+                                   {"semantic0": _sparse_map(dev, 2)})
+             for dev in ("cpu", cuda)]
+    with np.load(paths[0]) as a, np.load(paths[1]) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for key in a.files:
+            assert a[key].dtype == b[key].dtype, key
+            np.testing.assert_array_equal(a[key], b[key], key)
+
+
+def test_replay_digest_on_card_equals_cpu(cuda, tmp_path):
+    """A 12-frame capture replayed on the card and on the CPU: equal
+    digests, two single-map launches a frame on the card."""
+    from mass_tpu_torch.env import replay as R
+
+    flags = ["--camera-size", "48", "--map-height", "80", "--map-width",
+             "80", "--map-depth", "24", "--grid-resolution", "0.125",
+             "--ground-truth-segmentation", "--start-task", "2"]
+    path = str(tmp_path / "ep.npz")
+    R.main(["capture", "--out", path, "--frames", "11"] + flags)
+    SP.LAUNCHES = 0
+    card = R.replay_digest(path, flags + ["--device", "cuda"])
+    assert SP.LAUNCHES == 2 * card["frames"] == 24
+    assert card == R.replay_digest(path, flags + ["--device", "cpu"])

@@ -142,7 +142,37 @@ SCRIPT = textwrap.dedent("""
                   maskrcnn_train.flip_batch, maskrcnn_train.evaluate_fused,
                   maskrcnn_train.train, maskrcnn_train.main):
         assert callable(entry), entry
+    from mass_tpu_torch.agent import cli as agent_cli
+    from mass_tpu_torch.env import _thor_config, replay, thor
+    from mass_tpu_torch.tools import (analyze, color_mappings, submission,
+                                      visualize_dataset)
+    from mass_tpu_torch.utils import visualization
+    for name in ("mass_tpu_torch.utils.visualization",
+                 "mass_tpu_torch.env.replay", "mass_tpu_torch.env.thor",
+                 "mass_tpu_torch.env._thor_config",
+                 "mass_tpu_torch.tools.analyze",
+                 "mass_tpu_torch.tools.submission",
+                 "mass_tpu_torch.tools.color_mappings",
+                 "mass_tpu_torch.tools.visualize_dataset"):
+        assert name in names, name
+    for entry in (visualization.render_occupancy,
+                  visualization.render_semantic,
+                  visualization.render_feature_query,
+                  visualization.episode_frame, agent_cli.make_video_factory,
+                  agent_cli.VideoWriter, agent_cli.thor_sampler,
+                  replay.TrajectoryRecorder, replay.ReplayTask,
+                  replay.record_episode, replay.scripted_actions,
+                  replay.pose_to_map_args, replay.replay_digest,
+                  replay.diff_captures, replay.main, thor.ThorTask,
+                  thor.ThorTaskSampler, _thor_config.build_task_sampler,
+                  analyze.main, submission.main, color_mappings.main,
+                  visualize_dataset.main):
+        assert callable(entry), entry
+    for gated in ("ai2thor", "rearrange", "baseline_configs", "imageio",
+                  "matplotlib", "pandas"):
+        assert gated not in sys.modules, gated
     import tests.torch_checkpoints, tests.torch_margins, tests.torch_streams
+    import tests.torch_fake_thor
     assert callable(tests.torch_margins.compare_train_targets)
     print(len(names))
 """)

@@ -44,10 +44,27 @@ def test_dump_labels_files_equal_jax(tmp_path):
 
 
 def test_search_labels_refuses_thor(tmp_path):
-    with pytest.raises(SystemExit, match="--backend thor is not ported yet: "
-                                         "it arrives with slice 3"):
-        TL.main(["--logdir", str(tmp_path), "--backend", "thor",
-                 "--device", "cpu"])
+    """``--backend thor`` (no longer refused) labels THOR's own task specs:
+    on the grid-backed fake of the THOR stack, the files of the grid
+    world's tasks 0-1 of the same scenes."""
+    from tests import torch_fake_thor
+
+    geo = ["--map-height", "64", "--map-width", "64", "--map-depth", "16",
+           "--grid-resolution", "0.2", "--camera-size", "32", "--device",
+           "cpu", "--total-tasks", "2"]
+    with torch_fake_thor.installed(torch_fake_thor.GridBackedSampler):
+        TL.main(["--logdir", str(tmp_path / "thor"), "--backend", "thor"]
+                + geo)
+    n = TL.dump_labels(
+        GridWorldTaskSampler([0, 1], camera=CameraConfig(32, 32),
+                             **torch_fake_thor.SCENE_KW),
+        MapGeometry(64, 64, 16, grid_resolution=0.2),
+        str(tmp_path / "grid"), 0, 2, device="cpu")
+    files = sorted(os.listdir(tmp_path / "thor"))
+    assert n >= 1 and files == sorted(os.listdir(tmp_path / "grid"))
+    for name in files:
+        np.testing.assert_array_equal(np.load(tmp_path / "thor" / name),
+                                      np.load(tmp_path / "grid" / name))
 
 
 TINY = dict(map_height=48, map_width=48, map_depth=12, grid_resolution=0.125,
