@@ -23,7 +23,7 @@ episodes (three families in [8V, F] buffers, 49 GB) through an
 unmasked and a mixed-mask step, held bit for bit against single-map
 kernel updates of two episodes' slabs; B = 2 fleets of the small
 episodes on the card and the CPU against the sequential agent; and
-``--fleet-size 8`` (default) and ``--fleet-size 2`` (compat) at full
+``--fleet-size 4`` (default) and ``--fleet-size 2`` (compat) at full
 width through the CLI, whose task 2 must equal the sequential full-width
 episode, with every group splat accounted for by one kernel launch.
 Then the goal heads: one policy goal at full width by part (``[policy]``:
@@ -89,7 +89,18 @@ digests) and at full width on the card (two single-map launches a
 frame); ``--backend thor`` on a grid-backed fake of the THOR stack
 (``tests/torch_fake_thor.py``), sequential and ``--fleet-size 2``,
 against ``--backend gridworld``; and ``tools.analyze`` and
-``tools.submission`` over the logdirs those phases wrote.
+``tools.submission`` over the logdirs those phases wrote.  Then more
+than one device, with slabs and replicas on distinct cards where the
+machine has them and on ``cuda:0`` repeated where it has one: the room
+frame into a 384x384x96x54 map cut into 2 and 4 row slabs (one launch a
+slab, bit-equal to the unsharded map, the slab launches timed together)
+and the dense splat into a 384x384x96x256 map in 2 slabs (bit-equal);
+the small default episode in 4 slabs on the card and the CPU (equal to
+the unsharded episode); the full-width default episode in 2 slabs (its
+outcome that of the unsharded one, two launches a map update); a B = 3
+small fleet in 4 slabs against the unsharded fleet; and the
+data-parallel trainers on 2 replicas (the policy fit, the UNet step and
+the Mask R-CNN step against one device, two runs bit-equal).
 
 Exits non-zero when there is no CUDA card, when a kernel fails to build,
 launch or agree, or when any phase fails.  The line before the last is
@@ -840,9 +851,10 @@ def recording(sampler, actions: list):
 
 
 def small_episode(device: str, compat: bool = False, seed: int = 2,
-                  rng_seed=None, head=None):
+                  rng_seed=None, head=None, mesh=None):
     """One episode of task ``seed`` at :func:`small_config`'s settings
-    (with ``head``'s goal head and policy).  Returns (results, actions)."""
+    (with ``head``'s goal head and policy; its maps sharded over
+    ``mesh``).  Returns (results, actions)."""
     from mass_tpu_torch.agent.loop import RearrangementAgent
 
     cfg = small_config(compat, head)
@@ -852,7 +864,8 @@ def small_episode(device: str, compat: bool = False, seed: int = 2,
         rng_seed = 1 if compat else 0
     agent = RearrangementAgent(
         cfg, small_sampler(cfg, seed, actions),
-        rng=np.random.RandomState(rng_seed), device=device, policy=policy)
+        rng=np.random.RandomState(rng_seed), device=device, policy=policy,
+        mesh=mesh)
     return agent.run_task(0), actions
 
 
@@ -1055,6 +1068,9 @@ def phase_full_episode(compat: bool = False, head=None,
 # ----------------------------------------------------------------------
 
 FLEET = 8
+# the full-width default fleet through the CLI (once 8: cut to 4 to make
+# room for the phases of more than one device within the time limit)
+FULL_FLEET = 4
 FLEET_FAMILIES = {"semantic0": 54, "semantic1": 54, "occupancy": 1}
 # the stage times: the sequential agent's and the fleet's
 TIMING_KEYS = ("timing", "fleet_timing")
@@ -1292,9 +1308,11 @@ def phase_fleet_maps(dev) -> dict:
                 sequential_update_group_ms=sequential_ms)
 
 
-def small_fleet(device: str, compat: bool, tasks, rng_seeds, head=None):
+def small_fleet(device: str, compat: bool, tasks, rng_seeds, head=None,
+                mesh=None):
     """A fleet of the small episodes of ``tasks`` (with ``head``'s goal
-    head); (results, actions per episode)."""
+    head; its buffers sharded over ``mesh``); (results, actions per
+    episode)."""
     from mass_tpu_torch.parallel.evaluator import FleetEvaluator
 
     cfg = small_config(compat, head)
@@ -1302,7 +1320,7 @@ def small_fleet(device: str, compat: bool, tasks, rng_seeds, head=None):
     actions = [[] for _ in tasks]
     evaluator = FleetEvaluator(
         cfg, [small_sampler(cfg, s, a) for s, a in zip(tasks, actions)],
-        seeds=list(rng_seeds), device=device, policy=policy)
+        seeds=list(rng_seeds), device=device, policy=policy, mesh=mesh)
     return evaluator.run(), actions
 
 
@@ -2516,17 +2534,20 @@ def phase_search_data_full() -> dict:
 
 
 class LossRecorder:
-    """The loss of every ``search.train.train_step`` call in a fit."""
+    """The loss of every ``search.train.train_step`` call in a fit, and
+    the step's host time up to the loss's copy (which syncs the card)."""
 
     def __enter__(self):
         from mass_tpu_torch.search import train as ST
 
-        self.losses = []
+        self.losses, self.times = [], []
         self._step = ST.train_step
 
         def step(*args):
+            t0 = time.perf_counter()
             loss = self._step(*args)
             self.losses.append(loss.item())
+            self.times.append(1e3 * (time.perf_counter() - t0))
             return loss
         ST.train_step = step
         return self
@@ -3602,6 +3623,376 @@ def tooling_phases(report: dict, full: dict) -> tuple:
 
 
 
+# ----------------------------------------------------------------------
+# more than one device (parallel/mesh.py, sharding.py, the fleet's mesh,
+# utils/training.Replicas): slabs of cuda:0 repeated on a one-card machine
+# ----------------------------------------------------------------------
+
+SHARD_TOL_UNET = 2e-3     # the UNet's float32 gradients (tests/test_torch_gpu)
+DP_STEPS = 12             # the policy fit's steps, as in the CPU test
+DP_LR = 1e-4              # (tests/test_torch_data_parallel.py says why)
+
+
+def slab_devices(n: int) -> list:
+    """Where n slabs or replicas go: distinct cards, cycled, on a machine
+    with more than one; ``cuda:0`` n times on a one-card machine."""
+    count = torch.cuda.device_count()
+    return [f"cuda:{k % count}" if count > 1 else "cuda:0"
+            for k in range(n)]
+
+
+def slab_mesh(n: int):
+    from mass_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh((n,), ("map",), slab_devices(n))
+
+
+def slabs_equal(sharded, data) -> bool:
+    """Each slab of ``sharded`` bit for bit the rows of ``data [V, F]``
+    it holds (no gathered copy of the map)."""
+    return all(torch.equal(slab, data[first:first + slab.shape[0]].to(
+        slab.device)) for first, slab in sharded.slabs())
+
+
+def phase_shard_kernels(dev) -> dict:
+    """The room frame into a 384x384x96x54 map of random values cut into 2
+    and 4 slabs: each slab bit for bit the unsharded kernel's rows, one
+    single-map launch a slab; the update's slab launches timed together
+    (CUDA events on the first card, cold L2, median of 20) beside the
+    unsharded launch in this run, and the whole update (sort, gathers,
+    re-base, launches).  Then the dense splat at 384x384x96x256 in 2 slabs
+    (room frame, stride-4 records): bit-equal, 2 launches."""
+    from mass_tpu_torch.config import MapGeometry
+    from mass_tpu_torch.core.voxelmap import VoxelMap, apply_dense_records
+    from mass_tpu_torch.ops import splat as SP
+    from mass_tpu_torch.parallel.sharding import shard_voxelmap
+
+    geo, vm, ids, weights, classes = full_geometry_frame(dev, 0)
+    records = SP.sorted_records(ids, weights, classes)
+    valid, touched, _ = run_lengths(records, geo.num_voxels)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    want = vm.data.clone()
+    SP.apply_records(want, records, 0.5)
+    plain = VoxelMap(want.clone(), *vm.bins, geometry=geo)
+    out = dict(devices={}, unsharded_ms=cuda_ms(
+        lambda: SP.apply_records(plain.data, records, 0.5), 20, flush),
+        unsharded_update_ms=cuda_ms(
+            lambda: plain.apply_onehot(ids, weights, classes), 20, flush),
+        **splat_bound(valid, touched, [geo.feature_size]))
+    del plain
+    for n in (2, 4):
+        sharded = shard_voxelmap(vm, slab_mesh(n))
+        before = SP.LAUNCHES
+        sharded.apply_onehot(ids, weights, classes)
+        torch.cuda.synchronize()
+        launches = SP.LAUNCHES - before
+        equal = slabs_equal(sharded, want)
+        check(launches == n, f"{n} slabs: {launches} launches an update")
+        check(equal, f"{n} slabs differ from the unsharded map")
+        slab_records = [SP.rebase_records(records, first, slab.device)
+                        for first, slab in sharded.slabs()]
+
+        def slab_launches():
+            for (_, slab), rec in zip(sharded.slabs(), slab_records):
+                SP.apply_records(slab, rec, 0.5)
+        out[f"slabs{n}"] = dict(
+            launches=launches, bitwise_equal_unsharded=equal,
+            ms=cuda_ms(slab_launches, 20, flush),
+            update_ms=cuda_ms(lambda: sharded.apply_onehot(
+                ids, weights, classes), 20, flush))
+        out["devices"][n] = [str(d) for d in sharded.devices]
+        del sharded, slab_records
+    del vm, want
+    torch.cuda.empty_cache()
+
+    geo = MapGeometry(**dict(FULL_MAP, feature_size=DENSE_FEATURES))
+    vm = VoxelMap.create(geo, (0.0, 0.0, 0.0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    vm.data.uniform_(generator=gen)
+    pixels = (CAMERA // STRIDE) ** 2
+    feats = torch.rand((pixels, DENSE_FEATURES), generator=gen, device=dev)
+    yaw, elevation, depth, _ = room_frame(CAMERA, np.random.RandomState(0))
+    ids, weights = dense_frame(dev, vm, (yaw, elevation, depth))
+    records = SP.sorted_dense_records(ids, weights, pixels)
+    sharded = shard_voxelmap(vm, slab_mesh(2))
+    SP.apply_dense_records(vm.data, records, feats, 0.5)
+    before = SP.DENSE_LAUNCHES
+    apply_dense_records(sharded, records, feats)
+    torch.cuda.synchronize()
+    launches = SP.DENSE_LAUNCHES - before
+    equal = slabs_equal(sharded, vm.data)
+    check(launches == 2, f"dense, 2 slabs: {launches} launches")
+    check(equal, "dense, 2 slabs differ from the unsharded map")
+    out["dense_slabs2"] = dict(launches=launches,
+                               bitwise_equal_unsharded=equal)
+    del sharded, vm, flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_small_episode(device: str, slabs: int):
+    """The small default episode (task 2, rng seed 0) with its maps in
+    ``slabs`` slabs: on the CPU, or on the card's ``slab_mesh``."""
+    from mass_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = (make_mesh((slabs,), ("map",), ["cpu"] * slabs)
+            if device == "cpu" else slab_mesh(slabs))
+    return small_episode(device, mesh=mesh)
+
+
+def phase_shard_small_episode(small: dict, slabs: int = 4) -> dict:
+    """The small default episode in 4 slabs on the card and on the CPU:
+    equal to each other and to the unsharded episode of
+    ``[episode 80x80x24]`` (results and actions); one single-map launch a
+    slab a map update."""
+    from mass_tpu_torch.ops import splat as SP
+
+    SP.LAUNCHES = SP.MULTI_LAUNCHES = 0          # main path starts here
+    t0 = time.perf_counter()
+    gpu, gpu_actions = sharded_small_episode("cuda", slabs)
+    gpu_s = time.perf_counter() - t0
+    single, multi = SP.LAUNCHES, SP.MULTI_LAUNCHES   # and ends here
+    t0 = time.perf_counter()
+    cpu, cpu_actions = sharded_small_episode("cpu", slabs)
+    cpu_s = time.perf_counter() - t0
+    updates = gpu["timing"]["mapping"]["count"]
+    check(outcome(gpu) == outcome(cpu) == small["metrics"],
+          "sharded small episodes: cuda, cpu and unsharded results differ")
+    check(gpu_actions == cpu_actions == small["action_list"],
+          "sharded small episodes: cuda, cpu and unsharded actions differ")
+    check(multi == 0 and single == slabs * updates,
+          f"{single} launches for {updates} map updates in {slabs} slabs")
+    return dict(slabs=slabs, devices=slab_devices(slabs), cuda_s=gpu_s,
+                cpu_s=cpu_s, launches=single, map_updates=updates,
+                actions=len(gpu_actions))
+
+
+def phase_shard_full_episode(full: dict, slabs: int = 2) -> dict:
+    """The full-width default episode with its maps in 2 slabs: through
+    ``--shard-map 2`` on a machine with two cards, else through the CLI's
+    configuration and sampler with a prebuilt mesh of ``cuda:0`` twice
+    (the CLI has no flag for slabs on one card).  Its outcome equals
+    ``[episode 384x384x96x54]``'s; launches 2 a map update."""
+    from mass_tpu_torch.agent import cli
+    from mass_tpu_torch.agent.loop import RearrangementAgent
+    from mass_tpu_torch.ops import splat as SP
+
+    logdir = os.path.join("build", "chip_smoke", f"episode_slabs{slabs}")
+    argv = full_args(False) + FULL_BUDGETS + ["--logdir", logdir]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with SplatCounter() as counter:
+        # main path starts here
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = 0
+        t0 = time.perf_counter()
+        if torch.cuda.device_count() >= slabs:
+            route = f"--shard-map {slabs}"
+            metrics = cli.main(argv + ["--shard-map", str(slabs)])
+        else:
+            route = f"a mesh of cuda:0 x {slabs}"
+            args = cli.build_parser().parse_args(argv)
+            config = cli.config_from_args(args)
+            os.makedirs(logdir, exist_ok=True)
+            metrics = RearrangementAgent(
+                config, cli.make_sampler(args, config),
+                rng=np.random.RandomState(args.seed), device="cuda",
+                mesh=slab_mesh(slabs)).run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        # main path ends here
+        single, multi = SP.LAUNCHES, SP.MULTI_LAUNCHES
+    check(len(metrics) == 1, "the sharded full-width run ran no episode")
+    with open(os.path.join(logdir, "results", "2.json")) as f:
+        results = json.load(f)
+    updates = results["timing"]["mapping"]["count"]
+    same = outcome(results) == full["metrics"]
+    check(same, "the sharded full-width episode differs from "
+          "[episode 384x384x96x54]")
+    check(multi == 0 and single == slabs * updates == slabs *
+          full["launches"] and len(counter.splats) == updates,
+          f"{single} launches for {updates} map updates in {slabs} slabs")
+    return dict(slabs=slabs, route=route, devices=slab_devices(slabs),
+                wall_s=wall_s, unsharded_wall_s=full["wall_s"],
+                launches=single, multi_launches=multi, map_updates=updates,
+                group_splats=len(counter.splats),
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                unsharded_peak_memory_bytes=full["peak_memory_bytes"],
+                outcome_equal=same, timing=results["timing"])
+
+
+def phase_shard_fleet(slabs: int = 4) -> dict:
+    """A B = 3 small default fleet (tasks 2-4) with every family's buffer
+    in 4 slabs (episodes cross slabs: their views are gathered copies)
+    against the unsharded fleet on the card: equal results and actions;
+    each group splat one launch a slab."""
+    from mass_tpu_torch.ops import splat as SP
+
+    tasks, seeds = (2, 3, 4), (0, 1, 2)
+    with SplatCounter() as counter:
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = 0          # fleet path starts here
+        t0 = time.perf_counter()
+        sharded, sharded_actions = small_fleet(
+            "cuda", False, tasks, seeds, mesh=slab_mesh(slabs))
+        wall_s = time.perf_counter() - t0
+        single, multi = SP.LAUNCHES, SP.MULTI_LAUNCHES   # and ends here
+        splats = len(counter.splats)
+    plain, plain_actions = small_fleet("cuda", False, tasks, seeds)
+    for k, task in enumerate(tasks):
+        check(outcome(sharded[k]) == outcome(plain[k]),
+              f"sharded fleet task {task} differs from the unsharded fleet")
+        check(sharded_actions[k] == plain_actions[k],
+              f"sharded fleet task {task}: actions differ")
+    check(single + multi == slabs * splats,
+          f"{single} + {multi} launches for {splats} group splats in "
+          f"{slabs} slabs")
+    return dict(slabs=slabs, tasks=tasks, wall_s=wall_s, launches=single,
+                multi_launches=multi, group_splats=splats,
+                actions=[len(a) for a in sharded_actions])
+
+
+def max_rel_grad_diff(a: dict, b: dict) -> float:
+    """The largest gradient difference over the largest gradient."""
+    scale = max(float(g.abs().max()) for g in b.values())
+    return max(float((a[k] - b[k]).abs().max()) for k in b) / scale
+
+
+def phase_data_parallel(dev) -> dict:
+    """The data-parallel trainers with 2 replicas (``cuda:0`` twice on a
+    one-card machine): the policy fit (12 steps at lr 1e-4 on the
+    collected 80x80 data) against the one-device fit, per-step losses
+    and validation NLL within rtol 1e-4, ms a step; the UNet step (batch 2 of the
+    segmenter's 224 px frames) and the Mask R-CNN step (batch 2, 224 px, 53
+    classes) against the one-device step from the same parameters: losses
+    within rtol 1e-4, gradients within the card's tolerances of the
+    largest (UNet 2e-3, Mask R-CNN 1e-4); two runs of each bit-equal; ms
+    a step (CUDA events, median after the first) beside one device's."""
+    import copy
+
+    from mass_tpu_torch.ops import detection as D
+    from mass_tpu_torch.perception import detector as PD
+    from mass_tpu_torch.perception import maskrcnn as TM
+    from mass_tpu_torch.perception import maskrcnn_train as TR
+    from mass_tpu_torch.perception import train_detector as TD
+    from mass_tpu_torch.search import prng
+    from mass_tpu_torch.search import train as ST
+
+    devices = slab_devices(2)
+    out = dict(devices=devices)
+
+    # the policy fit
+    fits = {}
+    for name, devs in (("dp", devices), ("dp_again", devices),
+                       ("one", None)):
+        path = os.path.join("build", "chip_smoke", f"policy-{name}.pth")
+        with LossRecorder() as rec, contextlib.redirect_stdout(io.StringIO()):
+            nll, _ = ST.fit(SEARCH_DIR, path, steps=DP_STEPS,
+                            learning_rate=DP_LR, data_parallel=bool(devs),
+                            devices=devs, log_every=DP_STEPS)
+        fits[name] = dict(nll=nll, losses=rec.losses,
+                          step_ms=float(np.median(rec.times[1:])),
+                          state=torch.load(path, map_location="cpu",
+                                           weights_only=True))
+    dp, one = fits["dp"], fits["one"]
+    rel = float(np.max(np.abs(np.asarray(dp["losses"]) - one["losses"])
+                       / np.abs(one["losses"])))
+    equal = all(torch.equal(dp["state"][k], fits["dp_again"]["state"][k])
+                for k in dp["state"])
+    check(rel <= TRAIN_LOSS_RTOL and abs(dp["nll"] - one["nll"])
+          <= TRAIN_LOSS_RTOL * abs(one["nll"]),
+          f"policy fit, 2 replicas against one device: losses {rel:.3g}, "
+          f"val NLL {dp['nll']} against {one['nll']}")
+    check(equal, "two data-parallel policy fits differ")
+    out["fit"] = dict(steps=DP_STEPS, loss_rel_diff=rel, nll=dp["nll"],
+                      one_device_nll=one["nll"], runs_bit_equal=equal,
+                      ms=dp["step_ms"], one_device_ms=one["step_ms"])
+
+    # the UNet step: gradients read off one SGD step of rate 1
+    rgb, sem = (x[:2] for x in TD.load_split(SEGMENTER_DIR + "-data",
+                                             "training"))
+    base = PD.init_segmenter(torch.Generator().manual_seed(0)).to(dev)
+
+    def unet(devs, runs=5):
+        model = copy.deepcopy(base)
+        before = {k: v.detach().clone() for k, v in model.named_parameters()}
+        step = TD.make_train_step(model, torch.optim.SGD(
+            model.parameters(), 1.0), TD.class_weights(sem), devs)
+        loss = float(step(rgb, sem))
+        grads = {k: before[k] - v.detach()
+                 for k, v in model.named_parameters()}
+        times = []
+        for _ in range(runs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(rgb, sem)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return loss, grads, float(np.median(times))
+    loss, grads, ms = unet(devices)
+    loss_again, grads_again, _ = unet(devices)
+    one_loss, one_grads, one_ms = unet(None)
+    grad_err = max_rel_grad_diff(grads, one_grads)
+    equal = loss == loss_again and all(
+        torch.equal(grads[k], grads_again[k]) for k in grads)
+    check(abs(loss - one_loss) <= TRAIN_LOSS_RTOL * abs(one_loss)
+          and grad_err <= SHARD_TOL_UNET,
+          f"UNet, 2 replicas against one device: loss {loss} against "
+          f"{one_loss}, gradients {grad_err:.3g} of the largest")
+    check(equal, "two data-parallel UNet steps differ")
+    out["unet"] = dict(loss=loss, one_device_loss=one_loss,
+                       grad_err=grad_err, runs_bit_equal=equal, ms=ms,
+                       one_device_ms=one_ms)
+
+    # the Mask R-CNN step
+    tcfg = TR.TrainConfig()
+    cfg = TM.MaskRCNNConfig(num_classes=MASKRCNN_CLASSES, image_size=CAMERA)
+    batch = tuple(x[:2] for x in TR.load_instance_split(
+        SEGMENTER_DIR + "-data", "training", tcfg.max_gt))
+    base = TR.init_maskrcnn(torch.Generator().manual_seed(0), cfg).to(dev)
+
+    def maskrcnn(devs, runs=5):
+        model = copy.deepcopy(base)
+        opt = TR.SGD(model.named_parameters(), MASKRCNN_FALL_LR)
+        seen, inner = {}, opt.step
+
+        def keep(g):
+            g = list(g)
+            seen.update(zip(opt.params, (x.clone() for x in g)))
+            inner(g)
+        opt.step = keep
+        step = TR.make_train_step(model, opt, tcfg, devs)
+        D.LAUNCHES = 0
+        losses = {k: float(v) for k, v in step(batch, prng.PRNGKey(1))
+                  .items()}
+        nms = D.LAUNCHES
+        opt.step = inner
+        times, _ = timed_steps(step, batch, prng.split(prng.PRNGKey(2),
+                                                       runs))
+        return losses, seen, nms, float(np.median(times[1:]))
+    losses, grads, nms, ms = maskrcnn(devices)
+    losses_again, grads_again, _, _ = maskrcnn(devices)
+    one_losses, one_grads, one_nms, one_ms = maskrcnn(None)
+    loss_rel = max(abs(losses[k] - one_losses[k]) / abs(one_losses[k])
+                   for k in one_losses)
+    grad_err = max_rel_grad_diff(grads, one_grads)
+    equal = losses == losses_again and all(
+        torch.equal(grads[k], grads_again[k]) for k in grads)
+    check(loss_rel <= TRAIN_LOSS_RTOL and grad_err <= MASKRCNN_TOL,
+          f"Mask R-CNN, 2 replicas against one device: losses "
+          f"{loss_rel:.3g}, gradients {grad_err:.3g} of the largest")
+    check(equal, "two data-parallel Mask R-CNN steps differ")
+    check(nms == 2 and one_nms == 1, f"{nms} NMS launches a 2-replica step "
+          f"({one_nms} on one device)")
+    out["maskrcnn"] = dict(loss_rel_diff=loss_rel, grad_err=grad_err,
+                           runs_bit_equal=equal, nms_launches=nms, ms=ms,
+                           one_device_ms=one_ms, total=losses["total"])
+    del base
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_line(name: str, replaces: str, launches: int,
                 phase: dict) -> dict:
     from mass_tpu_torch.ops import splat as SP
@@ -3875,7 +4266,8 @@ def main() -> int:
               f", splat_onehot_multi {small['multi_launches']} for "
               f"{small['group_splats']} group splats, "
               f"{small['map_updates']} episode map updates")
-    for size, flag, sequential in ((FLEET, False, full), (2, True, compat)):
+    for size, flag, sequential in ((FULL_FLEET, False, full),
+                                   (2, True, compat)):
         fleet = phase_full_fleet(size, flag, sequential)
         tag = f"fleet 384x384x96x54{' compat' if flag else ''}"
         report[f"full_fleet{'_compat' if flag else ''}"] = fleet
@@ -4167,13 +4559,85 @@ def main() -> int:
     print(f"[training] the six training phases took "
           f"{report['training_s']:.1f} s")
 
+    shard_start = time.perf_counter()
+    shard = report["shard_kernels"] = phase_shard_kernels(dev)
+    tag = "shard kernels"
+    print(f"[{tag}] slabs on {json.dumps(shard['devices'])} (this machine "
+          f"has {torch.cuda.device_count()} card(s))")
+    for n in (2, 4):
+        k = shard[f"slabs{n}"]
+        print(f"[{tag}] the room frame into 384x384x96x54 in {n} slabs: "
+              f"{k['launches']} launches, equal to the unsharded map bit for "
+              f"bit: {k['bitwise_equal_unsharded']}; the slab launches "
+              f"{k['ms']:.4f} ms together against {shard['unsharded_ms']:.4f}"
+              f" ms unsharded (CUDA events, cold L2, median of 20; bound "
+              f"{shard['bound_ms']:.4f} ms by {shard['bound_by']}); the whole "
+              f"update (sort, gathers, re-base, launches) {k['update_ms']:.4f}"
+              f" ms against {shard['unsharded_update_ms']:.4f} ms")
+    k = shard["dense_slabs2"]
+    print(f"[{tag}] dense 384x384x96x256 in 2 slabs: {k['launches']} "
+          f"launches, equal to the unsharded map bit for bit: "
+          f"{k['bitwise_equal_unsharded']}")
+    small_shard = report["shard_small_episode"] = phase_shard_small_episode(
+        report["small_episodes"])
+    print(f"[shard episode] 80x80x24 in {small_shard['slabs']} slabs on "
+          f"{small_shard['devices']}: cuda {small_shard['cuda_s']:.1f} s, cpu "
+          f"{small_shard['cpu_s']:.1f} s, {small_shard['actions']} actions; "
+          f"cuda == cpu == the unsharded episode; launches splat_onehot "
+          f"{small_shard['launches']} for {small_shard['map_updates']} map "
+          f"updates")
+    full_shard = report["shard_full_episode"] = phase_shard_full_episode(full)
+    tag = "shard episode 384x384x96x54"
+    print(f"[{tag}] {full_shard['slabs']} slabs through "
+          f"{full_shard['route']}: wall {full_shard['wall_s']:.1f} s against "
+          f"{full_shard['unsharded_wall_s']:.1f} s unsharded; outcome equal "
+          f"to [episode 384x384x96x54]: {full_shard['outcome_equal']}; "
+          f"launches splat_onehot {full_shard['launches']} for "
+          f"{full_shard['map_updates']} map updates; peak memory "
+          f"{full_shard['peak_memory_bytes'] / 2**30:.2f} GiB against "
+          f"{full_shard['unsharded_peak_memory_bytes'] / 2**30:.2f} GiB")
+    print(f"[{tag}] timing {json.dumps(full_shard['timing'])}")
+    shard_fleet = report["shard_fleet"] = phase_shard_fleet()
+    print(f"[shard fleet] B=3 80x80x24 (tasks {shard_fleet['tasks']}) in "
+          f"{shard_fleet['slabs']} slabs: {shard_fleet['wall_s']:.1f} s, "
+          f"equal to the unsharded fleet; launches splat_onehot "
+          f"{shard_fleet['launches']}, splat_onehot_multi "
+          f"{shard_fleet['multi_launches']} for {shard_fleet['group_splats']}"
+          f" group splats")
+    dp = report["data_parallel"] = phase_data_parallel(dev)
+    f, u, m = dp["fit"], dp["unet"], dp["maskrcnn"]
+    print(f"[data parallel] 2 replicas on {dp['devices']}: policy fit "
+          f"{f['steps']} steps, losses {f['loss_rel_diff']:.3g} from one "
+          f"device (rtol {TRAIN_LOSS_RTOL}), val NLL {f['nll']:.5f} against "
+          f"{f['one_device_nll']:.5f}, {f['ms']:.2f} ms a step against "
+          f"{f['one_device_ms']:.2f} (host clock to the loss's copy, "
+          f"median after the first); "
+          f"two runs bit-equal: {f['runs_bit_equal']}")
+    print(f"[data parallel] UNet batch 2 at 224: loss {u['loss']:.6f} "
+          f"against {u['one_device_loss']:.6f}, gradients "
+          f"{u['grad_err']:.3g} of the largest (tol {SHARD_TOL_UNET}); "
+          f"{u['ms']:.2f} ms a step against {u['one_device_ms']:.2f} (CUDA "
+          f"events); two runs bit-equal: {u['runs_bit_equal']}")
+    print(f"[data parallel] Mask R-CNN batch 2 at 224: losses "
+          f"{m['loss_rel_diff']:.3g} from one device, gradients "
+          f"{m['grad_err']:.3g} of the largest (tol {MASKRCNN_TOL}); "
+          f"{m['ms']:.2f} ms a step against {m['one_device_ms']:.2f}; nms "
+          f"launches {m['nms_launches']} a step; two runs bit-equal: "
+          f"{m['runs_bit_equal']}")
+    report["shard_s"] = time.perf_counter() - shard_start
+    print(f"[shard] the five phases of more than one device took "
+          f"{report['shard_s']:.1f} s")
+
     tooling_single, tooling_multi = tooling_phases(report, full)
 
     kernels = [
         kernel_line("splat_onehot", "mass_tpu/ops/pallas_splat.py:756",
-                    full["launches"] + tooling_single, kernel),
+                    full["launches"] + tooling_single
+                    + full_shard["launches"] + small_shard["launches"]
+                    + shard_fleet["launches"], kernel),
         kernel_line("splat_onehot_multi", "mass_tpu/ops/pallas_splat.py:671",
-                    compat["multi_launches"] + tooling_multi, multi),
+                    compat["multi_launches"] + tooling_multi
+                    + shard_fleet["multi_launches"], multi),
         kernel_line("splat_onehot_frames",
                     "mass_tpu/ops/pallas_splat.py:445", frames["launches"],
                     frames),
@@ -4182,7 +4646,8 @@ def main() -> int:
                     full_features["dense_launches"], dense),
         # not a TPU kernel: the counterpart of the fori_loop of nms
         kernel_line("nms", "mass_tpu/ops/detection.py:31",
-                    learned["nms_launches"] + mt["nms_launches"],
+                    learned["nms_launches"] + mt["nms_launches"]
+                    + dp["maskrcnn"]["nms_launches"],
                     dict(nms["rpn_b1"], max_abs_err=nms["max_abs_err"]))]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - start

@@ -2,9 +2,9 @@
 (port of ``mass_tpu.agent.cli``).
 
 Takes ``mass_tpu.agent.cli``'s flags with the same names and defaults
-and writes the same ``results/{id}.json``.  ``--shard-map``, whose code
-arrives with a later slice of the port, stops with an error naming that
-slice.  The episode runs on ``--device`` (default ``cuda``);
+and writes the same ``results/{id}.json``.  ``--shard-map N`` row-shards
+every map over N devices: N cards on CUDA, N slabs on the CPU with
+``--device cpu``.  The episode runs on ``--device`` (default ``cuda``);
 ``--fleet-size B`` above 1 runs the tasks B at a time in lockstep over
 shared fleet maps (``parallel/evaluator.py``), each task with the rng
 seed ``--seed`` + task.  ``--backend thor`` runs the AI2-THOR
@@ -141,24 +141,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "(cv2, codec mp4v, 10 fps); fleets write none, as "
                         "in mass_tpu")
     p.add_argument("--fleet-size", type=int, default=1)
-    p.add_argument("--shard-map", type=int, default=0)
+    p.add_argument("--shard-map", type=int, default=0,
+                   help="row-shard every voxel map over N devices "
+                        "(parallel/sharding.py): N cards on cuda, N slabs "
+                        "with --device cpu; num_voxels must divide by N")
     p.add_argument("--seed", type=int, default=0)
     return p
-
-
-def unported(flag: str, slice_no: int,
-             entry: str = "mass_tpu.agent.cli") -> str:
-    """The message that stops a flag whose code arrives with a later
-    slice of the port, naming the JAX entry point that runs it."""
-    return (f"{flag} is not ported yet: it arrives with slice {slice_no} "
-            f"of mass_tpu_torch (ROADMAP.md); run {entry} for it")
-
-
-def unported_flags(args) -> Optional[str]:
-    """Why these flags cannot run on this slice of the port, or None."""
-    if args.shard_map > 1:
-        return unported("--shard-map", 4)
-    return None
 
 
 def config_from_args(args) -> AgentConfig:
@@ -203,7 +191,7 @@ def config_from_args(args) -> AgentConfig:
         use_feature_matching=args.use_feature_matching,
         record_found_objects=args.record_found_objects,
         snapshot_maps=args.snapshot_maps,
-        one_phase=args.one_phase,
+        one_phase=args.one_phase, shard_map=args.shard_map,
         logdir=args.logdir, stage=args.stage,
         start_task=args.start_task, every_tasks=args.every_tasks,
         total_tasks=args.total_tasks, resume=args.resume)
@@ -456,9 +444,6 @@ def resolve_device_flags(args) -> str:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    reason = unported_flags(args)
-    if reason is not None:
-        raise SystemExit(reason)
     device = resolve_device_flags(args)
     backbone = load_backbone(args, device)
     sensor = load_segmentation_sensor(args, device)

@@ -17,7 +17,9 @@ instances in the matcher.  ``video_writer_factory`` records a frame
 per observation (camera view beside the navigation map's density and
 both semantic maps, rendered on the maps' device), and
 ``config.snapshot_maps`` writes each episode's final maps; neither
-changes an episode.
+changes an episode.  ``--shard-map N`` row-shards every map over N
+devices (``parallel/sharding.py``), which changes nothing of an episode
+either: a sharded map equals the unsharded one bit for bit.
 
 Every numpy random draw happens in the JAX package's order, and the
 policy's draws replay ``jax.random``'s threefry stream, so a seeded
@@ -42,6 +44,7 @@ from mass_tpu_torch.maps import (FeatureMap, MapSet, OccupancyMap,
 from mass_tpu_torch.match import revisit
 from mass_tpu_torch.match.differences import predict_scene_differences
 from mass_tpu_torch.nav.controller import NavigationController
+from mass_tpu_torch.parallel.mesh import make_mesh
 from mass_tpu_torch.search import policy as search_policy
 from mass_tpu_torch.search import prng
 from mass_tpu_torch.utils import visualization as viz
@@ -53,11 +56,16 @@ PHASE_TWO_MAPS = ["semantic1", "feature1"]
 GOAL_FED_MAPS = frozenset({"semantic0", "feature0"})
 
 
-def _unported(config: AgentConfig) -> Optional[str]:
-    """The later slice a configuration needs, or None."""
-    if config.shard_map > 1:
-        return "row-sharded maps (--shard-map) are ported in slice 4"
-    return None
+def map_mesh(config: AgentConfig, device: torch.device, mesh=None):
+    """The mesh whose ``map`` axis every map row-shards over: ``mesh``
+    when the caller gives one, else for ``config.shard_map`` N > 1 an
+    N-device mesh, as the JAX package builds it (N slabs on the CPU for a
+    CPU ``device``, N cards on CUDA), else None."""
+    if mesh is None and config.shard_map > 1:
+        devices = [device] * config.shard_map if device.type == "cpu" \
+            else None
+        mesh = make_mesh((config.shard_map,), ("map",), devices)
+    return mesh
 
 
 class OnePhaseMapSet(MapSet):
@@ -182,6 +190,10 @@ class RearrangementAgent:
         when ``config.use_feature_matching``.
       video_writer_factory: optional ``task_id -> writer`` with
         ``write(frame_uint8)`` / ``close()`` for episode videos.
+      mesh: a ``parallel/mesh.DeviceMesh`` whose ``map`` axis every map
+        row-shards over, in place of the one ``config.shard_map`` builds
+        (its first device is the agent's; ``["cuda:0"] * N`` puts N slabs
+        on one card).
     """
 
     def __init__(self, config: AgentConfig, sampler,
@@ -189,16 +201,16 @@ class RearrangementAgent:
                  device=None, policy=None,
                  feature_backbone: Optional[Callable] = None,
                  feature_size: int = 256,
-                 video_writer_factory: Optional[Callable] = None):
-        reason = _unported(config)
-        if reason is not None:
-            raise NotImplementedError(reason)
+                 video_writer_factory: Optional[Callable] = None,
+                 mesh=None):
         if config.use_feature_matching and feature_backbone is None:
             raise ValueError("feature matching needs a backbone (CLI: "
                              "--backbone-checkpoint)")
         self.config = config
         self.sampler = sampler
         self.rng = rng or np.random.RandomState(0)
+        if mesh is not None and device is None:
+            device = mesh.axis_devices("map")[0]
         self.device = resolve_device(device)
         self.timer = StageTimer(self.device)
         self.video_writer_factory = video_writer_factory
@@ -209,6 +221,11 @@ class RearrangementAgent:
                       map_width=config.map_width,
                       map_depth=config.map_depth,
                       grid_resolution=config.grid_resolution)
+        # --shard-map: every map row-sharded over the mesh's map axis
+        # (parallel/sharding.py)
+        self.mesh = map_mesh(config, self.device, mesh)
+        if self.mesh is not None:
+            geo_kw["mesh"] = self.mesh
         map_set = OnePhaseMapSet if config.one_phase else MapSet
         self.maps = map_set(
             semantic0=SemanticMap(cam, taxonomy.NUM_CLASSES,

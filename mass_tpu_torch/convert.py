@@ -28,8 +28,11 @@ from mass_tpu_torch.search import policy as search_policy
 
 
 def voxelmap_from_jax(data, bins_x, bins_y, bins_z,
-                      geometry: MapGeometry, device=None) -> VoxelMap:
-    """The port's ``VoxelMap`` holding a JAX map's state.
+                      geometry: MapGeometry, device=None, mesh=None):
+    """The port's ``VoxelMap`` holding a JAX map's state, or with a
+    ``mesh`` the ``parallel/sharding.ShardedVoxelMap`` over its ``map``
+    axis (a JAX sharded map's state arrives whole through numpy, and is
+    cut into the port's slabs).
 
     ``data`` is the JAX map's storage as numpy, in either layout: the
     voxel-major ``[V, F]`` form is taken as is, the channel-major form
@@ -49,22 +52,28 @@ def voxelmap_from_jax(data, bins_x, bins_y, bins_z,
             f"map data of shape {data.shape} fits neither [V, F] = "
             f"{(g.num_voxels, g.feature_size)} nor [Fpad, V] = "
             f"{(fpad, g.num_voxels)}")
+    if mesh is not None:
+        device = mesh.axis_devices("map")[0]
     vm = VoxelMap.create(g, device=device)
     vm.data.copy_(torch.from_numpy(np.array(vmajor, np.float32)))
     for name, bins in (("bins_x", bins_x), ("bins_y", bins_y),
                        ("bins_z", bins_z)):
         getattr(vm, name).copy_(torch.from_numpy(
             np.array(bins, np.float32)))
+    if mesh is not None:
+        from mass_tpu_torch.parallel.sharding import shard_voxelmap
+        return shard_voxelmap(vm, mesh)
     return vm
 
 
-def voxelmap_to_numpy(vm: VoxelMap, layout: str = "vmajor"
-                      ) -> Dict[str, np.ndarray]:
+def voxelmap_to_numpy(vm, layout: str = "vmajor") -> Dict[str, np.ndarray]:
     """Inverse of :func:`voxelmap_from_jax`: the map's ``data`` in the
     JAX ``layout`` ("vmajor" ``[V, F]`` or "cmajor" ``[Fpad, V]`` with
-    zero pad rows) and its ``bins_x/y/z``, as numpy."""
+    zero pad rows) and its ``bins_x/y/z``, as numpy; a sharded map's
+    slabs are gathered (``grid``)."""
     g = vm.geometry
-    data = vm.data.detach().cpu().numpy()
+    data = vm.grid().detach().cpu().numpy().reshape(g.num_voxels,
+                                                    g.feature_size)
     if layout == "cmajor":
         fpad = (g.feature_size + 7) // 8 * 8
         cmajor = np.zeros((fpad, g.num_voxels), np.float32)

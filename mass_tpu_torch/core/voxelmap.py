@@ -8,12 +8,18 @@ kernel, and updates it IN PLACE: at the full 384x384x96x54 geometry the
 buffer is 3 GB, and a functional copy per frame would double the memory
 traffic.  ``grid()`` returns the same logical ``[H, W, D, F]`` view as
 the JAX package (row = flipped world y).
+
+What a map does beyond its storage (binning, the one-hot and dense
+updates, the row-local reads and the coordinate transforms) lives in
+:class:`BaseVoxelMap`, written against :meth:`~BaseVoxelMap.slabs` and
+:meth:`~BaseVoxelMap.rows`; ``parallel/sharding.ShardedVoxelMap`` is the
+same map cut into row slabs over several devices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Callable, List, Tuple
 
 import numpy as np
 import torch
@@ -32,53 +38,53 @@ def _bins(origin, g: MapGeometry, device):
             G.uniform_bins(oz, g.map_depth, g.grid_resolution, device))
 
 
-@dataclasses.dataclass
-class VoxelMap:
-    """Voxel grid state: ``data [V, F]`` plus per-axis bin edges (world
-    positions of voxel boundaries, recomputed when the map is re-centred
-    on a new origin)."""
+class BaseVoxelMap:
+    """What every voxel map does through its storage's slabs: a subclass
+    gives ``geometry``, the bins ``bins_x/y/z`` and ``device`` (where the
+    bins and every read's result live), :meth:`slabs`, :meth:`rows` and
+    :meth:`grid`."""
 
-    data: torch.Tensor    # [V, F]
-    bins_x: torch.Tensor  # [W + 1]
-    bins_y: torch.Tensor  # [H + 1]
-    bins_z: torch.Tensor  # [D + 1]
     geometry: MapGeometry
 
-    @property
-    def device(self) -> torch.device:
-        return self.data.device
+    def slabs(self) -> List[Tuple[int, torch.Tensor]]:
+        """``(first voxel, [rows, F] storage)`` of each slab, in voxel
+        order."""
+        raise NotImplementedError
 
-    @staticmethod
-    def create(geometry: MapGeometry,
-               origin: Tuple[float, float, float] = (0.0, 0.0, 0.0),
-               device=None, dtype=torch.float32) -> "VoxelMap":
-        """Fresh zeroed map centred on ``origin`` = (x, y, z) world."""
-        device = resolve_device(device)
-        g = geometry
-        data = torch.zeros((g.num_voxels, g.feature_size), dtype=dtype,
-                           device=device)
-        return VoxelMap(data, *_bins(origin, g, device), geometry=g)
+    def rows(self, reduce: Callable[[torch.Tensor], torch.Tensor]
+             ) -> torch.Tensor:
+        """``reduce`` of the ``[H, W, D, F]`` grid, for a ``reduce`` that
+        maps each grid row on its own (its result leads with ``[H]``), on
+        :attr:`device`."""
+        raise NotImplementedError
 
-    def reset(self, origin) -> "VoxelMap":
+    def grid(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def zero_voxels(self, lo: int, hi: int) -> None:
+        """Zero storage rows ``lo:hi`` in place, in every slab they
+        cross."""
+        for piece in self.pieces(lo, hi):
+            piece.zero_()
+
+    def pieces(self, lo: int, hi: int) -> List[torch.Tensor]:
+        """The views of storage rows ``lo:hi`` (voxel ids) in each slab
+        they cross, in voxel order, each on its slab's device."""
+        out = []
+        for first, slab in self.slabs():
+            a, b = max(lo, first), min(hi, first + slab.shape[0])
+            if a < b:
+                out.append(slab[a - first:b - first])
+        return out
+
+    def reset(self, origin) -> "BaseVoxelMap":
         """Zero the features and re-centre the grid on a new world origin
         (in place; returns the map)."""
-        self.data.zero_()
+        for _, slab in self.slabs():
+            slab.zero_()
         self.bins_x, self.bins_y, self.bins_z = _bins(
             origin, self.geometry, self.device)
         return self
-
-    def grid(self) -> torch.Tensor:
-        """The logical ``[H, W, D, F]`` grid (a view of the storage)."""
-        g = self.geometry
-        return self.data.view(g.map_height, g.map_width, g.map_depth,
-                              g.feature_size)
-
-    def with_grid(self, grid: torch.Tensor) -> "VoxelMap":
-        """A new map holding ``grid`` (``[H, W, D, F]``) as its storage."""
-        g = self.geometry
-        data = grid.to(self.device, self.data.dtype).reshape(
-            g.num_voxels, g.feature_size).contiguous()
-        return dataclasses.replace(self, data=data)
 
     # ------------------------------------------------------------------
     # the hot path
@@ -106,16 +112,24 @@ class VoxelMap:
                                     positions, yaws, elevations, depths,
                                     min_ray_depth, max_ray_depth)
 
-    def apply_onehot(self, ids, weights, classes) -> "VoxelMap":
+    def apply_onehot(self, ids, weights, classes) -> "BaseVoxelMap":
         """EMA-blend one frame's one-hot records into the map in place
-        (the splat kernel on CUDA, its plain version on the CPU)."""
-        SP.splat_onehot(self.data, ids, weights, classes.reshape(-1),
-                        self.geometry.interpolation_weight)
+        (the splat kernel on CUDA, one launch a slab; its plain version
+        on the CPU)."""
+        apply_onehot_group([self], ids, weights, [classes])
+        return self
+
+    def apply_dense(self, ids, weights, features) -> "BaseVoxelMap":
+        """EMA-blend one frame's dense records (``features [N, F]``) into
+        the map in place, sorted once (the dense splat kernel on CUDA,
+        one launch a slab; its plain version on the CPU)."""
+        records = SP.sorted_dense_records(ids, weights, features.shape[0])
+        apply_dense_records(self, records, features)
         return self
 
     def update_classes(self, rays, position, yaw, elevation, depth,
                        classes, min_ray_depth: float = 0.0,
-                       max_ray_depth: float = 10.0) -> "VoxelMap":
+                       max_ray_depth: float = 10.0) -> "BaseVoxelMap":
         """Project an ``[h, w]`` integer class image (implicit
         ``one_hot(classes, F)`` features) into the map in place."""
         h, w = rays.shape[0], rays.shape[1]
@@ -125,30 +139,9 @@ class VoxelMap:
                                           max_ray_depth)
         return self.apply_onehot(ids, weights, classes)
 
-    def update_classes_frames(self, rays, positions, yaws, elevations,
-                              depths, classes, min_ray_depth: float = 0.0,
-                              max_ray_depth: float = 10.0) -> "VoxelMap":
-        """Fold T frames into the map in place, in order, in one launch of
-        the frames kernel: equal to T calls of :meth:`update_classes`.
-
-        Args:
-          positions: ``[T, 3]``; yaws / elevations: ``[T]``;
-          depths: ``[T, h, w, 1]``; classes: ``[T, ch, cw]`` (integer,
-          upsampled to the ray grid).
-        """
-        h, w = rays.shape[0], rays.shape[1]
-        ids, weights = self.contributions_frames(
-            rays, positions, yaws, elevations, depths, min_ray_depth,
-            max_ray_depth)
-        classes = G.upsample_features(classes[..., None], h, w)[..., 0]
-        SP.splat_onehot_frames(self.data, ids, weights,
-                               classes.reshape(classes.shape[0], -1),
-                               self.geometry.interpolation_weight)
-        return self
-
     def update(self, rays, position, yaw, elevation, depth, features,
                min_ray_depth: float = 0.0,
-               max_ray_depth: float = 10.0) -> "VoxelMap":
+               max_ray_depth: float = 10.0) -> "BaseVoxelMap":
         """Project one frame of dense per-pixel features into the map in
         place (the dense splat kernel on CUDA, its plain version on the
         CPU).
@@ -166,10 +159,8 @@ class VoxelMap:
         ids, weights = self.contributions(rays, position, yaw, elevation,
                                           depth, min_ray_depth,
                                           max_ray_depth)
-        SP.splat_dense(self.data, ids, weights,
-                       features.reshape(-1, self.geometry.feature_size),
-                       self.geometry.interpolation_weight)
-        return self
+        return self.apply_dense(ids, weights, features.reshape(
+            -1, self.geometry.feature_size))
 
     # ------------------------------------------------------------------
     # rendering / reading
@@ -178,26 +169,20 @@ class VoxelMap:
     def top_down(self, z_start: int = 0, z_stop: int = 32) -> torch.Tensor:
         """Feature of the top-most non-empty voxel per (row, col) within a
         depth slice; zero where the column is empty."""
-        fmap = self.grid()[:, :, z_start:z_stop]
-        mask = (fmap != 0).any(dim=-1)
-        # index of the last occupied z: cumsum peaks there, masked argmax
-        idx = torch.argmax(torch.cumsum(mask, dim=-1) * mask, dim=-1)
-        return torch.gather(
-            fmap, 2, idx[:, :, None, None].expand(
-                -1, -1, 1, fmap.shape[-1]))[:, :, 0]
+        return self.rows(lambda grid: _top_down(grid[:, :, z_start:z_stop]))
 
     def max_over_depth(self) -> torch.Tensor:
         """``[H, W, F]`` max over the full z extent."""
-        return self.grid().amax(dim=2)
+        return self.rows(lambda grid: grid.amax(dim=2))
 
     def occupancy_mask(self, z_start: int = 0, z_stop: int = 32,
                        threshold: float = 0.0) -> torch.Tensor:
         """``[H, W]`` bool — any voxel in the z slice has L1 feature norm
         above ``threshold``.  The norm reduces the slice view directly,
         with no ``abs`` copy of the map."""
-        sl = self.grid()[:, :, z_start:z_stop]
-        l1 = torch.linalg.vector_norm(sl, ord=1, dim=-1)
-        return (l1 > threshold).any(dim=-1)
+        return self.rows(lambda grid: (torch.linalg.vector_norm(
+            grid[:, :, z_start:z_stop], ord=1, dim=-1) > threshold
+        ).any(dim=-1))
 
     # ------------------------------------------------------------------
     # coordinate transforms
@@ -252,6 +237,86 @@ class VoxelMap:
     def world_to_map(self, coords) -> torch.Tensor:
         """World xyz (or xy) -> integer map cell coords, y flipped."""
         return world_to_cells(self.bins, self._tensor(coords, torch.float32))
+
+
+@dataclasses.dataclass
+class VoxelMap(BaseVoxelMap):
+    """Voxel grid state: ``data [V, F]`` plus per-axis bin edges (world
+    positions of voxel boundaries, recomputed when the map is re-centred
+    on a new origin)."""
+
+    data: torch.Tensor    # [V, F]
+    bins_x: torch.Tensor  # [W + 1]
+    bins_y: torch.Tensor  # [H + 1]
+    bins_z: torch.Tensor  # [D + 1]
+    geometry: MapGeometry
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @staticmethod
+    def create(geometry: MapGeometry,
+               origin: Tuple[float, float, float] = (0.0, 0.0, 0.0),
+               device=None, dtype=torch.float32) -> "VoxelMap":
+        """Fresh zeroed map centred on ``origin`` = (x, y, z) world."""
+        device = resolve_device(device)
+        g = geometry
+        data = torch.zeros((g.num_voxels, g.feature_size), dtype=dtype,
+                           device=device)
+        return VoxelMap(data, *_bins(origin, g, device), geometry=g)
+
+    def slabs(self) -> List[Tuple[int, torch.Tensor]]:
+        return [(0, self.data)]
+
+    def grid(self) -> torch.Tensor:
+        """The logical ``[H, W, D, F]`` grid (a view of the storage)."""
+        g = self.geometry
+        return self.data.view(g.map_height, g.map_width, g.map_depth,
+                              g.feature_size)
+
+    def rows(self, reduce: Callable[[torch.Tensor], torch.Tensor]
+             ) -> torch.Tensor:
+        return reduce(self.grid())
+
+    def with_grid(self, grid: torch.Tensor) -> "VoxelMap":
+        """A new map holding ``grid`` (``[H, W, D, F]``) as its storage."""
+        g = self.geometry
+        data = grid.to(self.device, self.data.dtype).reshape(
+            g.num_voxels, g.feature_size).contiguous()
+        return dataclasses.replace(self, data=data)
+
+    def update_classes_frames(self, rays, positions, yaws, elevations,
+                              depths, classes, min_ray_depth: float = 0.0,
+                              max_ray_depth: float = 10.0) -> "VoxelMap":
+        """Fold T frames into the map in place, in order, in one launch of
+        the frames kernel: equal to T calls of :meth:`update_classes`.
+
+        Args:
+          positions: ``[T, 3]``; yaws / elevations: ``[T]``;
+          depths: ``[T, h, w, 1]``; classes: ``[T, ch, cw]`` (integer,
+          upsampled to the ray grid).
+        """
+        h, w = rays.shape[0], rays.shape[1]
+        ids, weights = self.contributions_frames(
+            rays, positions, yaws, elevations, depths, min_ray_depth,
+            max_ray_depth)
+        classes = G.upsample_features(classes[..., None], h, w)[..., 0]
+        SP.splat_onehot_frames(self.data, ids, weights,
+                               classes.reshape(classes.shape[0], -1),
+                               self.geometry.interpolation_weight)
+        return self
+
+
+def _top_down(fmap: torch.Tensor) -> torch.Tensor:
+    """The feature of each column's top-most non-empty voxel of ``fmap
+    [h, W, d, F]``."""
+    mask = (fmap != 0).any(dim=-1)
+    # index of the last occupied z: cumsum peaks there, masked argmax
+    idx = torch.argmax(torch.cumsum(mask, dim=-1) * mask, dim=-1)
+    return torch.gather(
+        fmap, 2, idx[:, :, None, None].expand(
+            -1, -1, 1, fmap.shape[-1]))[:, :, 0]
 
 
 def contributions(rays, bins, geometry: MapGeometry, position, yaw,
@@ -363,25 +428,60 @@ class HostMapToWorld:
         return np.stack(out, axis=-1)
 
 
+def _shared_slabs(vms) -> List[List[Tuple[int, torch.Tensor]]]:
+    """Each map's :meth:`~BaseVoxelMap.slabs`; the maps of one group must
+    cut their voxels into the same slabs on the same devices."""
+    parts = [vm.slabs() for vm in vms]
+    cuts = {tuple((first, slab.shape[0], slab.device)
+                  for first, slab in p) for p in parts}
+    if len(cuts) != 1:
+        raise ValueError(f"the maps of one group must share their slabs' "
+                         f"voxels and devices, got {sorted(cuts)}")
+    return parts
+
+
 def apply_onehot_group(vms, ids, weights, classes_list):
     """EMA-blend one frame's shared corner records into the group's
-    one-hot maps (one grid) in place, sorted once for the group.  The maps
-    go to the splat kernels in chunks of at most four: two to four maps in
-    one launch of the multi-map kernel, one map in one launch of the
-    single-map kernel.  Each map equals its own single-map update bit for
-    bit, so the group equals per-map updates."""
+    one-hot maps (one grid) in place, sorted once for the group.  For
+    each slab (one for a :class:`VoxelMap`, a row slab of a sharded map
+    each), the records' ids re-base to the slab's first voxel and go to
+    its device, and the slab's maps go to the splat kernels in chunks of
+    at most four: two to four maps in one launch of the multi-map kernel,
+    one map in one launch of the single-map kernel.  Each map equals its
+    own single-map update bit for bit, so the group equals per-map
+    updates, and a sharded map equals the unsharded one."""
     vms = list(vms)
-    SP.check_voxels(max(vm.data.shape[0] for vm in vms))
+    parts = _shared_slabs(vms)
+    first, slab = parts[0][-1]
+    SP.check_voxels(first + slab.shape[0])
     records = SP.sorted_records_multi(
         ids, weights, [c.reshape(-1) for c in classes_list])
-    for lo in range(0, len(vms), SP.MAX_MAPS):
-        chunk = vms[lo:lo + SP.MAX_MAPS]
-        classes = records.classes[lo:lo + len(chunk)]
-        iws = [vm.geometry.interpolation_weight for vm in chunk]
-        if len(chunk) == 1:
-            SP.apply_records(chunk[0].data, records._replace(
-                classes=classes[0]), iws[0])
-        else:
-            SP.apply_records_multi([vm.data for vm in chunk],
-                                   records._replace(classes=classes), iws)
+    iws = [vm.geometry.interpolation_weight for vm in vms]
+    for k, (first, slab) in enumerate(parts[0]):
+        slab_records = SP.rebase_records(records, first, slab.device)
+        datas = [p[k][1] for p in parts]
+        for lo in range(0, len(vms), SP.MAX_MAPS):
+            chunk = datas[lo:lo + SP.MAX_MAPS]
+            classes = slab_records.classes[lo:lo + len(chunk)]
+            if len(chunk) == 1:
+                SP.apply_records(chunk[0], slab_records._replace(
+                    classes=classes[0]), iws[lo])
+            else:
+                SP.apply_records_multi(chunk, slab_records._replace(
+                    classes=classes), iws[lo:lo + len(chunk)])
     return vms
+
+
+def apply_dense_records(vm: BaseVoxelMap, records: SP.DenseRecords,
+                        features: torch.Tensor) -> BaseVoxelMap:
+    """Fold sorted dense records (``features [P, F]``) into ``vm`` in
+    place: one dense splat launch a slab, the ids re-based to the slab's
+    first voxel, records and features on its device."""
+    first, slab = vm.slabs()[-1]
+    SP.check_voxels(first + slab.shape[0])
+    features = features.to(torch.float32).contiguous()
+    for first, slab in vm.slabs():
+        SP.apply_dense_records(
+            slab, SP.rebase_records(records, first, slab.device),
+            features.to(slab.device), vm.geometry.interpolation_weight)
+    return vm

@@ -276,7 +276,9 @@ def replay_digest(path: str, cli_args: Optional[List[str]] = None
             maps.update_group(["semantic"], frame)
 
     for name, layer in maps.items():
-        digest[f"map_{name}"] = map_statistics(layer.voxel_map.data)
+        grid = layer.voxel_map.grid()      # a sharded map gathers
+        digest[f"map_{name}"] = map_statistics(
+            grid.reshape(-1, grid.shape[-1]))
     return digest
 
 

@@ -17,6 +17,11 @@ orient/bin/corner pass runs once per camera and grid for the one-hot
 layers, and each group of them splats from the shared records; a dense
 layer (``shared_onehot`` False) runs its own update, with its own
 camera, through the dense splat.
+
+``mesh`` (optional) row-shards a layer's map over the mesh's ``map``
+axis (``parallel/sharding.py``): n slabs, one on each of the axis's devices,
+each updated by its own splat launch from the frame's one binning pass;
+the layer's ``device`` is the axis's first device.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from mass_tpu_torch import resolve_device
 from mass_tpu_torch.config import CameraConfig, MapGeometry
 from mass_tpu_torch.core import geometry as G
 from mass_tpu_torch.core.voxelmap import VoxelMap, apply_onehot_group
+from mass_tpu_torch.parallel.mesh import canonical_device
+from mass_tpu_torch.parallel.sharding import ShardedVoxelMap
 
 
 def _pose_args(observation: Dict, device):
@@ -51,17 +58,34 @@ class _BaseMap:
     shared_onehot = True
 
     def __init__(self, camera: CameraConfig, geometry: MapGeometry,
-                 origin=(0.0, 0.0, 0.0), device=None):
+                 origin=(0.0, 0.0, 0.0), device=None, mesh=None):
         self.camera = camera
         self.geometry = geometry
+        self.mesh = mesh
+        if mesh is not None:
+            first = mesh.axis_devices("map")[0]
+            if device is not None and canonical_device(device) != first:
+                raise ValueError(f"a layer on {device} cannot shard over "
+                                 f"a mesh whose first device is {first}")
+            device = first
         self.device = resolve_device(device)
         self.rays = G.camera_rays(camera.height, camera.width,
                                   camera.focal_length, camera.focal_length,
                                   device=self.device)
-        self.voxel_map = VoxelMap.create(geometry, origin, self.device)
+        self.voxel_map = self._place(origin)
         # host-side reset generation: bins change only here, so host
         # midpoint caches (core/voxelmap.HostMapToWorld) key on it
         self.bins_epoch = 0
+
+    def _place(self, origin):
+        """A fresh map on the layer's device, or row-sharded over the
+        mesh's ``map`` axis (the JAX package's rule: its voxels divide
+        over the axis)."""
+        if self.mesh is None:
+            return VoxelMap.create(self.geometry, origin, self.device)
+        return ShardedVoxelMap.create(
+            self.geometry, self.mesh.axis_devices("map"), origin,
+            axis="map")
 
     def reset(self, origin) -> None:
         self.voxel_map.reset(origin)
@@ -74,10 +98,10 @@ class OccupancyMap(_BaseMap):
 
     def __init__(self, camera: CameraConfig,
                  config_geometry: MapGeometry = None,
-                 origin=(0.0, 0.0, 0.0), device=None, **geo_kwargs):
+                 origin=(0.0, 0.0, 0.0), device=None, mesh=None, **geo_kwargs):
         geometry = config_geometry or MapGeometry(feature_size=1,
                                                   **geo_kwargs)
-        super().__init__(camera, geometry, origin, device)
+        super().__init__(camera, geometry, origin, device, mesh)
 
     def classes_for(self, aux, depth):
         return torch.zeros(depth.shape[:2], dtype=torch.int32,
@@ -92,10 +116,10 @@ class SemanticMap(_BaseMap):
 
     def __init__(self, camera: CameraConfig, num_classes: int = 54,
                  config_geometry: MapGeometry = None,
-                 origin=(0.0, 0.0, 0.0), device=None, **geo_kwargs):
+                 origin=(0.0, 0.0, 0.0), device=None, mesh=None, **geo_kwargs):
         geometry = config_geometry or MapGeometry(feature_size=num_classes,
                                                   **geo_kwargs)
-        super().__init__(camera, geometry, origin, device)
+        super().__init__(camera, geometry, origin, device, mesh)
 
     def classes_for(self, aux, depth):
         h, w = self.rays.shape[0], self.rays.shape[1]
@@ -124,10 +148,11 @@ class FeatureMap(_BaseMap):
     def __init__(self, camera: CameraConfig, feature_size: int,
                  backbone: Callable[[torch.Tensor], torch.Tensor],
                  stride: int = 4, config_geometry: MapGeometry = None,
-                 origin=(0.0, 0.0, 0.0), device=None, **geo_kwargs):
+                 origin=(0.0, 0.0, 0.0), device=None, mesh=None, **geo_kwargs):
         geometry = config_geometry or MapGeometry(feature_size=feature_size,
                                                   **geo_kwargs)
-        super().__init__(camera.downsample(stride), geometry, origin, device)
+        super().__init__(camera.downsample(stride), geometry, origin, device,
+                         mesh)
         self.backbone = backbone
         self.stride = stride
 
@@ -153,12 +178,12 @@ class ClipMap(_BaseMap):
     def __init__(self, camera: CameraConfig, feature_size: int,
                  encoder: Callable[[torch.Tensor], torch.Tensor],
                  config_geometry: MapGeometry = None,
-                 origin=(0.0, 0.0, 0.0), device=None, **geo_kwargs):
+                 origin=(0.0, 0.0, 0.0), device=None, mesh=None, **geo_kwargs):
         geometry = config_geometry or MapGeometry(feature_size=feature_size,
                                                   **geo_kwargs)
         centre = CameraConfig(height=1, width=1, vertical_fov_degrees=
                               camera.vertical_fov_degrees)
-        super().__init__(centre, geometry, origin, device)
+        super().__init__(centre, geometry, origin, device, mesh)
         self.encoder = encoder
 
     def aux_from_observation(self, observation: Dict):
@@ -186,8 +211,9 @@ class MapSet(dict):
         """Fold one observation into the named layers (names not in the
         set are skipped): one orient/bin/corner pass per camera+grid
         signature, shared by every one-hot layer of that signature
-        (layers reset together share bins); dense layers run their own
-        update."""
+        (layers reset together share bins; sharded layers of one mesh
+        axis share their slabs, and each slab takes one launch for the
+        group); dense layers run their own update."""
         layers = [self[n] for n in names if n in self]
         shared = {}      # signature -> (ids, weights)
         grouped = {}     # signature -> [(layer, classes)]
@@ -199,7 +225,8 @@ class MapSet(dict):
             position, yaw, elevation, depth = _pose_args(observation,
                                                          layer.device)
             sig = (tuple(layer.rays.shape), g.map_height, g.map_width,
-                   g.map_depth, g.grid_resolution, layer.device)
+                   g.map_depth, g.grid_resolution,
+                   tuple(slab.device for _, slab in vm.slabs()))
             if sig not in shared:
                 shared[sig] = vm.contributions(layer.rays, position, yaw,
                                                elevation, depth)

@@ -68,7 +68,7 @@ def frontier_mass(vm: VoxelMap, radius_cells: int, padding: int = 3,
     is unobserved and borders observed navigable space, so unknown space
     behind walls scores zero while doorways into unexplored rooms score
     high."""
-    observed = vm.grid().amax(dim=(2, 3)) > 0           # any splat
+    observed = vm.rows(lambda grid: grid.amax(dim=(2, 3)) > 0)  # any splat
     free = observed & navigable_area(vm, padding, z_start, z_stop,
                                      obstacle_threshold, blocked=blocked)
     near_free = free.clone()

@@ -203,6 +203,18 @@ def sorted_frame_records(ids: torch.Tensor, weights: torch.Tensor,
                                 classes.reshape(ids.shape[0], -1))
 
 
+def rebase_records(records, first: int, device):
+    """``records`` (:class:`Records`, :class:`FrameRecords` or
+    :class:`DenseRecords`) for a slab of a map that starts at voxel
+    ``first``, on ``device``: the ids less ``first``.  The ids stay in
+    order; those below the slab go negative and those past it reach the
+    slab's end or beyond, and the kernels and plain versions skip both.
+    Nothing is copied for ``first`` 0 on the records' own device."""
+    if first:
+        records = records._replace(ids=records.ids - first)
+    return type(records)(*(t.to(device) for t in records))
+
+
 # ----------------------------------------------------------------------
 # plain versions: the kernels' sums in the same order (index_add_ on the
 # CPU adds in index order) and the same float32 blend

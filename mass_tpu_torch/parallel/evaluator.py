@@ -24,9 +24,9 @@ episodes with ground-truth or learned segmentation, every goal head
 ground-truth or predicted disagreement, feature matching and
 ``--reference-compat``.  One-phase ticks make a second batched map
 update for the goal-fed maps, since the goal render's depth has its own
-binning.  Row-sharded maps (``--shard-map``) raise
-``NotImplementedError`` naming their slice.  The CLI writes each
-episode's snapshot from its views of the fleet's buffers.
+binning.  ``--shard-map N`` row-shards every family's buffer over N
+devices (``FleetMaps(mesh=...)``), as the JAX package does.  The CLI
+writes each episode's snapshot from its views of the fleet's buffers.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ import torch
 from mass_tpu_torch import resolve_device, taxonomy
 from mass_tpu_torch.agent import oracle
 from mass_tpu_torch.agent.loop import GOAL_FED_MAPS, PHASE_ONE_MAPS, \
-    PHASE_TWO_MAPS, GoalHeads, _unported
+    PHASE_TWO_MAPS, GoalHeads, map_mesh
 from mass_tpu_torch.config import AgentConfig, MapGeometry
 from mass_tpu_torch.core import geometry as G
 from mass_tpu_torch.env.gridworld import snake_case
@@ -312,21 +312,24 @@ class FleetEvaluator:
         ``--use-feature-matching`` (it takes the fleet's ``[B, h, w, 3]``
         frames in one call), needed when ``config.use_feature_matching``.
       device: where the maps live; ``None`` means CUDA.
+      mesh: a ``parallel/mesh.DeviceMesh`` whose ``map`` axis the fleet's
+        buffers row-shard over, in place of the one ``config.shard_map``
+        builds (its first device is the fleet's).
     """
 
     def __init__(self, config: AgentConfig, samplers: List,
                  seeds: Optional[List[int]] = None, policy=None,
                  sensor=None, feature_backbone=None, device=None,
-                 feature_size: int = 256):
-        reason = _unported(config)
-        if reason is not None:
-            raise NotImplementedError(reason)
+                 feature_size: int = 256, mesh=None):
+        if mesh is not None and device is None:
+            device = mesh.axis_devices("map")[0]
         if config.use_feature_matching and feature_backbone is None:
             raise ValueError("fleet feature matching needs a backbone "
                              "(feature_backbone=; CLI: "
                              "--backbone-checkpoint)")
         self.config = config
         self.device = resolve_device(device)
+        mesh = map_mesh(config, self.device, mesh)
         self._batched_sensor = (None if sensor is None
                                 else make_batched_sensor(sensor))
         B = len(samplers)
@@ -348,7 +351,7 @@ class FleetEvaluator:
                             map_width=config.map_width,
                             map_depth=config.map_depth,
                             grid_resolution=config.grid_resolution),
-                families, device=self.device, dense_sizes=dense,
+                families, device=self.device, mesh=mesh, dense_sizes=dense,
                 backbone=feature_backbone)
         seeds = seeds or list(range(B))
         self.episodes = [

@@ -20,6 +20,14 @@ are ``[B*V, F]`` slabs too: ``update_dense`` sends the B RGB frames
 through the backbone in one batched call, bins the B feature cameras as
 one batch, and folds the embeddings in with one dense splat launch per
 family (families whose masks are equal share one sort).
+
+With a ``mesh``, every family's ``[B*V, F]`` buffer is row-sharded over
+the mesh axis (``parallel/sharding.ShardedVoxelMap``): n slabs of
+``B*V/n`` rows, one on each of the axis's devices, and each step's sort
+serves every slab, one launch a slab.  An episode lies inside one slab
+when n divides B; otherwise its rows cross slabs.  Either way
+:meth:`FleetMaps.view` is a ``ShardedVoxelMap`` over its pieces, whose
+reads land on the fleet's device.
 """
 
 from __future__ import annotations
@@ -33,10 +41,13 @@ import torch
 from mass_tpu_torch import resolve_device
 from mass_tpu_torch.config import CameraConfig, MapGeometry
 from mass_tpu_torch.core import geometry as G
-from mass_tpu_torch.core.voxelmap import (VoxelMap, _bins,
+from mass_tpu_torch.core.voxelmap import (BaseVoxelMap, VoxelMap, _bins,
+                                          apply_dense_records,
                                           apply_onehot_group,
                                           contributions_frames)
 from mass_tpu_torch.ops import splat as SP
+from mass_tpu_torch.parallel.mesh import canonical_device
+from mass_tpu_torch.parallel.sharding import ShardedVoxelMap
 
 
 class FleetMaps:
@@ -51,21 +62,36 @@ class FleetMaps:
         ``{"semantic0": 54, "occupancy": 1}``; families named
         ``occupancy*`` take class 0 for every pixel.
       device: where the buffers live; ``None`` means CUDA.
+      mesh / mesh_axis: (optional) row-shard every family's buffer over
+        this mesh axis, one slab on each of its devices (the module
+        docstring); ``device`` is then the axis's first device.
       dense_sizes, backbone, stride: dense feature families, name ->
         channel count (``{"feature0": 256, "feature1": 256}``), the
         ``[B, h, w, 3]`` -> ``[B, h/stride, w/stride, F]`` backbone that
         feeds them and its stride (``update_dense``).
-      mesh: the JAX package's row-sharded buffers, which arrive with a
-        later slice of the port.
+
+    ``buffers`` maps each family to its storage: the ``[B*V, F]`` tensor,
+    or with a mesh the list of its slabs.
     """
 
     def __init__(self, batch: int, camera: CameraConfig,
                  geometry: MapGeometry, feature_sizes: Dict[str, int],
-                 device=None, mesh=None, dense_sizes: Dict[str, int] = None,
+                 device=None, mesh=None, mesh_axis: str = "map",
+                 dense_sizes: Dict[str, int] = None,
                  backbone: Optional[Callable] = None, stride: int = 4):
+        devices = None
         if mesh is not None:
-            raise NotImplementedError(
-                "row-sharded fleet maps (mesh) are ported in slice 4")
+            devices = mesh.axis_devices(mesh_axis)
+            rows = batch * geometry.num_voxels
+            if rows % len(devices):
+                raise ValueError(
+                    f"fleet slab rows {rows} must divide over the "
+                    f"{len(devices)}-device '{mesh_axis}' axis")
+            if device is not None and canonical_device(device) != devices[0]:
+                raise ValueError(f"a fleet on {device} cannot shard over a "
+                                 f"mesh whose first device is {devices[0]}")
+            device = devices[0]
+        self.mesh = mesh
         self.batch = batch
         self.camera = camera
         self.base_geometry = geometry
@@ -90,15 +116,20 @@ class FleetMaps:
             name: dataclasses.replace(geometry, feature_size=f)
             for name, f in sizes.items()}
         bins = _bins((0.0, 0.0, 0.0), geometry, self.device)
-        # a fleet buffer is one taller map: B*H rows of the same grid
-        self._fleet_maps = {
-            name: VoxelMap(
-                torch.zeros((batch * V, f), device=self.device), *bins,
-                geometry=dataclasses.replace(
-                    geometry, map_height=geometry.map_height * batch,
-                    feature_size=f))
-            for name, f in sizes.items()}
-        self.buffers = {name: vm.data for name, vm in self._fleet_maps.items()}
+
+        def fleet_map(f: int):
+            # a fleet buffer is one taller map: B*H rows of the same grid
+            g = dataclasses.replace(geometry, feature_size=f,
+                                    map_height=geometry.map_height * batch)
+            if devices is not None:
+                return ShardedVoxelMap.create(g, devices)
+            return VoxelMap(torch.zeros((batch * V, f), device=self.device),
+                            *bins, geometry=g)
+
+        self._fleet_maps = {name: fleet_map(f) for name, f in sizes.items()}
+        self.buffers = {name: (vm.slab_data if devices is not None
+                               else vm.data)
+                        for name, vm in self._fleet_maps.items()}
         self.bins_x, self.bins_y, self.bins_z = (
             b.repeat(batch, 1) for b in bins)            # [B, n + 1] each
         self._offsets = torch.arange(batch, device=self.device) * V
@@ -109,8 +140,8 @@ class FleetMaps:
     def reset(self, episode: int, origin) -> None:
         """Zero one episode's slabs and re-centre its grid (in place)."""
         V = self.episode_voxels
-        for buf in self.buffers.values():
-            buf[episode * V:(episode + 1) * V].zero_()
+        for vm in self._fleet_maps.values():
+            vm.zero_voxels(episode * V, (episode + 1) * V)
         for rows, b in zip((self.bins_x, self.bins_y, self.bins_z),
                            _bins(origin, self.base_geometry, self.device)):
             rows[episode] = b
@@ -119,15 +150,20 @@ class FleetMaps:
     def bins_epoch(self, episode: int) -> int:
         return self._bins_epochs[episode]
 
-    def view(self, name: str, episode: int) -> VoxelMap:
-        """One episode's map as a ``VoxelMap`` whose data and bins are
-        views of the fleet's (no copy): what the planner and the matcher
-        read."""
+    def view(self, name: str, episode: int) -> BaseVoxelMap:
+        """One episode's map, its data and bins views of the fleet's (no
+        copy): what the planner and the matcher read.  A ``VoxelMap``;
+        in a sharded fleet a ``ShardedVoxelMap`` over the pieces of the
+        slabs the episode crosses (one piece when n divides B), each on
+        its slab's device, whose reads land on the fleet's device as
+        every sharded map's do (``grid()`` gathers there)."""
         V = self.episode_voxels
-        return VoxelMap(self.buffers[name][episode * V:(episode + 1) * V],
-                        self.bins_x[episode], self.bins_y[episode],
-                        self.bins_z[episode],
-                        geometry=self._episode_geoms[name])
+        pieces = self._fleet_maps[name].pieces(episode * V, (episode + 1) * V)
+        bins = (b[episode] for b in (self.bins_x, self.bins_y, self.bins_z))
+        geometry = self._episode_geoms[name]
+        if self.mesh is None:
+            return VoxelMap(pieces[0], *bins, geometry=geometry)
+        return ShardedVoxelMap(pieces, *bins, geometry)
 
     def _put(self, x, dtype) -> torch.Tensor:
         """An input on the buffers' device (host arrays without a sync)."""
@@ -146,7 +182,7 @@ class FleetMaps:
         (omit occupancy families); ``active`` (optional) name -> ``[B]``
         bool, which episodes update which family this step.
 
-        Unmasked, every family shares one sort and one launch (the
+        Unmasked, every family shares one sort and one launch a slab (the
         multi-map kernel for 2-4 families).  Masked, an inactive
         episode's records go to the discard id for that family, and
         families whose masks are equal share one sort and one launch; a
@@ -201,9 +237,7 @@ class FleetMaps:
                                                active):
             records = SP.sorted_dense_records(fam_ids, gw, B * hd * wd)
             for name in names:
-                vm = self._fleet_maps[name]
-                SP.apply_dense_records(vm.data, records, feats,
-                                       vm.geometry.interpolation_weight)
+                apply_dense_records(self._fleet_maps[name], records, feats)
 
     def _records(self, rays, positions, yaws, elevations, depths):
         """The B frames' corner records on their episodes' grids, re-based

@@ -29,8 +29,12 @@ equal ``.pth`` files bit for bit.  ``{logdir}/maskrcnn.pth`` is
 detectron2's ``{"model": state dict}`` with ``"class_offset": 1`` (the
 dataset's category ids skip class 0), which ``--detector-checkpoint``
 runs; ``{logdir}/maskrcnn-opt.pth`` holds the momentum by parameter name
-and the schedule count.  One device: the JAX package's data-parallel
-mesh arrives with slice 4.
+and the schedule count.  ``train(devices=...)`` splits each batch over
+the largest count of those devices that divides it, one replica a
+device (``utils/training.Replicas``): each replica takes its frames' keys
+of the batch's one-a-frame split, and makes its own NMS launch.  Unlike
+the JAX package, which takes every device, one device is the default: a
+replica step is not yet shown faster on several cards.
 
     python -m mass_tpu_torch.perception.maskrcnn_train --dataset d \\
         --epochs 2 --batch-size 4 --logdir /tmp/mrcnn
@@ -55,7 +59,8 @@ from mass_tpu_torch.ops.detection import _bilinear_pool, box_iou
 from mass_tpu_torch.perception import maskrcnn as M
 from mass_tpu_torch.perception.resnet import FrozenBatchNorm2d
 from mass_tpu_torch.search import prng
-from mass_tpu_torch.utils.training import (exact_convs, flax_init_,
+from mass_tpu_torch.utils.training import (Replicas, flax_init_,
+                                           largest_divisor,
                                            lecun_normal_, truncated_normal_)
 
 # the class offset the trainer's checkpoints record: the dataset's
@@ -398,10 +403,18 @@ def batch_loss(model: M.MaskRCNN, tcfg: TrainConfig,
     """The mean over the batch of each of the five losses, and ``total``
     their sum; ``key`` is split into one key a frame, as the JAX package
     splits it.  Returns ``(losses, targets)``."""
+    return frame_losses(model, tcfg, anchors, images, gt_boxes, gt_classes,
+                        gt_masks, gt_valid, prng.split(key, images.shape[0]))
+
+
+def frame_losses(model: M.MaskRCNN, tcfg: TrainConfig,
+                 anchors: List[torch.Tensor], images, gt_boxes, gt_classes,
+                 gt_masks, gt_valid, keys: torch.Tensor):
+    """:func:`batch_loss` given each frame's key (``keys [B, 2]``): a
+    data-parallel replica's share of the batch and of its keys."""
     maps, rpn_out = network(model, images)
     targets = sample_targets(model.config, tcfg, anchors, rpn_out, gt_boxes,
-                             gt_classes, gt_masks, gt_valid,
-                             prng.split(key, images.shape[0]))
+                             gt_classes, gt_masks, gt_valid, keys)
     losses = {k: v.mean() for k, v in image_losses(
         model, tcfg, maps, rpn_out, targets).items()}
     losses["total"] = sum(losses.values())
@@ -479,28 +492,32 @@ def schedule_boundaries(epochs: int, steps_per_epoch: int) -> Dict[int, float]:
 
 
 def make_train_step(model: M.MaskRCNN, optimizer: SGD,
-                    tcfg: TrainConfig = TrainConfig()):
+                    tcfg: TrainConfig = TrainConfig(), devices=None):
     """``step(batch, key) -> losses``: one update (in place) from a host
     batch ``(images, boxes, classes, masks, valid)`` and a key ``[2]``;
-    forward and backward under :func:`exact_convs`.  The losses stay on
-    the device."""
+    forward and backward under ``utils/training.exact_convs``, the batch
+    and its frames' keys split in order over ``devices`` (default: the
+    model's device), one replica a device.  The losses stay on the
+    device: each the replicas' mean, as the gradients are."""
     device = next(model.parameters()).device
-    anchors = M.device_anchors(model.config, device)
-    names = list(optimizer.params)
-    params = [optimizer.params[k] for k in names]
+    replicas = Replicas(model, devices or [device], list(optimizer.params))
+    anchors = {d: M.device_anchors(model.config, d)
+               for d in replicas.devices}
+
+    def losses(replica, images, boxes, classes, masks, valid, keys):
+        return frame_losses(replica, tcfg, anchors[images.device], images,
+                            boxes, classes, masks, valid, keys)[0]
 
     def step(batch, key: torch.Tensor) -> Dict[str, torch.Tensor]:
         images, boxes, classes, masks, valid = (
             torch.as_tensor(np.asarray(x)).to(device) for x in batch)
-        with exact_convs():
-            losses, _ = batch_loss(
-                model, tcfg, anchors, images.to(torch.float32),
-                boxes.to(torch.float32), classes.to(torch.int64),
-                masks.to(torch.float32), valid.to(torch.bool),
-                key.to(device))
-            grads = torch.autograd.grad(losses["total"], params)
+        loss, grads = replicas.grads(
+            losses, images.to(torch.float32), boxes.to(torch.float32),
+            classes.to(torch.int64), masks.to(torch.float32),
+            valid.to(torch.bool),
+            prng.split(key.to(device), images.shape[0]))
         optimizer.step(grads)
-        return {k: v.detach() for k, v in losses.items()}
+        return loss
 
     return step
 
@@ -618,7 +635,7 @@ def train(dataset_dir: str, logdir: str, epochs: int = 1,
           config: M.MaskRCNNConfig = None,
           tcfg: TrainConfig = TrainConfig(), resume: bool = False,
           augment: bool = False, eval_every: int = 0,
-          init_checkpoint: str = None, device=None):
+          init_checkpoint: str = None, device=None, devices=None):
     """Train the detector on the generated dataset from flax's
     initialisation (``seed``); returns ``(model, history)``.
 
@@ -636,8 +653,14 @@ def train(dataset_dir: str, logdir: str, epochs: int = 1,
     - ``resume``: this logdir's run, weights and optimizer (momentum and
       the schedule count) from ``{logdir}/maskrcnn[-opt].pth``, so the
       schedule goes on at the saved step.
+
+    Each batch splits over the first devices of ``devices`` (default:
+    ``device`` alone), as many as the largest divisor of the batch
+    allows.
     """
-    device = resolve_device(device)
+    device = resolve_device(device if devices is None else devices[0])
+    devices = list(devices or [device])
+    devices = devices[:largest_divisor(batch_size, len(devices))]
     if config is None:
         config = M.MaskRCNNConfig(num_classes=num_classes,
                                   image_size=image_size)
@@ -658,7 +681,7 @@ def train(dataset_dir: str, logdir: str, epochs: int = 1,
     if resume and opt_path and os.path.exists(opt_path):
         optimizer.load_state_dict(torch.load(opt_path, map_location="cpu",
                                              weights_only=True))
-    step = make_train_step(model, optimizer, tcfg)
+    step = make_train_step(model, optimizer, tcfg, devices)
 
     try:
         from mass_tpu_torch.perception.train_detector import load_split

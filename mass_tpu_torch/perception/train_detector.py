@@ -7,8 +7,12 @@ trains ``perception/detector.SegmenterUNet`` with a class-weighted
 per-pixel cross-entropy and AdamW (optax's default decay of 1e-4), and
 reports mean IoU and pixel accuracy on the validation split after each
 epoch.  ``segmenter.pth`` (the port's state dict) runs in the CLI under
-``--detector-arch unet --detector-checkpoint``.  One device: the JAX
-package's data-parallel mesh arrives with slice 4.
+``--detector-arch unet --detector-checkpoint``.  As in the JAX package,
+``train(devices=...)`` splits each batch over the largest count of those
+devices that divides it (``["cpu"] * 4`` four replicas on the CPU), one
+replica of the UNet a device (``utils/training.Replicas``).  Unlike the
+JAX package, which takes every device, one device is the default: a
+replica step is not yet shown faster on several cards.
 
     python -m mass_tpu_torch.perception.train_detector --dataset d \\
         --epochs 2 --batch-size 8 --logdir /tmp/det
@@ -30,7 +34,8 @@ from mass_tpu_torch import resolve_device, taxonomy
 from mass_tpu_torch.perception.detector import SegmenterUNet, init_segmenter
 from mass_tpu_torch.tools.detector_dataset import read_png
 from mass_tpu_torch.utils.checkpoint import save_state_dict
-from mass_tpu_torch.utils.training import exact_convs
+from mass_tpu_torch.utils.training import (Replicas, exact_convs,
+                                           largest_divisor)
 
 # optax.adamw's default weight decay (torch's AdamW defaults to 1e-2)
 WEIGHT_DECAY = 1e-4
@@ -84,23 +89,29 @@ def weighted_cross_entropy(model: SegmenterUNet, rgb: torch.Tensor,
 
 
 def make_train_step(model: SegmenterUNet, optimizer: torch.optim.Optimizer,
-                    weights=None):
+                    weights=None, devices=None):
     """``step(rgb, sem) -> loss``: one optimizer step (in place) on a
-    host batch, forward and backward under :func:`exact_convs`."""
+    host batch, forward and backward under :func:`exact_convs`, the batch
+    split in order over ``devices`` (default: the model's device), one
+    replica a device."""
     device = next(model.parameters()).device
+    replicas = Replicas(model, devices or [device])
     num_classes = model.head.out_channels
     w = (torch.as_tensor(weights) if weights is not None
-         else torch.ones(num_classes)).to(device, torch.float32)
+         else torch.ones(num_classes)).to(torch.float32)
+    w_on = {d: w.to(d) for d in replicas.devices}
+
+    def losses(replica, rgb, sem):
+        return {"total": weighted_cross_entropy(replica, rgb, sem,
+                                                w_on[rgb.device])}
 
     def step(rgb, sem) -> torch.Tensor:
         rgb = torch.as_tensor(np.asarray(rgb, np.float32)).to(device)
         sem = torch.as_tensor(np.asarray(sem)).to(device, torch.long)
-        with exact_convs():
-            loss = weighted_cross_entropy(model, rgb, sem, w)
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+        loss, grads = replicas.grads(losses, rgb, sem)
+        replicas.set_grads(grads)
         optimizer.step()
-        return loss.detach()
+        return loss["total"]
 
     return step
 
@@ -136,12 +147,17 @@ def evaluate(model: SegmenterUNet, images, targets, batch_size: int = 8):
 
 def train(dataset_dir: str, logdir: str, epochs: int = 1,
           batch_size: int = 8, learning_rate: float = 3e-4,
-          seed: int = 0, class_weighting: bool = True, device=None):
+          seed: int = 0, class_weighting: bool = True, device=None,
+          devices=None):
     """Train a UNet from flax's initialisation (``seed``) for ``epochs``
     passes over the training split; writes ``segmenter.pth`` and
     ``history.json`` under ``logdir`` when one is given.  Returns the
-    model and the per-epoch metrics."""
-    device = resolve_device(device)
+    model and the per-epoch metrics.  Each batch splits over the first
+    devices of ``devices`` (default: ``device`` alone), as many as the
+    largest divisor of the batch allows."""
+    device = resolve_device(device if devices is None else devices[0])
+    devices = list(devices or [device])
+    devices = devices[:largest_divisor(batch_size, len(devices))]
     images, targets = load_split(dataset_dir, "training")
     val = load_split(dataset_dir, "validation")
     model = init_segmenter(torch.Generator().manual_seed(seed)).to(device)
@@ -149,7 +165,7 @@ def train(dataset_dir: str, logdir: str, epochs: int = 1,
                                   weight_decay=WEIGHT_DECAY)
     step = make_train_step(
         model, optimizer,
-        class_weights(targets) if class_weighting else None)
+        class_weights(targets) if class_weighting else None, devices)
 
     rng = np.random.RandomState(seed)
     history = []

@@ -19,7 +19,11 @@ augmented there.
 
 Runs on ``--device`` (default ``cuda``); forward and backward run with
 deterministic cuDNN and TF32 off, so two runs from one seed give equal
-parameters.
+parameters.  ``--data-parallel`` splits each batch over every card from
+``--device``'s on (or ``--data-parallel N`` over N replicas, which on the
+CPU all lie on the CPU), one replica of the policy a device
+(``utils/training.Replicas``), as the JAX package's
+``fit(data_parallel=True)`` shards it over its ``data`` axis.
 """
 
 from __future__ import annotations
@@ -37,31 +41,36 @@ import torch.nn.functional as F
 from mass_tpu_torch import resolve_device
 from mass_tpu_torch.search import policy as P
 from mass_tpu_torch.utils.checkpoint import save_state_dict
-from mass_tpu_torch.utils.training import exact_convs
+from mass_tpu_torch.utils.training import Replicas, data_devices, exact_convs
 
 
 @dataclasses.dataclass
 class TrainState:
-    """The policy being trained, its optimizer and the steps taken."""
+    """The policy being trained, its optimizer, its replicas over the
+    data axis (one for a one-device step) and the steps taken."""
 
     policy: P.SearchPolicy
     optimizer: torch.optim.Optimizer
+    replicas: Replicas
     step: int = 0
 
 
 def create_train_state(generator: torch.Generator, channels: int,
                        learning_rate: float = 3e-4,
                        weight_decay: float = 0.0,
-                       device=None) -> TrainState:
+                       device=None, devices=None) -> TrainState:
     """A policy initialised from ``generator`` on ``device`` with Adam,
     or AdamW with ``weight_decay`` on every parameter (optax's
-    ``adamw``: torch's default decay is not used)."""
-    policy = P.init_policy(generator, channels).to(resolve_device(device))
+    ``adamw``: torch's default decay is not used).  ``devices`` (first
+    ``device``) is the data axis a step splits its batch over."""
+    device = resolve_device(device)
+    policy = P.init_policy(generator, channels).to(device)
     params = policy.parameters()
     optimizer = (torch.optim.AdamW(params, learning_rate,
                                    weight_decay=weight_decay)
                  if weight_decay else torch.optim.Adam(params, learning_rate))
-    return TrainState(policy, optimizer)
+    return TrainState(policy, optimizer,
+                      Replicas(policy, devices or [device]))
 
 
 def _logits(policy: P.SearchPolicy, top_down: torch.Tensor) -> torch.Tensor:
@@ -98,15 +107,16 @@ def goal_cross_entropy(policy: P.SearchPolicy, top_down: torch.Tensor,
 def train_step(state: TrainState, top_down: torch.Tensor,
                goal_cells: torch.Tensor, sigma: float = 0.0
                ) -> torch.Tensor:
-    """One optimizer step on a batch (in place); returns the batch's
-    loss before the step."""
-    with exact_convs():
-        loss = goal_cross_entropy(state.policy, top_down, goal_cells, sigma)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+    """One optimizer step on a batch (in place), split over the state's
+    replicas; returns the batch's loss before the step."""
+    losses, grads = state.replicas.grads(
+        lambda policy, t, g: {"total": goal_cross_entropy(policy, t, g,
+                                                          sigma)},
+        top_down, goal_cells.to(top_down.device))
+    state.replicas.set_grads(grads)
     state.optimizer.step()
     state.step += 1
-    return loss.detach()
+    return losses["total"]
 
 
 # ---------------------------------------------------------------------
@@ -291,22 +301,31 @@ def fit(data_dir: str, out_path: str, steps: int = 600,
         log_every: int = 50, sigma: float = 2.0,
         weight_decay: float = 1e-4, augment: bool = True,
         data_parallel: bool = False, conditioned: bool = False,
-        device=None):
+        device=None, devices=None):
     """Train the search policy on collected (top-down, goal-cell) pairs
     and save the parameters of the best validation smoothed-NLL seen as
     the ``.pth`` at ``out_path``; returns that (val NLL, val argmax
     distance).  The split is by task, targets are smoothed by ``sigma``
     cells and training batches take random dihedral augmentations, all
     drawn in the JAX package's order from ``RandomState(seed)``.
-    ``data_parallel`` arrives with slice 4."""
-    if data_parallel:
-        from mass_tpu_torch.agent.cli import unported
-        raise ValueError(unported("data_parallel", 4,
-                                  "mass_tpu.search.train"))
+
+    ``data_parallel`` splits each batch over ``devices`` (default: every
+    card from ``device``'s index on, one replica on the CPU;
+    ``utils/training.data_devices``), which must divide it, as the JAX
+    package's does over its devices, and assembles the batches on the host
+    (as the JAX package does)."""
     if not out_path.endswith(".pth"):
         raise ValueError(f"{out_path} does not end in .pth: the policy "
                          f"saves as a policy.pth state dict, the format "
                          f"--policy-checkpoint reads")
+    if data_parallel:
+        devices = list(devices or data_devices(resolve_device(device)))
+        device = devices[0]
+        if batch_size % len(devices):
+            raise ValueError(f"batch_size {batch_size} must divide over "
+                             f"{len(devices)} devices")
+    else:
+        devices = None
     device = resolve_device(device)
     source = (load_dataset_conditioned(data_dir) if conditioned
               else _PlainSamples(*load_dataset(data_dir)))
@@ -332,10 +351,12 @@ def fit(data_dir: str, out_path: str, steps: int = 600,
           f"{', conditioned' if conditioned else ''})", flush=True)
 
     state = create_train_state(torch.Generator().manual_seed(seed), c,
-                               learning_rate, weight_decay, device)
+                               learning_rate, weight_decay, device, devices)
+    if data_parallel:
+        print(f"data-parallel over {len(devices)} devices", flush=True)
     # device-resident dataset: the fp16 snapshot and context pools go to
     # the device once and batches are assembled there
-    device_data = conditioned and h == w
+    device_data = conditioned and not data_parallel and h == w
     if device_data:
         snaps_dev = torch.from_numpy(source._snaps).to(device)
         ctxs_np = source._ctxs
@@ -448,7 +469,7 @@ def fit(data_dir: str, out_path: str, steps: int = 600,
 
 def main(argv=None):
     from mass_tpu_torch.agent.cli import (add_device_flags,
-                                          resolve_device_flags, unported)
+                                          resolve_device_flags)
 
     p = argparse.ArgumentParser("semantic-search policy trainer")
     p.add_argument("--data", type=str, required=True,
@@ -465,23 +486,26 @@ def main(argv=None):
                    help="goal heat-map smoothing, in map cells")
     p.add_argument("--weight-decay", type=float, default=1e-4)
     p.add_argument("--no-augment", action="store_true")
-    p.add_argument("--data-parallel", action="store_true",
-                   help="not ported yet (slice 4)")
+    p.add_argument("--data-parallel", type=int, nargs="?", const=0,
+                   default=None, metavar="N",
+                   help="split each batch over every card, or over N "
+                        "replicas (on the CPU: N replicas on the CPU)")
     p.add_argument("--conditioned", action="store_true",
                    help="walkthrough-conditioned input (2x channels: "
                         "current map + finished walkthrough map); the "
                         "agent detects such checkpoints")
     add_device_flags(p)
     args = p.parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit(unported("--data-parallel", 4,
-                                  "mass_tpu.search.train"))
+    device = resolve_device_flags(args)
+    data_parallel = args.data_parallel is not None
     fit(args.data, args.out, steps=args.steps,
         batch_size=args.batch_size, learning_rate=args.learning_rate,
         val_fraction=args.val_fraction, seed=args.seed,
         sigma=args.sigma, weight_decay=args.weight_decay,
-        augment=not args.no_augment, conditioned=args.conditioned,
-        device=resolve_device_flags(args))
+        augment=not args.no_augment, data_parallel=data_parallel,
+        conditioned=args.conditioned, device=device,
+        devices=data_devices(resolve_device(device), args.data_parallel)
+        if data_parallel else None)
 
 
 if __name__ == "__main__":

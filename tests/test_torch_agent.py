@@ -172,18 +172,19 @@ BACKBONE = os.path.join(REPO, "mass_tpu_torch", "checkpoints",
     (["--revisit-exploration"], None),
     (["--use-feature-matching", "--backbone-checkpoint", BACKBONE], None),
     (["--one-phase"], None),
-    (["--shard-map", "8"], 4),
+    # eight row slabs of every map on the CPU (parallel/sharding.py)
+    (["--shard-map", "8"], None),
     (["--snapshot-maps"], None),
     (["--videos"], None),
 ])
 def test_cli_rejects_flags_of_later_slices(flags, slice_no, tmp_path):
-    """Flags of later slices stop before anything is written (a string
-    ``slice_no`` is the message expected instead of the slice); the
-    ported flags (``slice_no`` None) run: a CPU run writes
-    results/2.json, ``--snapshot-maps`` the episode's maps, ``--videos``
+    """Every flag of the JAX CLI runs on the port (``slice_no`` None): a
+    CPU run writes results/2.json, ``--shard-map 8`` with every map in
+    eight row slabs, ``--snapshot-maps`` the episode's maps, ``--videos``
     its mp4 (a frame per observation), and ``--backend thor`` (on the
     grid-backed fake of the THOR stack) the first episode of THOR's own
-    task specs."""
+    task specs; a run that lacks what a flag needs stops before anything
+    is written (a string ``slice_no`` is the message expected)."""
     from mass_tpu_torch.agent import cli
     from tests import torch_fake_thor
 

@@ -48,8 +48,11 @@ def test_cli_preset_pins_reference_behavior():
         ["--logdir", "/tmp/x"]))
     assert default.navigate_on_semantic and not \
         default.nav.reference_compat
-    assert tcli.unported_flags(tcli.build_parser().parse_args(
-        args + ["--ground-truth-segmentation"])) is None
+    # every flag runs on the port: --shard-map parses as mass_tpu's does
+    sharded = args + ["--ground-truth-segmentation", "--shard-map", "4"]
+    assert tcli.config_from_args(tcli.build_parser().parse_args(
+        sharded)).shard_map == jcli.config_from_args(
+        jcli.build_parser().parse_args(sharded)).shard_map == 4
 
 
 def _nav_like(jax_nav, port_nav):

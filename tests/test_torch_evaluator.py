@@ -200,19 +200,21 @@ def test_cli_fleet_writes_results(tmp_path):
     (["--revisit-exploration"], None),
     (["--use-feature-matching", "--backbone-checkpoint", BACKBONE,
       "--one-phase"], None),
-    ({"shard_map": 4}, 4),
+    # four row slabs of every family's buffer on the CPU
+    (["--shard-map", "4"], None),
     (["--snapshot-maps"], None),
 ])
 def test_fleet_refuses_later_slices(change, slice_no, tmp_path):
-    """The fleet refuses what later slices port; the ported flags
-    (``slice_no`` None, ``change`` CLI flags) run: a --fleet-size 2 CPU
-    run of tasks 2-3 writes results/2.json (and with --snapshot-maps each
-    task's maps); a learned sensor (``change`` the evaluator's arguments)
-    runs once a tick."""
+    """Every configuration runs in the fleet (``change`` CLI flags, or
+    the evaluator's arguments): a --fleet-size 2 CPU run of tasks 2-3
+    writes results/2.json (with --snapshot-maps each task's maps, with
+    --shard-map 4 every family's buffer in four row slabs); a learned
+    sensor runs once a tick."""
     from mass_tpu_torch.agent import cli
     from mass_tpu_torch.parallel.evaluator import FleetEvaluator
 
-    if slice_no is None and isinstance(change, dict):
+    assert slice_no is None
+    if isinstance(change, dict):
         evaluator = FleetEvaluator(
             _config("torch"), [_recording_sampler("torch", s, [], 30)
                                for s in SEEDS], device="cpu", **change)
@@ -220,24 +222,16 @@ def test_fleet_refuses_later_slices(change, slice_no, tmp_path):
         counts = evaluator.timer.counts
         assert counts["segmentation"] == counts["mapping"] > 0
         return
-    if slice_no is None:
-        cli.main(SMALL + change + ["--fleet-size", "2", "--start-task", "2",
-                                   "--total-tasks", "2", "--logdir",
-                                   str(tmp_path)])
-        with open(tmp_path / "results" / "2.json") as f:
-            assert json.load(f)["task_id"] == 2
-        if "--snapshot-maps" in change:
-            for task in (2, 3):
-                with np.load(tmp_path / "results" / f"maps-{task}.npz") as z:
-                    assert z["semantic1"].shape == (32, 32, 8, 54)
-                    assert np.count_nonzero(z["semantic0"]) > 0
-        return
-    args = {k: v for k, v in change.items()
-            if k in ("sensor", "feature_backbone")}
-    cfg = _config("torch", **{k: v for k, v in change.items()
-                              if k not in args})
-    with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-        FleetEvaluator(cfg, [object(), object()], device="cpu", **args)
+    cli.main(SMALL + change + ["--fleet-size", "2", "--start-task", "2",
+                               "--total-tasks", "2", "--logdir",
+                               str(tmp_path)])
+    with open(tmp_path / "results" / "2.json") as f:
+        assert json.load(f)["task_id"] == 2
+    if "--snapshot-maps" in change:
+        for task in (2, 3):
+            with np.load(tmp_path / "results" / f"maps-{task}.npz") as z:
+                assert z["semantic1"].shape == (32, 32, 8, 54)
+                assert np.count_nonzero(z["semantic0"]) > 0
 
 
 def test_feature_matching_needs_a_backbone():

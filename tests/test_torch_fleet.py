@@ -22,6 +22,7 @@ from mass_tpu_torch.config import CameraConfig, MapGeometry
 from mass_tpu_torch.core import voxelmap as VM
 from mass_tpu_torch.nav import grid as TNG
 from mass_tpu_torch.parallel import fleet as TF
+from mass_tpu_torch.parallel.mesh import make_mesh
 
 # tests/test_fleet.py's settings, each episode on a grid of its own
 CAM = 12
@@ -209,14 +210,15 @@ def test_fleet_views_are_views():
     assert vm.geometry.feature_size == 54 and vm.geometry.num_voxels == V
 
 
-@pytest.mark.parametrize("kwargs,slice_no", [
-    ({"mesh": object()}, 4), ({"dense_sizes": {"feature0": 256}}, None)])
-def test_fleet_maps_refuse_later_slices(kwargs, slice_no):
-    """Row-sharded buffers wait for a later slice; dense feature families
-    (ported: ``slice_no`` None) need the backbone that feeds them."""
-    error, match = ((NotImplementedError, f"slice {slice_no}") if slice_no
-                    else (ValueError, "need a backbone"))
-    with pytest.raises(error, match=match):
+@pytest.mark.parametrize("kwargs,match", [
+    ({"mesh": make_mesh((5,), ("map",), ["cpu"] * 5)},
+     "fleet slab rows 13824 must divide over the 5-device 'map' axis"),
+    ({"dense_sizes": {"feature0": 256}}, "need a backbone")])
+def test_fleet_maps_refuse_later_slices(kwargs, match):
+    """Row-sharded buffers need their B*V rows to divide over the mesh
+    axis (the JAX package's rule, named with both numbers); dense feature
+    families need the backbone that feeds them."""
+    with pytest.raises(ValueError, match=match):
         TF.FleetMaps(B, CameraConfig(height=CAM, width=CAM),
                      MapGeometry(**GEO), FAMILIES, device="cpu", **kwargs)
 

@@ -29,6 +29,7 @@ SCRIPT = textwrap.dedent("""
         importlib.import_module(name)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
+    from mass_tpu_torch.config import MapGeometry
     from mass_tpu_torch.core.voxelmap import VoxelMap, apply_onehot_group
     from mass_tpu_torch.ops import splat
     for entry in ("apply_records", "apply_records_multi",
@@ -168,6 +169,24 @@ SCRIPT = textwrap.dedent("""
                   analyze.main, submission.main, color_mappings.main,
                   visualize_dataset.main):
         assert callable(entry), entry
+    from mass_tpu_torch.parallel import (BatchedMapper, episodes, mesh,
+                                         shard_voxelmap, sharded_update_fn,
+                                         sharding)
+    for name in ("mass_tpu_torch.parallel.mesh",
+                 "mass_tpu_torch.parallel.sharding",
+                 "mass_tpu_torch.parallel.episodes"):
+        assert name in names, name
+    for entry in (mesh.make_mesh, mesh.data_map_mesh, mesh.DeviceMesh,
+                  sharding.ShardedVoxelMap, shard_voxelmap,
+                  sharded_update_fn, BatchedMapper, episodes.BatchedMapper,
+                  splat.rebase_records, training.Replicas,
+                  training.data_devices, training.largest_divisor,
+                  maskrcnn_train.frame_losses):
+        assert callable(entry), entry
+    cpu4 = mesh.make_mesh((4,), ("map",), ["cpu"] * 4)
+    assert sharding.ShardedVoxelMap.create(
+        MapGeometry(map_height=8, map_width=4, map_depth=2),
+        cpu4.axis_devices("map")).slabs()[1][0] == 16
     for gated in ("ai2thor", "rearrange", "baseline_configs", "imageio",
                   "matplotlib", "pandas"):
         assert gated not in sys.modules, gated

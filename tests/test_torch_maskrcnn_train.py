@@ -32,6 +32,7 @@ from mass_tpu_torch.perception import maskrcnn_train as TT
 from mass_tpu_torch.search import prng
 from tests.test_maskrcnn_train import CFG, IMG, NCLS, TCFG, _batch, \
     _write_dataset
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 RTOL = 1e-4
 # every gradient within GRAD_TOL of the tree's largest |g|: float32 convs

@@ -358,17 +358,21 @@ def test_fit_matches_jax(tmp_path, monkeypatch, capsys, conditioned, shape,
 
 
 def test_fit_refuses_data_parallel_and_a_non_pth_path(tmp_path):
+    """A data-parallel batch must divide over the replicas (the JAX
+    package's assertion, named with both numbers), on the CLI too; the
+    output must be a .pth."""
     d = tmp_path / "data"
     _write_dataset(d, n_tasks=2)
-    with pytest.raises(ValueError, match="slice 4"):
+    with pytest.raises(ValueError, match="batch_size 8 must divide over "
+                                         "3 devices"):
         TT.fit(str(d), str(tmp_path / "p.pth"), data_parallel=True,
-               device="cpu")
+               devices=["cpu"] * 3)
     with pytest.raises(ValueError, match=r"\.pth"):
         TT.fit(str(d), str(tmp_path / "orbax-dir"), device="cpu")
-    with pytest.raises(SystemExit, match="--data-parallel is not ported "
-                                         "yet: it arrives with slice 4"):
+    with pytest.raises(ValueError, match="batch_size 8 must divide over "
+                                         "5 devices"):
         TT.main(["--data", str(d), "--out", str(tmp_path / "p.pth"),
-                 "--data-parallel", "--device", "cpu"])
+                 "--data-parallel", "5", "--device", "cpu"])
 
 
 def test_main_trains_on_the_cpu_and_the_cli_runs_its_pth(tmp_path):
