@@ -14,15 +14,18 @@ more tiles than the persistent grid has blocks; the frames kernel on
 bench.py's 128-frame stream in groups of 8, and on 8 frames of a wall
 0.30-0.37 m ahead whose sub-runs cross tile ends), runs the default and
 the ``--reference-compat`` two-phase episodes
-on the card at a small geometry (and on the CPU, which must give equal results),
-then both episodes at full width (384x384x96 voxels x 54 classes,
-224x224 camera) through ``python -m mass_tpu_torch.agent.cli``'s entry
-point, with the kernels' launch counts set to 0 before each path and
-read after it.  Then the lockstep fleet: ``FleetMaps`` of 8 full-width
+on the card at a small geometry (the same runs on the CPU, which must
+give equal results, are left to ``tests/test_torch_gpu.py``, as are
+those of the small head, feature and learned episodes and of every
+small fleet: the script stays within its time limit), then both
+episodes at full width (384x384x96 voxels x 54 classes, 224x224 camera)
+through ``python -m mass_tpu_torch.agent.cli``'s entry point, with the
+kernels' launch counts set to 0 before each path and read after it.
+Then the lockstep fleet: ``FleetMaps`` of 8 full-width
 episodes (three families in [8V, F] buffers, 49 GB) through an
 unmasked and a mixed-mask step, held bit for bit against single-map
 kernel updates of two episodes' slabs; B = 2 fleets of the small
-episodes on the card and the CPU against the sequential agent; and
+episodes on the card against the sequential agent; and
 ``--fleet-size 4`` (default) and ``--fleet-size 2`` (compat) at full
 width through the CLI, whose task 2 must equal the sequential full-width
 episode, with every group splat accounted for by one kernel launch.
@@ -30,8 +33,8 @@ Then the goal heads: one policy goal at full width by part (``[policy]``:
 max over depth, the five convs against their bound, the Gumbel-max draw,
 the inhibited decode); A (frontier + revisit), B (the conditioned policy
 with inhibition) and C (one-phase with the plain policy) small on the
-card and the CPU (equal results; C launches twice a step while it
-explores) and at full width through the CLI; B = 2 small fleets of each;
+card (C launches twice a step while it explores) and at full width
+through the CLI; B = 2 small fleets of each;
 and a full-width ``--fleet-size 2`` fleet of B whose task 2 must equal
 the sequential B episode.  Then feature matching: the dense-row splat
 (``csrc/splat_dense.cu``, a second library) on one room frame's stride-4
@@ -40,7 +43,7 @@ runs and on a stream of many runs, bit-equal to its plain CPU version on
 the touched rows; the stage-1 ResNet on one 224x224 frame against its
 bound; tasks 0 and 2 of
 the frozen feature-matching protocol (``experiments/fm/run_arm.sh``) on
-the card and the CPU (equal; task 0 equal to the committed record); the
+the card (task 0 equal to the committed record); the
 full-width feature episode (two 13.5 GiB feature maps) with its mapping
 split; and B = 2 feature fleets, small (equal to the sequential episodes)
 and at full width (task 2 equal to the sequential feature episode).
@@ -48,14 +51,24 @@ Then learned segmentation: the greedy-NMS kernel (``csrc/nms.cu``, a
 third library) against the plain loop on the CPU, keep indices exact, on
 the detector's own problems (the RPN's five levels of one frame and of
 eight, the class-aware NMS) and on the chosen streams of
-``tests/torch_streams.py``; the full-width Mask R-CNN (224x224, 54
+``tests/torch_streams.py``; whether a profiler session records every
+launch in this process (``[profiler]``: 20 launches of NMS and of two
+kernels of a few lines outside the port, plain torch.profiler sessions
+against ``utils/profiling.trace``); the full-width Mask R-CNN (224x224, 54
 classes, random detectron2-layout weights written from a seed to
 ``build/chip_smoke/maskrcnn-rand.pth``) on one frame and on two, the card
 against the CPU by the margin rule of ``tests/torch_margins.py``, with
-ms a frame by stage; a small learned episode on the card and the CPU
-(equal); the full-width learned episode through the CLI
+ms a frame by stage; a small learned episode on the card; the full-width
+learned episode through the CLI
 (``--detector-checkpoint``), and a ``--fleet-size 2 --seed -2`` learned
-fleet whose task 2 must equal it.  Then training: the search-data
+fleet whose task 2 must equal it.  Then traces (``utils/profiling.trace``,
+``[trace]``): the full-width default and learned episodes, each whole,
+and ticks 100-109 of the B = 4 full-width default fleet, run again under
+the profiler: each window's kernel events (``splat_onehot_kernel`` by its
+template, ``splat_dense_kernel``, ``nms_kernel``) must equal the port's
+launch counters over it and each outcome the untraced run's; it prints
+the card's busy share, its top ten operations and its three longest
+idle gaps with the host op beside each.  Then training: the search-data
 collector (``python -m mass_tpu_torch.search.dataset``) over tasks 0-7
 at its defaults on the card, task 0 again on the CPU (equal cells and
 counts, snapshots within one float16 ulp), every frame one group splat
@@ -118,6 +131,7 @@ import gzip
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -154,6 +168,13 @@ FULL_BUDGETS = ["--exploration-budget-one", "5",
                 "--max-steps", "250"]
 # bench.py's frame stream: 128 frames folded in groups of 8
 BENCH_FRAMES, BENCH_GROUP = 128, 8
+# where utils/profiling.trace writes this script's traces
+TRACE_DIR = os.path.join("build", "chip_smoke", "traces")
+# the small episodes', heads', feature episodes', fleets' and learned
+# episode's runs on the CPU, left to the card's tests to keep the script
+# within its time limit
+ON_CPU = ("the same run on the CPU: tests/test_torch_gpu.py::"
+          "test_small_phases_on_card_equal_cpu")
 
 
 def check(cond, message: str) -> None:
@@ -198,22 +219,22 @@ def host_ms(fn, iters: int) -> float:
 def profiled_launches(fn, iters: int, flush: torch.Tensor,
                       kernel: str = "splat_onehot_kernel",
                       per_call: int = 1) -> dict:
-    """``kernel``'s device time per recorded launch in a torch.profiler
-    trace of ``iters`` calls of ``fn`` (cold L2, no launch latency), the
-    launches the trace recorded and those made (``per_call`` a call): a
-    trace can miss launches, so the time is never divided by the calls."""
-    from torch.profiler import ProfilerActivity, profile
+    """``kernel``'s device time per recorded launch in a trace
+    (``utils/profiling.trace``) of ``iters`` calls of ``fn`` (cold L2, no
+    launch latency), the launches the trace recorded and those made
+    (``per_call`` a call): a trace can miss launches, so the time is
+    never divided by the calls."""
+    from mass_tpu_torch.utils import profiling
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(os.path.join(TRACE_DIR, "launches")) as handle:
         for _ in range(iters):
             flush.zero_()
             fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel in e.key]
-    count = sum(e.count for e in hits)
-    total = sum(e.device_time_total for e in hits)
-    return dict(device_ms=total / 1e3 / max(count, 1),
-                profiled_launches=count, launches_made=iters * per_call)
+    durations = profiling.kernel_durations(
+        profiling.read_trace(handle.path), kernel)
+    return dict(device_ms=sum(durations) / 1e3 / max(len(durations), 1),
+                profiled_launches=len(durations),
+                launches_made=iters * per_call)
 
 
 def recorded(k: dict) -> str:
@@ -882,7 +903,11 @@ def check_launches(single: int, multi: int, updates: int,
               f"{single} kernel launches for {updates} map updates")
 
 
-def phase_small_episodes(compat: bool = False) -> dict:
+def phase_small_episodes(compat: bool = False, cpu: bool = True) -> dict:
+    """The small default (or compat) episode on the card and, with
+    ``cpu``, on the CPU: equal results and actions; one launch per map
+    update.  The script leaves the CPU half to ``tests/test_torch_gpu.py``
+    (within its time limit)."""
     from mass_tpu_torch.ops import splat as SP
 
     SP.LAUNCHES = SP.MULTI_LAUNCHES = 0
@@ -890,16 +915,19 @@ def phase_small_episodes(compat: bool = False) -> dict:
     gpu, gpu_actions = small_episode("cuda", compat)
     gpu_s = time.perf_counter() - t0
     single, multi = SP.LAUNCHES, SP.MULTI_LAUNCHES
-    t0 = time.perf_counter()
-    cpu, cpu_actions = small_episode("cpu", compat)
-    cpu_s = time.perf_counter() - t0
-    diff = {k: (gpu[k], cpu.get(k)) for k in gpu
-            if k != "timing" and gpu[k] != cpu.get(k)}
     updates = gpu["timing"]["mapping"]["count"]
-    check(not diff, f"cuda and cpu episodes differ: {diff}")
-    check(gpu_actions == cpu_actions, "cuda and cpu action sequences differ")
+    cpu_s = None
+    if cpu:
+        t0 = time.perf_counter()
+        cpu_run, cpu_actions = small_episode("cpu", compat)
+        cpu_s = time.perf_counter() - t0
+        diff = {k: (gpu[k], cpu_run.get(k)) for k in gpu
+                if k != "timing" and gpu[k] != cpu_run.get(k)}
+        check(not diff, f"cuda and cpu episodes differ: {diff}")
+        check(gpu_actions == cpu_actions,
+              "cuda and cpu action sequences differ")
     check_launches(single, multi, updates, compat)
-    return dict(results_equal=True, actions=len(gpu_actions),
+    return dict(results_equal=cpu, actions=len(gpu_actions),
                 action_list=gpu_actions, launches=single,
                 multi_launches=multi, map_updates=updates,
                 cuda_s=gpu_s, cpu_s=cpu_s,
@@ -979,10 +1007,11 @@ def phase_policy_goal(dev) -> dict:
     return out
 
 
-def phase_small_heads(head: str) -> dict:
-    """A small episode of the goal head on the card and on the CPU:
-    equal results and actions, and one launch per group splat (two a step
-    while a one-phase episode explores)."""
+def phase_small_heads(head: str, cpu: bool = True) -> dict:
+    """A small episode of the goal head on the card and, with ``cpu``, on
+    the CPU: equal results and actions, and one launch per group splat
+    (two a step while a one-phase episode explores).  The script leaves
+    the CPU half to ``tests/test_torch_gpu.py``."""
     from mass_tpu_torch.ops import splat as SP
 
     with SplatCounter() as counter:
@@ -994,15 +1023,17 @@ def phase_small_heads(head: str) -> dict:
     updates = gpu["timing"]["mapping"]["count"]
     counts = counter.check_sequential(single, multi, updates,
                                       head_fields(head)["one_phase"])
-    t0 = time.perf_counter()
-    cpu, cpu_actions = small_episode("cpu", head=head)
-    cpu_s = time.perf_counter() - t0
-    check(outcome(gpu) == outcome(cpu),
-          f"head {head}: cuda and cpu episodes differ: "
-          f"{outcome(gpu)} against {outcome(cpu)}")
-    check(gpu_actions == cpu_actions,
-          f"head {head}: cuda and cpu action sequences differ")
-    return dict(head=head, flags=HEAD_FLAGS[head], results_equal=True,
+    cpu_s = None
+    if cpu:
+        t0 = time.perf_counter()
+        cpu_run, cpu_actions = small_episode("cpu", head=head)
+        cpu_s = time.perf_counter() - t0
+        check(outcome(gpu) == outcome(cpu_run),
+              f"head {head}: cuda and cpu episodes differ: "
+              f"{outcome(gpu)} against {outcome(cpu_run)}")
+        check(gpu_actions == cpu_actions,
+              f"head {head}: cuda and cpu action sequences differ")
+    return dict(head=head, flags=HEAD_FLAGS[head], results_equal=cpu,
                 actions=len(gpu_actions), action_list=gpu_actions,
                 cuda_s=gpu_s, cpu_s=cpu_s, metrics=outcome(gpu),
                 timing=gpu["timing"], **counts)
@@ -1324,11 +1355,14 @@ def small_fleet(device: str, compat: bool, tasks, rng_seeds, head=None,
     return evaluator.run(), actions
 
 
-def phase_small_fleet(compat: bool, small: dict, head=None) -> dict:
+def phase_small_fleet(compat: bool, small: dict, head=None,
+                      cpu: bool = True) -> dict:
     """B = 2 small episodes (tasks 2 and 3, with ``head``'s goal head)
-    through the fleet on the card and on the CPU, each equal to the
-    sequential port agent: task 2 to the small-episode phase's run (the
-    same rng seed), task 3 to a sequential run on the card."""
+    through the fleet on the card and, with ``cpu``, on the CPU, each
+    equal to the sequential port agent: task 2 to the small-episode
+    phase's run (the same rng seed), task 3 to a sequential run on the
+    card.  The script leaves the CPU half to ``tests/test_torch_gpu.py``
+    (within its time limit)."""
     from mass_tpu_torch.ops import splat as SP
 
     tasks = (2, 3)
@@ -1342,23 +1376,24 @@ def phase_small_fleet(compat: bool, small: dict, head=None) -> dict:
         gpu_s = time.perf_counter() - t0
         counts = counter.check(SP.LAUNCHES, SP.MULTI_LAUNCHES, compat)
     t0 = time.perf_counter()
-    cpu, cpu_actions = small_fleet("cpu", compat, tasks, rng_seeds, head)
-    cpu_s = time.perf_counter() - t0
+    cpu_run = (small_fleet("cpu", compat, tasks, rng_seeds, head) if cpu
+               else (gpu, gpu_actions))
+    cpu_s = time.perf_counter() - t0 if cpu else None
     seq3, seq3_actions = small_episode("cuda", compat, seed=3,
                                        rng_seed=rng_seeds[1], head=head)
     want = [(small["metrics"], small["action_list"]),
             (outcome(seq3), seq3_actions)]
     for k, (task, (sequential, sequential_actions)) in enumerate(
             zip(tasks, want)):
-        check(outcome(gpu[k]) == outcome(cpu[k]) == sequential,
+        check(outcome(gpu[k]) == outcome(cpu_run[0][k]) == sequential,
               f"fleet task {task}: cuda, cpu and sequential results differ")
-        check(gpu_actions[k] == cpu_actions[k] == sequential_actions,
+        check(gpu_actions[k] == cpu_run[1][k] == sequential_actions,
               f"fleet task {task}: cuda, cpu and sequential actions differ")
     check(counts["episode_map_updates"] == [[
         small["map_updates"], seq3["timing"]["mapping"]["count"]]],
         f"fleet map updates {counts['episode_map_updates']} differ from "
         "the sequential episodes'")
-    return dict(tasks=tasks, rng_seeds=rng_seeds, results_equal=True,
+    return dict(tasks=tasks, rng_seeds=rng_seeds, results_equal=cpu,
                 actions=[len(a) for a in gpu_actions], cuda_s=gpu_s,
                 cpu_s=cpu_s, fleet_timing=gpu[0]["fleet_timing"], **counts)
 
@@ -1424,7 +1459,7 @@ def phase_full_fleet(size: int, compat: bool, sequential: dict,
                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
                 fleet_timing=written[0]["fleet_timing"],
                 prop_fixed=[m["unshuffle/prop_fixed"] for m in written],
-                **counts)
+                outcomes=[outcome(m) for m in written], **counts)
 
 
 # ----------------------------------------------------------------------
@@ -1807,11 +1842,12 @@ def fm_episode(device: str, task: int):
     return agent.run_task(task), actions
 
 
-def phase_small_features() -> dict:
+def phase_small_features(cpu: bool = True) -> dict:
     """Tasks 0 and 2 of the frozen feature-matching protocol on the card
-    and on the CPU (equal results and actions; task 0 also equal to the
-    committed record), each map update one single-map and one dense
-    launch (the phase's semantic and feature map)."""
+    and, with ``cpu``, on the CPU (equal results and actions; task 0 also
+    equal to the committed record), each map update one single-map and
+    one dense launch (the phase's semantic and feature map).  The script
+    leaves the CPU half to ``tests/test_torch_gpu.py``."""
     from mass_tpu_torch.ops import splat as SP
 
     with open(FM_RECORD) as f:
@@ -1829,21 +1865,23 @@ def phase_small_features() -> dict:
         check(single == dense == updates > 0 and multi == 0,
               f"task {task}: {single} single-map and {dense} dense launches"
               f" for {updates} map updates")
-        t0 = time.perf_counter()
-        cpu, cpu_actions = fm_episode("cpu", task)
-        cpu_s = time.perf_counter() - t0
-        check(outcome(gpu) == outcome(cpu),
-              f"fm task {task}: cuda and cpu episodes differ: "
-              f"{outcome(gpu)} against {outcome(cpu)}")
-        check(gpu_actions == cpu_actions,
-              f"fm task {task}: cuda and cpu action sequences differ")
+        cpu_s = None
+        if cpu:
+            t0 = time.perf_counter()
+            cpu_run, cpu_actions = fm_episode("cpu", task)
+            cpu_s = time.perf_counter() - t0
+            check(outcome(gpu) == outcome(cpu_run),
+                  f"fm task {task}: cuda and cpu episodes differ: "
+                  f"{outcome(gpu)} against {outcome(cpu_run)}")
+            check(gpu_actions == cpu_actions,
+                  f"fm task {task}: cuda and cpu action sequences differ")
         equals_record = None
         if task == 0:
             drift = {k: (record[k], gpu.get(k)) for k in record
                      if k != "timing" and gpu.get(k) != record[k]}
             check(not drift, f"fm task 0 differs from {FM_RECORD}: {drift}")
             equals_record = True
-        out[task] = dict(results_equal=True, actions=len(gpu_actions),
+        out[task] = dict(results_equal=cpu, actions=len(gpu_actions),
                          action_list=gpu_actions, launches=single,
                          dense_launches=dense, map_updates=updates,
                          cuda_s=gpu_s, cpu_s=cpu_s,
@@ -1896,11 +1934,12 @@ def phase_full_features() -> dict:
                 metrics=outcome(results))
 
 
-def phase_small_feature_fleet(small: dict) -> dict:
+def phase_small_feature_fleet(small: dict, cpu: bool = True) -> dict:
     """Tasks 0 and 2 of the protocol as one B = 2 fleet (rng seed 0 each,
-    as the sequential CLI runs them) on the card and on the CPU: each
-    episode equal to the sequential small feature episode; one dense
-    launch per dense family updated."""
+    as the sequential CLI runs them) on the card and, with ``cpu``, on
+    the CPU: each episode equal to the sequential small feature episode;
+    one dense launch per dense family updated.  The script leaves the CPU
+    half to ``tests/test_torch_gpu.py``."""
     from mass_tpu_torch.agent import cli
     from mass_tpu_torch.ops import splat as SP
     from mass_tpu_torch.parallel.evaluator import FleetEvaluator
@@ -1925,17 +1964,17 @@ def phase_small_feature_fleet(small: dict) -> dict:
         counts = counter.check(SP.LAUNCHES, SP.MULTI_LAUNCHES, False)
         counts.update(dense.check(SP.DENSE_LAUNCHES, True))
     t0 = time.perf_counter()
-    cpu, cpu_actions = fleet("cpu")
-    cpu_s = time.perf_counter() - t0
+    cpu_run = fleet("cpu") if cpu else (gpu, gpu_actions)
+    cpu_s = time.perf_counter() - t0 if cpu else None
     for k, task in enumerate(FM_TASKS):
         want = small[task]
-        check(outcome(gpu[k]) == outcome(cpu[k]) == want["metrics"],
+        check(outcome(gpu[k]) == outcome(cpu_run[0][k]) == want["metrics"],
               f"feature fleet task {task}: cuda, cpu and sequential results "
               "differ")
-        check(gpu_actions[k] == cpu_actions[k] == want["action_list"],
+        check(gpu_actions[k] == cpu_run[1][k] == want["action_list"],
               f"feature fleet task {task}: cuda, cpu and sequential actions "
               "differ")
-    return dict(tasks=FM_TASKS, results_equal=True,
+    return dict(tasks=FM_TASKS, results_equal=cpu,
                 actions=[len(a) for a in gpu_actions], cuda_s=gpu_s,
                 cpu_s=cpu_s, fleet_timing=gpu[0]["fleet_timing"], **counts)
 
@@ -2217,6 +2256,42 @@ def phase_nms(dev) -> dict:
     return out
 
 
+def phase_profiler(dev, sessions: int = 6) -> dict:
+    """Whether a profiler session records every launch here, in a process
+    that has run the phases above: 20 launches each of the RPN's NMS and
+    of two kernels of a few lines outside the port
+    (``profile_trace.TOY_SOURCE``, launched as NMS is, with and without
+    clusters), an L2 flush before each, in ``sessions`` plain
+    torch.profiler sessions (CPU and CUDA activity, counted in the
+    exported trace) and in as many ``utils/profiling.trace`` sessions
+    (their warm-up primed).  A plain session can lose its first launches
+    (every second one, in a process that has loaded many kernels); NMS
+    must lose no more than the kernels outside the port do, give or take
+    one session's launches."""
+    from mass_tpu_torch import profile_trace as PT
+    from mass_tpu_torch.profile_nms import problems
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    subjects = {"nms_kernel": PT.nms_call(
+        dev, problems(np.random.RandomState(0))["rpn_b1"]), **PT.toys(dev)}
+    out = {}
+    for name, fn in subjects.items():
+        fn()
+        torch.cuda.synchronize()
+        ways = PT.ways(fn, flush)
+        out[name] = {way: [ways[way](name) for _ in range(sessions)]
+                     for way in ("cuda+cpu/json", "trace")}
+    del flush
+    lost = {name: sessions * PT.ITERS - sum(got["cuda+cpu/json"])
+            for name, got in out.items()}
+    check(lost["nms_kernel"] <= PT.ITERS + max(
+        lost["toy_kernel"], lost["toy_cluster_kernel"]),
+        f"plain profiler sessions lost {lost} launches: NMS more than the "
+        "kernels outside the port")
+    return dict(launches=PT.ITERS, sessions=sessions, recorded=out,
+                lost=lost)
+
+
 def load_full_detector(dev):
     """The full-width random Mask R-CNN of :data:`DETECTOR` (written on
     first use): ``(model on dev, model on the CPU)``."""
@@ -2337,10 +2412,11 @@ def small_learned_episode(device: str, seed: int = 2, rng_seed: int = 0):
     return agent.run_task(0), actions
 
 
-def phase_small_learned() -> dict:
-    """The small learned episode on the card and on the CPU: equal results
-    and actions; one single-map launch per map update, two NMS launches
-    per sensor call."""
+def phase_small_learned(cpu: bool = True) -> dict:
+    """The small learned episode on the card and, with ``cpu``, on the
+    CPU: equal results and actions; one single-map launch per map update,
+    two NMS launches per sensor call.  The script leaves the CPU half to
+    ``tests/test_torch_gpu.py``."""
     from mass_tpu_torch.ops import detection as D
     from mass_tpu_torch.ops import splat as SP
 
@@ -2354,15 +2430,18 @@ def phase_small_learned() -> dict:
         counts = sensor.check(nms, batch=1)
     updates = gpu["timing"]["mapping"]["count"]
     check_launches(single, multi, updates, False)
-    t0 = time.perf_counter()
-    cpu, cpu_actions = small_learned_episode("cpu")
-    cpu_s = time.perf_counter() - t0
-    check(outcome(gpu) == outcome(cpu),
-          f"learned: cuda and cpu episodes differ: {outcome(gpu)} against "
-          f"{outcome(cpu)}")
-    check(gpu_actions == cpu_actions,
-          "learned: cuda and cpu action sequences differ")
-    return dict(results_equal=True, actions=len(gpu_actions),
+    if cpu:
+        t0 = time.perf_counter()
+        cpu_run, cpu_actions = small_learned_episode("cpu")
+        cpu_s = time.perf_counter() - t0
+        check(outcome(gpu) == outcome(cpu_run),
+              f"learned: cuda and cpu episodes differ: {outcome(gpu)} "
+              f"against {outcome(cpu_run)}")
+        check(gpu_actions == cpu_actions,
+              "learned: cuda and cpu action sequences differ")
+    else:
+        cpu_s = None
+    return dict(results_equal=cpu, actions=len(gpu_actions),
                 cuda_s=gpu_s, cpu_s=cpu_s, launches=single,
                 multi_launches=multi, map_updates=updates,
                 metrics=outcome(gpu), **counts)
@@ -3993,6 +4072,214 @@ def phase_data_parallel(dev) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# traces of the main path, the learned sensor and the fleet
+# (utils/profiling.trace)
+# ----------------------------------------------------------------------
+
+# the traced windows past the runs' start-up, (first, count): sensor calls
+# of the full-width learned episode (347 in all), ticks of the B = 4
+# full-width default fleet (509)
+TRACE_SENSOR_CALLS = (100, 40)
+TRACE_FLEET_TICKS = (100, 10)
+# the port's launch counters, by the kernel each counts
+COUNTERS = ("single", "multi", "frames", "dense", "nms")
+
+
+def launch_counts() -> dict:
+    from mass_tpu_torch.ops import detection as D
+    from mass_tpu_torch.ops import splat as SP
+
+    return dict(single=SP.LAUNCHES, multi=SP.MULTI_LAUNCHES,
+                frames=SP.FRAMES_LAUNCHES, dense=SP.DENSE_LAUNCHES,
+                nms=D.LAUNCHES)
+
+
+def traced_launches(trace: dict) -> dict:
+    """A trace's kernel events by the counter their launch adds to: the
+    one-hot splat by its template's maps and frames flag, the dense
+    splat, NMS."""
+    out = dict.fromkeys(COUNTERS, 0)
+    for e in trace["traceEvents"]:
+        if e.get("ph") != "X" or e.get("cat") != "kernel":
+            continue
+        name = e["name"]
+        if "splat_onehot_kernel" in name:
+            m = re.search(r"splat_onehot_kernel<(\d+),.*?(true|false)>", name)
+            check(m is not None, f"no template arguments in {name!r}")
+            key = ("frames" if m.group(2) == "true" else
+                   "single" if m.group(1) == "1" else "multi")
+        elif "splat_dense_kernel" in name:
+            key = "dense"
+        elif "nms_kernel" in name:
+            key = "nms"
+        else:
+            continue
+        out[key] += 1
+    return out
+
+
+def trace_window(name: str, handle, before: dict, after: dict,
+                 traced_s: float, export_s: float) -> dict:
+    """Read a window's trace: its kernel launches must equal the port's
+    counters over the window; the card's busy share, top operations and
+    idle gaps (``utils/profiling.device_summary``)."""
+    from mass_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    trace = profiling.read_trace(handle.path)
+    counted = {k: after[k] - before[k] for k in COUNTERS}
+    got = traced_launches(trace)
+    check(got == counted, f"[trace] {name}: the trace holds {got} kernel "
+          f"launches where the counters made {counted}")
+    return dict(path=handle.path, bytes=os.path.getsize(handle.path),
+                events=len(trace["traceEvents"]), launches=counted,
+                traced_s=traced_s, export_s=export_s,
+                read_s=time.perf_counter() - t0,
+                **profiling.device_summary(trace))
+
+
+def traced_episode(untraced: dict) -> dict:
+    """The full-width default episode through the CLI, whole, under
+    ``utils/profiling.trace``: its outcome must be the untraced
+    episode's."""
+    from mass_tpu_torch.agent import cli
+    from mass_tpu_torch.utils import profiling
+
+    logdir = os.path.join(TRACE_DIR, "episode")
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    with profiling.trace(logdir) as handle:
+        cli.main(full_args(False) + FULL_BUDGETS + ["--logdir", logdir])
+        t1 = time.perf_counter()
+    t2 = time.perf_counter()
+    after = launch_counts()
+    with open(os.path.join(logdir, "results", "2.json")) as f:
+        check(outcome(json.load(f)) == untraced["metrics"],
+              "the traced episode's outcome differs from the untraced one's")
+    out = trace_window("episode", handle, before, after, t1 - t0, t2 - t1)
+    return dict(out, untraced_s=untraced["wall_s"], outcome_equal=True,
+                untraced_busy_share=out["busy_us"] / 1e6 / untraced["wall_s"])
+
+
+class CallWindow:
+    """Traces calls ``[first, first + count)`` of the method
+    ``owner.name`` made in the block, reading the launch counters at the
+    window's ends."""
+
+    def __init__(self, owner, name: str, logdir: str, first: int,
+                 count: int):
+        self.owner, self.name, self.logdir = owner, name, logdir
+        self.first, self.count = first, count
+
+    def __enter__(self):
+        from mass_tpu_torch.utils import profiling
+
+        self._method = getattr(self.owner, self.name)
+        self._stack = contextlib.ExitStack()
+        self.calls = 0
+
+        def call(*args, **kwargs):
+            if self.calls == self.first:
+                self.before = launch_counts()
+                self.t0 = time.perf_counter()
+                self.handle = self._stack.enter_context(
+                    profiling.trace(self.logdir))
+            out = self._method(*args, **kwargs)
+            self.calls += 1
+            if self.calls == self.first + self.count:
+                self.t1 = time.perf_counter()
+                self._stack.close()
+                self.t2 = time.perf_counter()
+                self.after = launch_counts()
+            return out
+        setattr(self.owner, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self._method)
+        self._stack.close()
+
+
+def traced_calls(name: str, argv: list, want: list, owner, method: str,
+                 first: int, count: int) -> dict:
+    """``argv`` through the CLI again (``--logdir`` last), calls ``[first,
+    first + count)`` of ``owner.method`` traced: the outcome of each task
+    from 2 on must be ``want``'s, the untraced run's."""
+    from mass_tpu_torch.agent import cli
+
+    logdir = os.path.join(TRACE_DIR, name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with CallWindow(owner, method, os.path.join(logdir, "trace"), first,
+                    count) as window:
+        cli.main(argv[:-2] + ["--logdir", logdir])
+    check(window.calls >= first + count, f"the {name} run made "
+          f"{window.calls} {method} calls, fewer than the window")
+    for k, outcome_k in enumerate(want):
+        with open(os.path.join(logdir, "results", f"{2 + k}.json")) as f:
+            check(outcome(json.load(f)) == outcome_k, f"the traced {name} "
+                  f"run's task {2 + k} differs from the untraced run's")
+    return dict(trace_window(name, window.handle, window.before,
+                             window.after, window.t1 - window.t0,
+                             window.t2 - window.t1),
+                window=[method, first, first + count], calls=window.calls,
+                outcome_equal=True)
+
+
+def phase_trace(full: dict, learned: dict, fleet: dict) -> dict:
+    """Three windows under ``utils/profiling.trace``: the full-width
+    default episode, whole; sensor calls :data:`TRACE_SENSOR_CALLS` of
+    the full-width learned episode; and ticks :data:`TRACE_FLEET_TICKS`
+    of the B = 4 full-width default fleet."""
+    from mass_tpu_torch.parallel.evaluator import FleetEvaluator
+    from mass_tpu_torch.perception.segmentation import DetectorSegmentation
+
+    return {
+        "episode": traced_episode(full),
+        "learned": traced_calls(
+            "learned", full_args(True) + FULL_BUDGETS + ["--logdir", ""],
+            [learned["metrics"]], DetectorSegmentation, "semantic",
+            *TRACE_SENSOR_CALLS),
+        "fleet": traced_calls("fleet", fleet["argv"], fleet["outcomes"],
+                              FleetEvaluator, "tick", *TRACE_FLEET_TICKS)}
+
+
+def print_trace(windows: dict) -> None:
+    for name, w in windows.items():
+        tag = f"trace {name}"
+        where = (f"the whole episode, {w['traced_s']:.1f} s traced against "
+                 f"{w['untraced_s']:.1f} s untraced" if "untraced_s" in w
+                 else f"{w['window'][0]} calls {w['window'][1]}-"
+                 f"{w['window'][2] - 1} of {w['calls']}, "
+                 f"{w['traced_s']:.1f} s traced")
+        print(f"[{tag}] {where}; {w['events']} events, "
+              f"{w['bytes'] / 2**20:.1f} MiB gzipped, export "
+              f"{w['export_s']:.1f} s, read {w['read_s']:.1f} s; outcome "
+              f"equal to the untraced run: {w['outcome_equal']}")
+        print(f"[{tag}] kernel launches in the trace equal the port's "
+              f"counters: {json.dumps(w['launches'])}")
+        print(f"[{tag}] the card busy {100 * w['busy_share']:.3f}% of the "
+              f"traced {w['span_us'] / 1e6:.3f} s ({w['device_events']} "
+              f"kernels, copies and memsets)"
+              + (f"; its device time is {100 * w['untraced_busy_share']:.3f}"
+                 "% of the untraced wall" if "untraced_busy_share" in w
+                 else ""))
+        for k, op in enumerate(w["top"]):
+            print(f"[{tag}] top {k + 1}: {op['total_us'] / 1e3:.2f} ms "
+                  f"({100 * op['share']:.3f}%), {op['count']}x "
+                  f"{op['name'][:100]}")
+        for k, gap in enumerate(w["gaps"]):
+            host = gap["host"]
+            print(f"[{tag}] idle {k + 1}: {gap['length_us'] / 1e3:.2f} ms "
+                  f"at {gap['start_us'] / 1e6:.3f} s, the host in "
+                  + (f"{host['name'][:80]} ({host['cat']}, "
+                     f"{host['overlap_us'] / 1e3:.2f} ms of it)"
+                     if host else "Python (no op)"))
+
+
 def kernel_line(name: str, replaces: str, launches: int,
                 phase: dict) -> dict:
     from mass_tpu_torch.ops import splat as SP
@@ -4219,13 +4506,13 @@ def main() -> int:
           f"vs one {bb['batch_of_two_max_abs_diff']:.3g}")
 
     for compat in (False, True):
-        small = phase_small_episodes(compat)
+        small = phase_small_episodes(compat, cpu=False)
         tag = "compat 80x80x24" if compat else "episode 80x80x24"
         report["small_compat_episodes" if compat else "small_episodes"] = \
             small
-        print(f"[{tag}] cuda {small['cuda_s']:.1f} s, cpu "
-              f"{small['cpu_s']:.1f} s, {small['actions']} actions, results"
-              f" equal; launches splat_onehot {small['launches']}, "
+        print(f"[{tag}] cuda {small['cuda_s']:.1f} s, {small['actions']} "
+              f"actions ({ON_CPU}); launches splat_onehot "
+              f"{small['launches']}, "
               f"splat_onehot_multi {small['multi_launches']}, for "
               f"{small['map_updates']} map updates")
 
@@ -4256,13 +4543,13 @@ def main() -> int:
           f"MapSet.update_group calls of the same frames")
     for flag, key in ((False, "small_episodes"),
                       (True, "small_compat_episodes")):
-        small = phase_small_fleet(flag, report[key])
+        small = phase_small_fleet(flag, report[key], cpu=False)
         report[f"fleet_{key}"] = small
         print(f"[fleet 80x80x24] {'compat' if flag else 'default'}, B=2 "
               f"(tasks {small['tasks']}, rng seeds {small['rng_seeds']}): "
-              f"cuda {small['cuda_s']:.1f} s, cpu {small['cpu_s']:.1f} s, "
-              f"{small['actions']} actions; cuda == cpu == the sequential "
-              f"agent per episode; launches splat_onehot {small['launches']}"
+              f"cuda {small['cuda_s']:.1f} s, {small['actions']} actions; "
+              f"cuda == the sequential agent per episode ({ON_CPU}); "
+              f"launches splat_onehot {small['launches']}"
               f", splat_onehot_multi {small['multi_launches']} for "
               f"{small['group_splats']} group splats, "
               f"{small['map_updates']} episode map updates")
@@ -4303,11 +4590,11 @@ def main() -> int:
               f"{g['inhibition']}) {g['policy_goal_ms']:.3f} ms")
     heads = {}
     for head in HEAD_FLAGS:
-        small = heads[head] = phase_small_heads(head)
+        small = heads[head] = phase_small_heads(head, cpu=False)
         report[f"small_heads_{head}"] = small
         print(f"[heads 80x80x24] {head} ({' '.join(HEAD_FLAGS[head])}): cuda"
-              f" {small['cuda_s']:.1f} s, cpu {small['cpu_s']:.1f} s, "
-              f"{small['actions']} actions, results equal; launches "
+              f" {small['cuda_s']:.1f} s, {small['actions']} actions "
+              f"({ON_CPU}); launches "
               f"splat_onehot {small['launches']}, splat_onehot_multi "
               f"{small['multi_launches']} for {small['group_splats']} group "
               f"splats: {small['map_updates']} map updates + "
@@ -4319,12 +4606,12 @@ def main() -> int:
         report[f"full_heads_{head}"] = full_head
         print_episode(f"heads 384x384x96x54 {head}", full_head)
     for head in HEAD_FLAGS:
-        small = phase_small_fleet(False, heads[head], head)
+        small = phase_small_fleet(False, heads[head], head, cpu=False)
         report[f"fleet_small_heads_{head}"] = small
         print(f"[fleet heads] {head}, B=2 (tasks {small['tasks']}): cuda "
-              f"{small['cuda_s']:.1f} s, cpu {small['cpu_s']:.1f} s, "
-              f"{small['actions']} actions; cuda == cpu == the sequential "
-              f"agent per episode; launches splat_onehot "
+              f"{small['cuda_s']:.1f} s, {small['actions']} actions; cuda "
+              f"== the sequential agent per episode ({ON_CPU}); launches "
+              f"splat_onehot "
               f"{small['launches']}, splat_onehot_multi "
               f"{small['multi_launches']} for {small['group_splats']} group "
               f"splats, {small['map_updates']} episode map updates")
@@ -4343,11 +4630,12 @@ def main() -> int:
           f"{fleet['map_updates']} episode map updates")
     print(f"[{tag}] fleet_timing {json.dumps(fleet['fleet_timing'])}")
 
-    small_features = report["small_features"] = phase_small_features()
+    small_features = report["small_features"] = phase_small_features(
+        cpu=False)
     for task, small in small_features.items():
         print(f"[features 80x80x24] fm protocol task {task}: cuda "
-              f"{small['cuda_s']:.1f} s, cpu {small['cpu_s']:.1f} s, "
-              f"{small['actions']} actions, results equal"
+              f"{small['cuda_s']:.1f} s, {small['actions']} actions "
+              f"({ON_CPU})"
               + (", equal to the committed record"
                  if small["equals_committed_record"] else "")
               + f"; launches splat_onehot {small['launches']}, splat_dense "
@@ -4367,11 +4655,11 @@ def main() -> int:
           f"{ms['semantic_update_mean_ms']:.2f} ms a step (host clock, card "
           f"synced)")
     small = report["fleet_small_features"] = phase_small_feature_fleet(
-        small_features)
+        small_features, cpu=False)
     print(f"[fleet features] fm protocol tasks {small['tasks']}, B=2: cuda "
-          f"{small['cuda_s']:.1f} s, cpu {small['cpu_s']:.1f} s, "
-          f"{small['actions']} actions; cuda == cpu == the sequential agent "
-          f"per episode; launches splat_onehot {small['launches']}, "
+          f"{small['cuda_s']:.1f} s, {small['actions']} actions; cuda == the "
+          f"sequential agent per episode ({ON_CPU}); launches splat_onehot "
+          f"{small['launches']}, "
           f"splat_dense {small['dense_launches']} for "
           f"{small['group_splats']} group splats, {small['map_updates']} "
           f"episode map updates")
@@ -4393,6 +4681,12 @@ def main() -> int:
 
     nms = report["nms"] = phase_nms(dev)
     print_nms(nms)
+    prof = report["profiler"] = phase_profiler(dev)
+    for name, ways in prof["recorded"].items():
+        print(f"[profiler] {name}: of {prof['launches']} launches, plain "
+              f"sessions recorded {ways['cuda+cpu/json']} (lost "
+              f"{prof['lost'][name]} in all), utils/profiling.trace "
+              f"{ways['trace']}")
     det = report["detector"] = phase_detector(dev)
     for batch in (1, 2):
         d = det[f"b{batch}"]
@@ -4413,10 +4707,10 @@ def main() -> int:
               f"{d['flops_bound_ms']:.2f} ms at 67 TFLOP/s fp32")
     print(f"[detector] load and first call {det['load_and_first_call_ms']:.0f}"
           f" ms")
-    small = report["small_learned"] = phase_small_learned()
-    print(f"[learned 80x80x24] cuda {small['cuda_s']:.1f} s, cpu "
-          f"{small['cpu_s']:.1f} s, {small['actions']} actions, results "
-          f"equal; launches splat_onehot {small['launches']} for "
+    small = report["small_learned"] = phase_small_learned(cpu=False)
+    print(f"[learned 80x80x24] cuda {small['cuda_s']:.1f} s, "
+          f"{small['actions']} actions ({ON_CPU}); launches splat_onehot "
+          f"{small['launches']} for "
           f"{small['map_updates']} map updates, nms {small['nms_launches']} "
           f"for {small['sensor_calls']} sensor calls; fused non-zero pixels "
           f"{small['fused_pixels_min']}-{small['fused_pixels_max']} a frame "
@@ -4446,6 +4740,13 @@ def main() -> int:
           f"nms {fleet['nms_launches']} for {fleet['sensor_calls']} sensor "
           f"calls of 2 frames ({fleet['sensor_mean_ms']:.2f} ms each)")
     print(f"[{tag}] fleet_timing {json.dumps(fleet['fleet_timing'])}")
+
+    trace_start = time.perf_counter()
+    traces = report["trace"] = phase_trace(full, learned,
+                                           report["full_fleet"])
+    print_trace(traces)
+    report["trace_s"] = time.perf_counter() - trace_start
+    print(f"[trace] the three traced windows took {report['trace_s']:.1f} s")
 
     training_start = time.perf_counter()
     data = report["search_data"] = phase_search_data()

@@ -1112,3 +1112,79 @@ def test_replay_digest_on_card_equals_cpu(cuda, tmp_path):
     card = R.replay_digest(path, flags + ["--device", "cuda"])
     assert SP.LAUNCHES == 2 * card["frames"] == 24
     assert card == R.replay_digest(path, flags + ["--device", "cpu"])
+
+
+# ----------------------------------------------------------------------
+# utils/profiling: block and trace on the card
+# ----------------------------------------------------------------------
+
+def test_block_waits_for_the_card(cuda):
+    """``block`` returns only once the work on its tensors' card is done:
+    after a sleep of about 10 ms on the current stream, the stream is
+    idle."""
+    from mass_tpu_torch.utils import profiling
+
+    x = torch.zeros(4, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)          # cycles: about 10 ms
+    x += 1
+    assert not torch.cuda.current_stream().query()
+    assert profiling.block({"maps": [x], "host": (torch.zeros(2),)}) is None
+    assert torch.cuda.current_stream().query()
+
+
+def test_trace_records_every_launch(cuda, tmp_path):
+    """A trace on the card holds one kernel event per launch the wrappers
+    count: 20 single-map splats and 20 NMS launches of the chosen streams
+    in one padded batch (19 problems of 1,024 boxes, whose shared memory
+    limit is raised at every launch), back to back."""
+    from mass_tpu_torch.ops import detection as D
+    from mass_tpu_torch.utils import profiling
+
+    data, _, runs = _sorted(cuda)
+    gpu = data.to(cuda)
+    boxes, scores, _, outputs = TS.nms_batch(sorted(TS.NMS_STREAMS), seed=3)
+    boxes, scores = torch.from_numpy(boxes).to(cuda), \
+        torch.from_numpy(scores).to(cuda)
+    splats, nms = SP.LAUNCHES, D.LAUNCHES
+    with profiling.trace(str(tmp_path)) as handle:
+        assert handle.cuda
+        for _ in range(20):
+            SP.apply_records(gpu, runs, 0.5)
+            D.nms(boxes, scores, 0.5, outputs)
+    assert (SP.LAUNCHES - splats, D.LAUNCHES - nms) == (20, 20)
+    trace = profiling.read_trace(handle.path)
+    assert len(profiling.kernel_durations(trace, "splat_onehot_kernel")) \
+        == 20
+    assert len(profiling.kernel_durations(trace, "nms_kernel")) == 20
+    assert profiling.device_summary(trace)["busy_share"] > 0
+
+
+# ----------------------------------------------------------------------
+# the CPU halves chip_smoke.py leaves to this file
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("phase", ["fleet default", "fleet compat",
+                                   "fleet A", "fleet B", "fleet C",
+                                   "fleet features", "learned"])
+def test_small_phases_on_card_equal_cpu(cuda, phase, monkeypatch):
+    """``chip_smoke.py``'s small episodes (default, compat, each goal
+    head's, the feature-matching protocol's tasks 0 and 2), its small
+    fleets of each (B = 2) and its small learned episode, run on the card
+    and on the CPU by the script's own phase functions: results and
+    actions equal, each fleet's equal to the sequential agent's (the
+    script runs only the card's half, to stay within its time limit)."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke as C
+
+    if phase == "learned":
+        out = C.phase_small_learned()
+    elif phase == "fleet features":
+        out = C.phase_small_feature_fleet(C.phase_small_features())
+    elif phase in ("fleet default", "fleet compat"):
+        compat = phase == "fleet compat"
+        out = C.phase_small_fleet(compat, C.phase_small_episodes(compat))
+    else:
+        head = phase.split()[1]
+        out = C.phase_small_fleet(False, C.phase_small_heads(head), head)
+    assert out["results_equal"] and out["cpu_s"] > 0

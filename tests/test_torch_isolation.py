@@ -183,6 +183,11 @@ SCRIPT = textwrap.dedent("""
                   training.data_devices, training.largest_divisor,
                   maskrcnn_train.frame_losses):
         assert callable(entry), entry
+    from mass_tpu_torch.utils import profiling
+    assert "mass_tpu_torch.utils.profiling" in names
+    for entry in (profiling.trace, profiling.block, profiling.read_trace,
+                  profiling.kernel_durations, profiling.device_summary):
+        assert callable(entry), entry
     cpu4 = mesh.make_mesh((4,), ("map",), ["cpu"] * 4)
     assert sharding.ShardedVoxelMap.create(
         MapGeometry(map_height=8, map_width=4, map_depth=2),
