@@ -16,8 +16,9 @@ bench.py's 128-frame stream in groups of 8, and on 8 frames of a wall
 the ``--reference-compat`` two-phase episodes
 on the card at a small geometry (the same runs on the CPU, which must
 give equal results, are left to ``tests/test_torch_gpu.py``, as are
-those of the small head, feature and learned episodes and of every
-small fleet: the script stays within its time limit), then both
+those of the small head, feature and learned episodes, of every small
+fleet, of the small tooling runs and of the small sharded episode: the
+script stays within its time limit), then both
 episodes at full width (384x384x96 voxels x 54 classes, 224x224 camera)
 through ``python -m mass_tpu_torch.agent.cli``'s entry point, with the
 kernels' launch counts set to 0 before each path and read after it.
@@ -54,7 +55,9 @@ eight, the class-aware NMS) and on the chosen streams of
 ``tests/torch_streams.py``; whether a profiler session records every
 launch in this process (``[profiler]``: 20 launches of NMS and of two
 kernels of a few lines outside the port, plain torch.profiler sessions
-against ``utils/profiling.trace``); the full-width Mask R-CNN (224x224, 54
+against ``utils/profiling.trace``; on each plain session's trace
+``utils/profiling.unrecorded_launches`` must count every launch the
+session lost); the full-width Mask R-CNN (224x224, 54
 classes, random detectron2-layout weights written from a seed to
 ``build/chip_smoke/maskrcnn-rand.pth``) on one frame and on two, the card
 against the CPU by the margin rule of ``tests/torch_margins.py``, with
@@ -62,13 +65,22 @@ ms a frame by stage; a small learned episode on the card; the full-width
 learned episode through the CLI
 (``--detector-checkpoint``), and a ``--fleet-size 2 --seed -2`` learned
 fleet whose task 2 must equal it.  Then traces (``utils/profiling.trace``,
-``[trace]``): the full-width default and learned episodes, each whole,
-and ticks 100-109 of the B = 4 full-width default fleet, run again under
-the profiler: each window's kernel events (``splat_onehot_kernel`` by its
-template, ``splat_dense_kernel``, ``nms_kernel``) must equal the port's
-launch counters over it and each outcome the untraced run's; it prints
-the card's busy share, its top ten operations and its three longest
-idle gaps with the host op beside each.  Then training: the search-data
+``[trace]``): steps 100-179 of the full-width default episode, sensor
+calls 100-139 of the full-width learned episode and ticks 100-109 of the
+B = 4 full-width default fleet, each run again through the CLI with the
+window under the profiler and stopped once the window has closed: every
+launch of a window must have its device record (a window that lost one
+is run again, three tries in all), its kernel events
+(``splat_onehot_kernel`` by its template, ``splat_dense_kernel``,
+``nms_kernel``) must equal the port's launch counters over it, and its
+calls (each step's pose, each sensor call's classes, each tick's
+episode phases, map updates and positions) those of the same calls in
+the untraced run; it prints the
+window's launches, unrecorded launches and tries, the launch check's
+cost beside the export's, the card's busy share, its top ten operations
+and its three longest idle gaps with the host op beside each.  Every
+``profiled_launches`` window prints its launches, unrecorded launches
+and tries likewise.  Then training: the search-data
 collector (``python -m mass_tpu_torch.search.dataset``) over tasks 0-7
 at its defaults on the card, task 0 again on the CPU (equal cells and
 counts, snapshots within one float16 ulp), every frame one group splat
@@ -90,8 +102,9 @@ launches it makes count into the ``nms`` entry), ``--eval-only`` with
 and without ``--tta``, and its ``maskrcnn.pth`` through a small
 ``--detector-checkpoint`` episode.  Then the tooling: the small default
 episode with ``--videos --snapshot-maps`` and the compat episode (the
-multi-map kernel) with both on the card and on the CPU (equal results,
-frames within one level, npz bit-equal, the mp4 decoded back), a
+multi-map kernel) with ``--snapshot-maps`` on the card (the mp4 decoded
+back; the CPU's equal results, frames within one level and bit-equal npz
+files are checked by ``tests/test_torch_gpu.py``), a
 ``--fleet-size 2 --snapshot-maps`` run whose npz files equal the
 sequential runs' and whose results carry ``task_id``; the full-width
 default episode with ``--videos --snapshot-maps`` (the outcome without
@@ -108,8 +121,9 @@ machine has them and on ``cuda:0`` repeated where it has one: the room
 frame into a 384x384x96x54 map cut into 2 and 4 row slabs (one launch a
 slab, bit-equal to the unsharded map, the slab launches timed together)
 and the dense splat into a 384x384x96x256 map in 2 slabs (bit-equal);
-the small default episode in 4 slabs on the card and the CPU (equal to
-the unsharded episode); the full-width default episode in 2 slabs (its
+the small default episode in 4 slabs on the card (equal to the
+unsharded episode; the CPU's run is left to ``tests/test_torch_gpu.py``);
+the full-width default episode in 2 slabs (its
 outcome that of the unsharded one, two launches a map update); a B = 3
 small fleet in 4 slabs against the unsharded fleet; and the
 data-parallel trainers on 2 replicas (the policy fit, the UNet step and
@@ -129,6 +143,7 @@ import dataclasses
 import gc
 import gzip
 import io
+import itertools
 import json
 import os
 import re
@@ -136,6 +151,7 @@ import shutil
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -170,9 +186,9 @@ FULL_BUDGETS = ["--exploration-budget-one", "5",
 BENCH_FRAMES, BENCH_GROUP = 128, 8
 # where utils/profiling.trace writes this script's traces
 TRACE_DIR = os.path.join("build", "chip_smoke", "traces")
-# the small episodes', heads', feature episodes', fleets' and learned
-# episode's runs on the CPU, left to the card's tests to keep the script
-# within its time limit
+# the small episodes', heads', feature episodes', fleets', learned
+# episode's, tooling runs' and sharded episode's runs on the CPU, left to
+# the card's tests to keep the script within its time limit
 ON_CPU = ("the same run on the CPU: tests/test_torch_gpu.py::"
           "test_small_phases_on_card_equal_cpu")
 
@@ -219,28 +235,38 @@ def host_ms(fn, iters: int) -> float:
 def profiled_launches(fn, iters: int, flush: torch.Tensor,
                       kernel: str = "splat_onehot_kernel",
                       per_call: int = 1) -> dict:
-    """``kernel``'s device time per recorded launch in a trace
-    (``utils/profiling.trace``) of ``iters`` calls of ``fn`` (cold L2, no
-    launch latency), the launches the trace recorded and those made
-    (``per_call`` a call): a trace can miss launches, so the time is
-    never divided by the calls."""
+    """``kernel``'s device time per launch in a trace
+    (``utils/profiling.trace``, run again where it lost a launch) of
+    ``iters`` calls of ``fn`` (cold L2, no launch latency): the kernel's
+    launches recorded must be those made (``per_call`` a call); the
+    trace's launches, unrecorded launches (0) and tries."""
     from mass_tpu_torch.utils import profiling
 
-    with profiling.trace(os.path.join(TRACE_DIR, "launches")) as handle:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-    durations = profiling.kernel_durations(
-        profiling.read_trace(handle.path), kernel)
-    return dict(device_ms=sum(durations) / 1e3 / max(len(durations), 1),
+    def window():
+        with profiling.trace(os.path.join(TRACE_DIR, "launches")) as handle:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+        return handle
+    handle, tries = profiling.retried(window)
+    durations = profiling.kernel_durations(handle.data, kernel)
+    check(len(durations) == iters * per_call, f"a complete trace holds "
+          f"{len(durations)} launches of {kernel}, {iters * per_call} made")
+    return dict(device_ms=sum(durations) / 1e3 / len(durations),
                 profiled_launches=len(durations),
-                launches_made=iters * per_call)
+                launches_made=iters * per_call, trace_launches=handle.launches,
+                unrecorded=handle.unrecorded, tries=tries,
+                check_share=handle.check_s / handle.export_s)
 
 
 def recorded(k: dict) -> str:
-    """The launches a trace recorded against those made."""
+    """The launches a trace recorded against those made, the trace's
+    launches and unrecorded launches, and its tries."""
     return (f"profiler: {k['profiled_launches']} of {k['launches_made']} "
-            "launches recorded")
+            f"launches recorded; the trace's {k['trace_launches']} launches, "
+            f"unrecorded {k['unrecorded']}, {k['tries']} "
+            f"{'try' if k['tries'] == 1 else 'tries'}, the check "
+            f"{100 * k['check_share']:.1f}% of the export")
 
 
 def bound(bytes_moved: int, flops: int) -> dict:
@@ -2256,20 +2282,38 @@ def phase_nms(dev) -> dict:
     return out
 
 
+# the host call that launches the [profiler] subjects (cudaLaunchKernelEx
+# in csrc/nms.cu and profile_trace.TOY_SOURCE)
+SUBJECT_API = "cudaLaunchKernelExC"
+# [profiler]'s probes of the cause, PROBE_SESSIONS of each a subject
+PROBE_SESSIONS = 4
+
+
 def phase_profiler(dev, sessions: int = 6) -> dict:
     """Whether a profiler session records every launch here, in a process
     that has run the phases above: 20 launches each of the RPN's NMS and
     of two kernels of a few lines outside the port
     (``profile_trace.TOY_SOURCE``, launched as NMS is, with and without
     clusters), an L2 flush before each, in ``sessions`` plain
-    torch.profiler sessions (CPU and CUDA activity, counted in the
+    torch.profiler sessions (CPU and CUDA activity, read from the
     exported trace) and in as many ``utils/profiling.trace`` sessions
-    (their warm-up primed).  A plain session can lose its first launches
-    (every second one, in a process that has loaded many kernels); NMS
-    must lose no more than the kernels outside the port do, give or take
-    one session's launches."""
+    (a warm-up, a pause at each end, an incomplete one run again).  A
+    plain session can lose its first launches (kineto drops the device
+    records it stamps before its capture window opens); NMS must lose no
+    more than the kernels outside the port do, give or take one
+    session's launches.  On each plain
+    session's trace ``utils/profiling.unrecorded_launches`` must see every
+    launch the session lost: the subject's (its ``cudaLaunchKernelExC``
+    calls without a device record, exactly the launches it lacks, 0 where
+    it kept all 20) and torch's flush fills.  Probes of the cause, printed
+    session by session: plain sessions in which the host sleeps
+    ``profiling.SKEW_PAUSE_S`` at each end (``trace`` without its
+    warm-up), and plain sessions that first run ``PRIMING_LAUNCHES``
+    small kernels inside the session (``trace``'s warm-up without the
+    step that leaves their records outside the window)."""
     from mass_tpu_torch import profile_trace as PT
     from mass_tpu_torch.profile_nms import problems
+    from mass_tpu_torch.utils import profiling
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     subjects = {"nms_kernel": PT.nms_call(
@@ -2278,11 +2322,51 @@ def phase_profiler(dev, sessions: int = 6) -> dict:
     for name, fn in subjects.items():
         fn()
         torch.cuda.synchronize()
-        ways = PT.ways(fn, flush)
-        out[name] = {way: [ways[way](name) for _ in range(sessions)]
-                     for way in ("cuda+cpu/json", "trace")}
+        out[name] = dict(
+            plain=[PT.matched_session(fn, name, flush)
+                   for _ in range(sessions)],
+            trace=[PT._traced(fn, name, flush) for _ in range(sessions)],
+            paused=[PT.matched_session(fn, name, flush,
+                                       pause_s=profiling.SKEW_PAUSE_S)
+                    for _ in range(PROBE_SESSIONS)],
+            primed=[PT.matched_session(fn, name, flush,
+                                       primer=profiling.PRIMING_LAUNCHES)
+                    for _ in range(PROBE_SESSIONS)])
     del flush
-    lost = {name: sessions * PT.ITERS - sum(got["cuda+cpu/json"])
+    misses = []
+    for (name, got), way in itertools.product(out.items(),
+                                              ("plain", "paused", "primed")):
+        for k, plain in enumerate(got[way]):
+            short = PT.ITERS - plain["recorded"]
+            fills_short = PT.ITERS - plain["fills"]
+            launches, lost = plain["by_api"].get(SUBJECT_API, [0, 0])
+            plain.update(short=short, fills_short=fills_short,
+                         subject_launches=launches, subject_unrecorded=lost)
+            print(f"[profiler] {name}, {way} session {k + 1}: recorded "
+                  f"{plain['recorded']} of {PT.ITERS} (fills "
+                  f"{plain['fills']} of {PT.ITERS}); the matcher: "
+                  f"{lost} of {launches} {SUBJECT_API} calls and "
+                  f"{plain['unrecorded']} of {plain['launches']} launches "
+                  f"unrecorded {json.dumps(plain['by_api'])}"
+                  + (f", lost at positions {plain['lost_positions']}, "
+                     f"{plain['lost_call_us']} us after the window opened"
+                     if plain["unrecorded"] else "")
+                  + f"; device record less call {plain['offset_us']} us "
+                  f"(min, median), first device record "
+                  f"{plain['first_device_us']} us after the window opened")
+            if not (launches == PT.ITERS and lost == short
+                    and plain["unrecorded"] >= short + fills_short
+                    and not plain["unlisted"]):
+                misses.append((name, way, k + 1))
+    for name, got in out.items():
+        for k, traced in enumerate(got["trace"]):
+            check(traced["recorded"] == PT.ITERS,
+                  f"[profiler] {name}: utils/profiling.trace session "
+                  f"{k + 1} returned {traced['recorded']} of {PT.ITERS} "
+                  "launches")
+    check(not misses, f"[profiler] the matcher missed a lost launch in the "
+          f"plain sessions {misses}")
+    lost = {name: sum(p["short"] for p in got["plain"])
             for name, got in out.items()}
     check(lost["nms_kernel"] <= PT.ITERS + max(
         lost["toy_kernel"], lost["toy_cluster_kernel"]),
@@ -3330,15 +3414,16 @@ def tool_run(device: str, flags: list, logdir: str) -> dict:
         return json.load(f)
 
 
-def phase_tooling_small() -> dict:
+def phase_tooling_small(cpu: bool = True) -> dict:
     """``--videos --snapshot-maps`` on the small default episode (task 2)
     and ``--snapshot-maps`` on the compat episode (the multi-map kernel),
-    each on the card and on the CPU: equal results, the frames handed to
-    the writer within one level (counted), the npz files bit-equal, a
-    frame an observation in the mp4; and a ``--fleet-size 2`` run of
-    tasks 2-3 with snapshots whose npz files equal the sequential runs'
-    (task 3 with its fleet rng seed) and whose results carry
-    ``task_id``."""
+    each on the card and, with ``cpu``, on the CPU: equal results, the
+    frames handed to the writer within one level (counted), the npz files
+    bit-equal; a frame an observation in the mp4; and a ``--fleet-size 2``
+    run of tasks 2-3 with snapshots whose npz files equal the sequential
+    runs' (task 3 with its fleet rng seed) and whose results carry
+    ``task_id``.  The script leaves the CPU half to
+    ``tests/test_torch_gpu.py`` (within its time limit)."""
     from mass_tpu_torch.ops import splat as SP
 
     out, launches = {}, {"single": 0, "multi": 0}
@@ -3348,7 +3433,7 @@ def phase_tooling_small() -> dict:
         videos = "--videos" in flags
         flags = flags + ["--start-task", "2", "--total-tasks", "1"]
         runs = {}
-        for device in ("cuda", "cpu"):
+        for device in ("cuda", "cpu") if cpu else ("cuda",):
             logdir = os.path.join(TOOLING_DIR, f"{name}-{device}")
             with VideoRecorder(keep=True) as video:
                 # the tooling path starts here
@@ -3368,30 +3453,34 @@ def phase_tooling_small() -> dict:
                                 single=single, multi=multi,
                                 npz=os.path.join(logdir, "results",
                                                  "maps-2.npz"))
-        gpu, cpu = runs["cuda"], runs["cpu"]
-        check(outcome(gpu["results"]) == outcome(cpu["results"]),
-              f"tooling {name}: cuda and cpu results differ")
-        check(len(gpu["frames"]) == len(cpu["frames"]),
-              f"tooling {name}: {len(gpu['frames'])} frames on the card, "
-              f"{len(cpu['frames'])} on the CPU")
-        diff = [np.abs(a.astype(int) - b.astype(int))
-                for a, b in zip(gpu["frames"], cpu["frames"])]
-        levels = max((int(d.max()) for d in diff), default=0)
-        check(levels <= FRAME_LEVELS, f"tooling {name}: frames differ by "
-              f"{levels} levels")
-        arrays = npz_equal(gpu["npz"], cpu["npz"])
+        gpu = runs["cuda"]
+        compared = {}
+        if cpu:
+            cpu_run = runs["cpu"]
+            check(outcome(gpu["results"]) == outcome(cpu_run["results"]),
+                  f"tooling {name}: cuda and cpu results differ")
+            check(len(gpu["frames"]) == len(cpu_run["frames"]),
+                  f"tooling {name}: {len(gpu['frames'])} frames on the "
+                  f"card, {len(cpu_run['frames'])} on the CPU")
+            diff = [np.abs(a.astype(int) - b.astype(int))
+                    for a, b in zip(gpu["frames"], cpu_run["frames"])]
+            levels = max((int(d.max()) for d in diff), default=0)
+            check(levels <= FRAME_LEVELS, f"tooling {name}: frames differ "
+                  f"by {levels} levels")
+            compared = dict(cpu_s=cpu_run["wall_s"], frame_levels=levels,
+                            differing_pixels=int(sum((d > 0).sum()
+                                                     for d in diff)),
+                            npz_arrays=npz_equal(gpu["npz"], cpu_run["npz"]),
+                            results_equal=True)
         updates = gpu["results"]["timing"]["mapping"]["count"]
         check_launches(gpu["single"], gpu["multi"], updates,
                        name == "compat")
         launches["single"] += gpu["single"]
         launches["multi"] += gpu["multi"]
-        out[name] = dict(cuda_s=gpu["wall_s"], cpu_s=cpu["wall_s"],
-                         frames=len(gpu["frames"]), frame_levels=levels,
-                         differing_pixels=int(sum((d > 0).sum()
-                                                  for d in diff)),
-                         npz_arrays=arrays, launches=gpu["single"],
-                         multi_launches=gpu["multi"], map_updates=updates,
-                         metrics=outcome(gpu["results"]))
+        out[name] = dict(cuda_s=gpu["wall_s"], frames=len(gpu["frames"]),
+                         launches=gpu["single"], multi_launches=gpu["multi"],
+                         map_updates=updates,
+                         metrics=outcome(gpu["results"]), **compared)
 
     fleet_dir = os.path.join(TOOLING_DIR, "fleet")
     with SplatCounter() as counter:
@@ -3632,18 +3721,14 @@ def tooling_phases(report: dict, full: dict) -> tuple:
     """The five tooling phases, printed and kept in ``report``; returns
     their single-map and multi-map launches."""
     tooling_start = time.perf_counter()
-    ts = report["tooling_small"] = phase_tooling_small()
+    ts = report["tooling_small"] = phase_tooling_small(cpu=False)
     tag = "tooling 80x80x24"
     for name in ("default", "compat"):
         t = ts[name]
         print(f"[{tag}] {name} task 2 "
               f"{'--videos ' if t['frames'] else ''}--snapshot-maps: cuda "
-              f"{t['cuda_s']:.1f} s, cpu {t['cpu_s']:.1f} s, results equal; "
-              f"{t['frames']} frames each, the card's within "
-              f"{t['frame_levels']} level of the CPU's "
-              f"({t['differing_pixels']} pixels differ); npz "
-              f"{'/'.join(a for a in t['npz_arrays'] if '_bins_' not in a)}"
-              f" bit-equal; launches splat_onehot {t['launches']}, "
+              f"{t['cuda_s']:.1f} s ({ON_CPU}), {t['frames']} frames "
+              f"written and decoded; launches splat_onehot {t['launches']}, "
               f"splat_onehot_multi {t['multi_launches']} for "
               f"{t['map_updates']} map updates")
     fl = ts["fleet"]
@@ -3819,11 +3904,13 @@ def sharded_small_episode(device: str, slabs: int):
     return small_episode(device, mesh=mesh)
 
 
-def phase_shard_small_episode(small: dict, slabs: int = 4) -> dict:
-    """The small default episode in 4 slabs on the card and on the CPU:
-    equal to each other and to the unsharded episode of
-    ``[episode 80x80x24]`` (results and actions); one single-map launch a
-    slab a map update."""
+def phase_shard_small_episode(small: dict, slabs: int = 4,
+                              cpu: bool = True) -> dict:
+    """The small default episode in 4 slabs on the card and, with
+    ``cpu``, on the CPU: equal to each other and to the unsharded episode
+    of ``[episode 80x80x24]`` (results and actions); one single-map launch
+    a slab a map update.  The script leaves the CPU half to
+    ``tests/test_torch_gpu.py`` (within its time limit)."""
     from mass_tpu_torch.ops import splat as SP
 
     SP.LAUNCHES = SP.MULTI_LAUNCHES = 0          # main path starts here
@@ -3831,19 +3918,23 @@ def phase_shard_small_episode(small: dict, slabs: int = 4) -> dict:
     gpu, gpu_actions = sharded_small_episode("cuda", slabs)
     gpu_s = time.perf_counter() - t0
     single, multi = SP.LAUNCHES, SP.MULTI_LAUNCHES   # and ends here
-    t0 = time.perf_counter()
-    cpu, cpu_actions = sharded_small_episode("cpu", slabs)
-    cpu_s = time.perf_counter() - t0
     updates = gpu["timing"]["mapping"]["count"]
-    check(outcome(gpu) == outcome(cpu) == small["metrics"],
-          "sharded small episodes: cuda, cpu and unsharded results differ")
-    check(gpu_actions == cpu_actions == small["action_list"],
-          "sharded small episodes: cuda, cpu and unsharded actions differ")
+    check(outcome(gpu) == small["metrics"]
+          and gpu_actions == small["action_list"],
+          "the sharded small episode on the card differs from the "
+          "unsharded one")
+    cpu_s = None
+    if cpu:
+        t0 = time.perf_counter()
+        cpu_run, cpu_actions = sharded_small_episode("cpu", slabs)
+        cpu_s = time.perf_counter() - t0
+        check(outcome(cpu_run) == outcome(gpu) and cpu_actions == gpu_actions,
+              "sharded small episodes: cuda and cpu differ")
     check(multi == 0 and single == slabs * updates,
           f"{single} launches for {updates} map updates in {slabs} slabs")
     return dict(slabs=slabs, devices=slab_devices(slabs), cuda_s=gpu_s,
-                cpu_s=cpu_s, launches=single, map_updates=updates,
-                actions=len(gpu_actions))
+                cpu_s=cpu_s, results_equal=cpu, launches=single,
+                map_updates=updates, actions=len(gpu_actions))
 
 
 def phase_shard_full_episode(full: dict, slabs: int = 2) -> dict:
@@ -4077,9 +4168,12 @@ def phase_data_parallel(dev) -> dict:
 # (utils/profiling.trace)
 # ----------------------------------------------------------------------
 
-# the traced windows past the runs' start-up, (first, count): sensor calls
-# of the full-width learned episode (347 in all), ticks of the B = 4
+# the traced windows past the runs' start-up, (first, count): steps
+# (NavigationController.process_observations calls) of the full-width
+# default episode (about 820 in all, 410 of them map updates), sensor
+# calls of the full-width learned episode (347), ticks of the B = 4
 # full-width default fleet (509)
+TRACE_EPISODE_STEPS = (100, 80)
 TRACE_SENSOR_CALLS = (100, 40)
 TRACE_FLEET_TICKS = (100, 10)
 # the port's launch counters, by the kernel each counts
@@ -4120,153 +4214,209 @@ def traced_launches(trace: dict) -> dict:
 
 
 def trace_window(name: str, handle, before: dict, after: dict,
-                 traced_s: float, export_s: float) -> dict:
-    """Read a window's trace: its kernel launches must equal the port's
-    counters over the window; the card's busy share, top operations and
-    idle gaps (``utils/profiling.device_summary``)."""
+                 traced_s: float, stop_s: float) -> dict:
+    """Read a window's trace as ``utils/profiling.trace`` parsed it (every
+    launch matched to its device record): its kernel launches must equal
+    the port's counters over the window, and no host CUDA call outside
+    ``profiling.LAUNCH_APIS`` may have left a device record; the card's
+    busy share, top operations and idle gaps
+    (``utils/profiling.device_summary``)."""
     from mass_tpu_torch.utils import profiling
 
     t0 = time.perf_counter()
-    trace = profiling.read_trace(handle.path)
+    trace = handle.data
     counted = {k: after[k] - before[k] for k in COUNTERS}
     got = traced_launches(trace)
     check(got == counted, f"[trace] {name}: the trace holds {got} kernel "
           f"launches where the counters made {counted}")
+    check(not handle.matched["unlisted"], f"[trace] {name}: host calls "
+          f"outside LAUNCH_APIS left device records: "
+          f"{handle.matched['unlisted']}")
+    summary = profiling.device_summary(trace)
+    check(summary["launches"] == handle.launches
+          and summary["unrecorded_launches"] == handle.unrecorded == 0,
+          f"[trace] {name}: {summary['unrecorded_launches']} unrecorded "
+          "launches in a trace that trace returned")
     return dict(path=handle.path, bytes=os.path.getsize(handle.path),
-                events=len(trace["traceEvents"]), launches=counted,
-                traced_s=traced_s, export_s=export_s,
-                read_s=time.perf_counter() - t0,
-                **profiling.device_summary(trace))
+                events=len(trace["traceEvents"]), port_launches=counted,
+                by_api=handle.matched["by_api"], traced_s=traced_s,
+                stop_s=stop_s, export_s=handle.export_s,
+                parse_s=handle.parse_s, check_s=handle.check_s,
+                summary_s=time.perf_counter() - t0, **summary)
 
 
-def traced_episode(untraced: dict) -> dict:
-    """The full-width default episode through the CLI, whole, under
-    ``utils/profiling.trace``: its outcome must be the untraced
-    episode's."""
-    from mass_tpu_torch.agent import cli
-    from mass_tpu_torch.utils import profiling
+def pose_digest(controller, args, out):
+    """A step's pose, which ``process_observations`` sets (host values)."""
+    obs = args[0]
+    return [float(v) for v in obs["position"]] + [float(obs["yaw"])]
 
-    logdir = os.path.join(TRACE_DIR, "episode")
-    gc.collect()
-    torch.cuda.empty_cache()
-    before = launch_counts()
-    t0 = time.perf_counter()
-    with profiling.trace(logdir) as handle:
-        cli.main(full_args(False) + FULL_BUDGETS + ["--logdir", logdir])
-        t1 = time.perf_counter()
-    t2 = time.perf_counter()
-    after = launch_counts()
-    with open(os.path.join(logdir, "results", "2.json")) as f:
-        check(outcome(json.load(f)) == untraced["metrics"],
-              "the traced episode's outcome differs from the untraced one's")
-    out = trace_window("episode", handle, before, after, t1 - t0, t2 - t1)
-    return dict(out, untraced_s=untraced["wall_s"], outcome_equal=True,
-                untraced_busy_share=out["busy_us"] / 1e6 / untraced["wall_s"])
+
+def output_digest(owner, args, out):
+    """The call's result (kept, reduced after the window closes)."""
+    return out
+
+
+def fleet_digest(evaluator, args, out):
+    """Each episode's phase, map updates and position after a tick."""
+    return [(ep.phase, ep.map_updates,
+             [float(v) for v in ep.controller.process_position()])
+            for ep in evaluator.episodes]
+
+
+def plain(value):
+    """A digest with every tensor reduced to its shape and float64 sum."""
+    if isinstance(value, torch.Tensor):
+        return [list(value.shape), float(value.double().sum())]
+    if isinstance(value, (list, tuple)):
+        return [plain(v) for v in value]
+    return value
+
+
+class WindowClosed(Exception):
+    """Stops a run once its traced window has closed."""
 
 
 class CallWindow:
-    """Traces calls ``[first, first + count)`` of the method
-    ``owner.name`` made in the block, reading the launch counters at the
-    window's ends."""
+    """Around calls ``[first, first + count)`` of the method
+    ``owner.name`` made in the block: records ``digest(self, args,
+    result)`` of each (``digests``, reduced by :func:`plain` once the
+    window has closed), and with ``logdir`` traces them
+    (``utils/profiling.trace``), reads the launch counters at the window's
+    ends and stops the run once the window has closed (``WindowClosed``,
+    caught by the block).  A trace that lost a launch raises
+    ``profiling.IncompleteTrace`` out of the call that closes it."""
 
-    def __init__(self, owner, name: str, logdir: str, first: int,
-                 count: int):
+    def __init__(self, owner, name: str, first: int, count: int, digest,
+                 logdir: Optional[str] = None):
         self.owner, self.name, self.logdir = owner, name, logdir
-        self.first, self.count = first, count
+        self.first, self.count, self.digest = first, count, digest
 
     def __enter__(self):
         from mass_tpu_torch.utils import profiling
 
         self._method = getattr(self.owner, self.name)
         self._stack = contextlib.ExitStack()
-        self.calls = 0
+        self.calls, self.digests = 0, []
 
-        def call(*args, **kwargs):
-            if self.calls == self.first:
+        def call(obj, *args, **kwargs):
+            traced = self.logdir is not None
+            if self.calls == self.first and traced:
                 self.before = launch_counts()
                 self.t0 = time.perf_counter()
                 self.handle = self._stack.enter_context(
                     profiling.trace(self.logdir))
-            out = self._method(*args, **kwargs)
+            out = self._method(obj, *args, **kwargs)
+            if self.first <= self.calls < self.first + self.count:
+                self.digests.append(self.digest(obj, args, out))
             self.calls += 1
             if self.calls == self.first + self.count:
-                self.t1 = time.perf_counter()
-                self._stack.close()
-                self.t2 = time.perf_counter()
-                self.after = launch_counts()
+                if traced:
+                    self.t1 = time.perf_counter()
+                    self._stack.close()
+                    self.t2 = time.perf_counter()
+                    self.after = launch_counts()
+                self.digests = plain(self.digests)
+                if traced:
+                    raise WindowClosed
             return out
         setattr(self.owner, self.name, call)
         return self
 
-    def __exit__(self, *exc):
+    def __exit__(self, kind, *exc):
         setattr(self.owner, self.name, self._method)
         self._stack.close()
+        return kind is WindowClosed
 
 
-def traced_calls(name: str, argv: list, want: list, owner, method: str,
-                 first: int, count: int) -> dict:
-    """``argv`` through the CLI again (``--logdir`` last), calls ``[first,
-    first + count)`` of ``owner.method`` traced: the outcome of each task
-    from 2 on must be ``want``'s, the untraced run's."""
+def traced_calls(name: str, argv: list, untraced: CallWindow) -> dict:
+    """``argv`` through the CLI again (``--logdir`` last) with the calls of
+    ``untraced``'s window traced, the run stopped once it has closed: the
+    digests of the traced calls must equal those the untraced run
+    recorded (``untraced.digests``).  A run whose trace lost a launch is
+    run again (``profiling.retried``)."""
     from mass_tpu_torch.agent import cli
+    from mass_tpu_torch.utils import profiling
 
     logdir = os.path.join(TRACE_DIR, name)
-    gc.collect()
-    torch.cuda.empty_cache()
-    with CallWindow(owner, method, os.path.join(logdir, "trace"), first,
-                    count) as window:
-        cli.main(argv[:-2] + ["--logdir", logdir])
-    check(window.calls >= first + count, f"the {name} run made "
-          f"{window.calls} {method} calls, fewer than the window")
-    for k, outcome_k in enumerate(want):
-        with open(os.path.join(logdir, "results", f"{2 + k}.json")) as f:
-            check(outcome(json.load(f)) == outcome_k, f"the traced {name} "
-                  f"run's task {2 + k} differs from the untraced run's")
+    first, count = untraced.first, untraced.count
+
+    def run():
+        shutil.rmtree(logdir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with CallWindow(untraced.owner, untraced.name, first, count,
+                        untraced.digest, os.path.join(logdir, "trace")) \
+                as window:
+            cli.main(argv[:-2] + ["--logdir", logdir])
+        return window
+    window, tries = profiling.retried(run)
+    check(window.calls == first + count, f"the {name} run made "
+          f"{window.calls} {untraced.name} calls, not the window's end")
+    check(len(untraced.digests) == count and window.digests ==
+          untraced.digests, f"the traced {name} run's calls {first}-"
+          f"{first + count - 1} differ from the untraced run's")
     return dict(trace_window(name, window.handle, window.before,
                              window.after, window.t1 - window.t0,
                              window.t2 - window.t1),
-                window=[method, first, first + count], calls=window.calls,
-                outcome_equal=True)
+                window=[untraced.name, first, first + count],
+                calls=untraced.calls, calls_equal=True, tries=tries)
 
 
-def phase_trace(full: dict, learned: dict, fleet: dict) -> dict:
-    """Three windows under ``utils/profiling.trace``: the full-width
-    default episode, whole; sensor calls :data:`TRACE_SENSOR_CALLS` of
-    the full-width learned episode; and ticks :data:`TRACE_FLEET_TICKS`
-    of the B = 4 full-width default fleet."""
+def trace_windows() -> dict:
+    """The windows of :func:`phase_trace`, recording their calls' digests
+    in the untraced runs made inside the block."""
+    from mass_tpu_torch.nav.controller import NavigationController
     from mass_tpu_torch.parallel.evaluator import FleetEvaluator
     from mass_tpu_torch.perception.segmentation import DetectorSegmentation
 
+    return dict(
+        episode=CallWindow(NavigationController, "process_observations",
+                           *TRACE_EPISODE_STEPS, pose_digest),
+        learned=CallWindow(DetectorSegmentation, "semantic",
+                           *TRACE_SENSOR_CALLS, output_digest),
+        fleet=CallWindow(FleetEvaluator, "tick", *TRACE_FLEET_TICKS,
+                         fleet_digest))
+
+
+def phase_trace(windows: dict, fleet: dict) -> dict:
+    """Three windows under ``utils/profiling.trace``, each in a run of its
+    own stopped once the window has closed: steps
+    :data:`TRACE_EPISODE_STEPS` of the full-width default episode, sensor
+    calls :data:`TRACE_SENSOR_CALLS` of the full-width learned episode,
+    and ticks :data:`TRACE_FLEET_TICKS` of the B = 4 full-width default
+    fleet; ``windows`` (:func:`trace_windows`) hold the untraced runs'
+    digests of the same calls."""
     return {
-        "episode": traced_episode(full),
+        "episode": traced_calls(
+            "episode", full_args(False) + FULL_BUDGETS + ["--logdir", ""],
+            windows["episode"]),
         "learned": traced_calls(
             "learned", full_args(True) + FULL_BUDGETS + ["--logdir", ""],
-            [learned["metrics"]], DetectorSegmentation, "semantic",
-            *TRACE_SENSOR_CALLS),
-        "fleet": traced_calls("fleet", fleet["argv"], fleet["outcomes"],
-                              FleetEvaluator, "tick", *TRACE_FLEET_TICKS)}
+            windows["learned"]),
+        "fleet": traced_calls("fleet", fleet["argv"], windows["fleet"])}
 
 
 def print_trace(windows: dict) -> None:
     for name, w in windows.items():
         tag = f"trace {name}"
-        where = (f"the whole episode, {w['traced_s']:.1f} s traced against "
-                 f"{w['untraced_s']:.1f} s untraced" if "untraced_s" in w
-                 else f"{w['window'][0]} calls {w['window'][1]}-"
-                 f"{w['window'][2] - 1} of {w['calls']}, "
-                 f"{w['traced_s']:.1f} s traced")
-        print(f"[{tag}] {where}; {w['events']} events, "
-              f"{w['bytes'] / 2**20:.1f} MiB gzipped, export "
-              f"{w['export_s']:.1f} s, read {w['read_s']:.1f} s; outcome "
-              f"equal to the untraced run: {w['outcome_equal']}")
+        print(f"[{tag}] {w['window'][0]} calls {w['window'][1]}-"
+              f"{w['window'][2] - 1} of {w['calls']}, {w['traced_s']:.1f} s "
+              f"traced; {w['events']} events, "
+              f"{w['bytes'] / 2**20:.1f} MiB gzipped; the trace's stop "
+              f"{w['stop_s']:.2f} s: export {w['export_s']:.2f} s, parse "
+              f"{w['parse_s']:.2f} s, launch check {w['check_s']:.3f} s "
+              f"({100 * w['check_s'] / w['export_s']:.1f}% of the export); "
+              f"the window's calls equal the untraced run's: "
+              f"{w['calls_equal']}")
+        print(f"[{tag}] launches {w['launches']}, unrecorded "
+              f"{w['unrecorded_launches']}, {w['tries']} "
+              f"{'try' if w['tries'] == 1 else 'tries'}; by API "
+              f"{json.dumps(w['by_api'])}")
         print(f"[{tag}] kernel launches in the trace equal the port's "
-              f"counters: {json.dumps(w['launches'])}")
+              f"counters: {json.dumps(w['port_launches'])}")
         print(f"[{tag}] the card busy {100 * w['busy_share']:.3f}% of the "
               f"traced {w['span_us'] / 1e6:.3f} s ({w['device_events']} "
-              f"kernels, copies and memsets)"
-              + (f"; its device time is {100 * w['untraced_busy_share']:.3f}"
-                 "% of the untraced wall" if "untraced_busy_share" in w
-                 else ""))
+              f"kernels, copies and memsets)")
         for k, op in enumerate(w["top"]):
             print(f"[{tag}] top {k + 1}: {op['total_us'] / 1e3:.2f} ms "
                   f"({100 * op['share']:.3f}%), {op['count']}x "
@@ -4516,7 +4666,9 @@ def main() -> int:
               f"splat_onehot_multi {small['multi_launches']}, for "
               f"{small['map_updates']} map updates")
 
-    full = phase_full_episode()
+    windows = trace_windows()
+    with windows["episode"]:
+        full = phase_full_episode()
     report["full_episode"] = full
     print_episode("episode 384x384x96x54", full)
     compat = phase_full_episode(compat=True)
@@ -4555,7 +4707,8 @@ def main() -> int:
               f"{small['map_updates']} episode map updates")
     for size, flag, sequential in ((FULL_FLEET, False, full),
                                    (2, True, compat)):
-        fleet = phase_full_fleet(size, flag, sequential)
+        with windows["fleet"] if not flag else contextlib.nullcontext():
+            fleet = phase_full_fleet(size, flag, sequential)
         tag = f"fleet 384x384x96x54{' compat' if flag else ''}"
         report[f"full_fleet{'_compat' if flag else ''}"] = fleet
         print(f"[{tag}] {' '.join(fleet['argv'])}")
@@ -4682,11 +4835,17 @@ def main() -> int:
     nms = report["nms"] = phase_nms(dev)
     print_nms(nms)
     prof = report["profiler"] = phase_profiler(dev)
-    for name, ways in prof["recorded"].items():
+    for name, got in prof["recorded"].items():
+        traced = got["trace"]
         print(f"[profiler] {name}: of {prof['launches']} launches, plain "
-              f"sessions recorded {ways['cuda+cpu/json']} (lost "
-              f"{prof['lost'][name]} in all), utils/profiling.trace "
-              f"{ways['trace']}")
+              f"sessions recorded {[p['recorded'] for p in got['plain']]} "
+              f"(lost {prof['lost'][name]} in all), the matcher found "
+              f"{[p['subject_unrecorded'] for p in got['plain']]} of its "
+              f"calls unrecorded; utils/profiling.trace recorded "
+              f"{[t['recorded'] for t in traced]}, launches "
+              f"{[t['launches'] for t in traced]}, unrecorded "
+              f"{[t['unrecorded'] for t in traced]}, tries "
+              f"{[t['tries'] for t in traced]}")
     det = report["detector"] = phase_detector(dev)
     for batch in (1, 2):
         d = det[f"b{batch}"]
@@ -4715,7 +4874,8 @@ def main() -> int:
           f"for {small['sensor_calls']} sensor calls; fused non-zero pixels "
           f"{small['fused_pixels_min']}-{small['fused_pixels_max']} a frame "
           f"(mean {small['fused_pixels_mean']:.0f}) at {SMALL_THRESHOLD}")
-    learned = report["full_learned"] = phase_full_episode(learned=True)
+    with windows["learned"]:
+        learned = report["full_learned"] = phase_full_episode(learned=True)
     tag = "learned 384x384x96x54"
     print_episode(tag, learned)
     print(f"[{tag}] sensor {learned['sensor_mean_ms']:.2f} ms a step (median "
@@ -4742,8 +4902,7 @@ def main() -> int:
     print(f"[{tag}] fleet_timing {json.dumps(fleet['fleet_timing'])}")
 
     trace_start = time.perf_counter()
-    traces = report["trace"] = phase_trace(full, learned,
-                                           report["full_fleet"])
+    traces = report["trace"] = phase_trace(windows, report["full_fleet"])
     print_trace(traces)
     report["trace_s"] = time.perf_counter() - trace_start
     print(f"[trace] the three traced windows took {report['trace_s']:.1f} s")
@@ -4880,11 +5039,11 @@ def main() -> int:
           f"launches, equal to the unsharded map bit for bit: "
           f"{k['bitwise_equal_unsharded']}")
     small_shard = report["shard_small_episode"] = phase_shard_small_episode(
-        report["small_episodes"])
+        report["small_episodes"], cpu=False)
     print(f"[shard episode] 80x80x24 in {small_shard['slabs']} slabs on "
-          f"{small_shard['devices']}: cuda {small_shard['cuda_s']:.1f} s, cpu "
-          f"{small_shard['cpu_s']:.1f} s, {small_shard['actions']} actions; "
-          f"cuda == cpu == the unsharded episode; launches splat_onehot "
+          f"{small_shard['devices']}: cuda {small_shard['cuda_s']:.1f} s, "
+          f"{small_shard['actions']} actions; cuda == the unsharded "
+          f"episode ({ON_CPU}); launches splat_onehot "
           f"{small_shard['launches']} for {small_shard['map_updates']} map "
           f"updates")
     full_shard = report["shard_full_episode"] = phase_shard_full_episode(full)

@@ -15,13 +15,15 @@ the launches each recorded.  The ways differ in one thing at a time:
 - ``cuda/json``: the same window, counted in its exported Chrome trace;
 - ``cuda+cpu/averages``: CPU and CUDA activity, ``key_averages()``;
 - ``cuda+cpu/json``: CPU and CUDA activity, counted in the exported
-  Chrome trace (``trace`` without its warm-up);
+  Chrome trace (``trace`` without its pauses and its check);
 - ``cuda/no sync``: CUDA activity only, no synchronisation before the
   profiler stops, ``key_averages()``;
 - ``cuda/after timing``: ``cuda/averages`` right after the sequence the
   kernel table's timing runs first (one launch, 50 back to back, 20
   between CUDA events after a flush and a device sleep);
-- ``trace``: ``utils.profiling.trace``, counted in the file it writes.
+- ``trace``: ``utils.profiling.trace``, counted in the trace it parsed
+  (a window that raised ``IncompleteTrace`` run again, three tries in
+  all).
 
 Then it runs, one after another in the same process, what the kernel
 table's NMS phase runs before its timing (the built kernel's shape
@@ -35,7 +37,9 @@ a few lines outside the port (``TOY_SOURCE``: one launched as NMS is,
 through ``cudaLaunchKernelEx`` as clusters of 8 blocks after raising its
 shared-memory limit, one without the cluster), then again once the
 memory is released.  The last line is a JSON object: per case and way,
-the launches each repeat recorded of 20.
+the launches each repeat recorded of 20 (``trace``: and the tries it
+took).  The run fails where a ``trace`` window was still incomplete after
+its tries.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -125,16 +130,97 @@ def _averaged(prof, kernel: str) -> int:
     return sum(e.count for e in prof.key_averages() if kernel in e.key)
 
 
-def _json(prof, kernel: str) -> int:
-    from mass_tpu_torch.utils import profiling
-
+def _exported(prof) -> dict:
     os.makedirs(LOGDIR, exist_ok=True)
     path = os.path.join(LOGDIR, "window.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
         trace = json.load(f)
     os.remove(path)
-    return len(profiling.kernel_durations(trace, kernel))
+    return trace
+
+
+def _json(prof, kernel: str) -> int:
+    from mass_tpu_torch.utils import profiling
+
+    return len(profiling.kernel_durations(_exported(prof), kernel))
+
+
+def session_report(trace: dict, kernel: str) -> dict:
+    """What a session's trace holds of its window of ``ITERS`` flushes and
+    ``ITERS`` launches of ``kernel``: the kernel's launches recorded, the
+    flushes' fill kernels recorded, and what ``unrecorded_launches``
+    finds, by API (the port's NMS and the toys launch through
+    ``cudaLaunchKernelExC``, the fills through ``cudaLaunchKernel``); the
+    lost launches' positions among the session's launches in host order
+    (as runs) and the times of the first two and the last of their calls
+    after the session opened (us); over the recorded launches, their
+    device record's start less their call's (us: min, median; a negative
+    one means the two clocks disagree) and the first device record's
+    start after the session opened."""
+    from mass_tpu_torch.utils import profiling
+
+    matched = profiling.unrecorded_launches(trace, first=1 << 20)
+    lost = matched["first_unrecorded"]
+    calls, device = {}, {}
+    for e in trace["traceEvents"]:
+        correlation = e.get("args", {}).get("correlation")
+        if e.get("ph") != "X" or correlation is None:
+            continue
+        if e.get("cat") in profiling.DEVICE_CATEGORIES:
+            device.setdefault(correlation, e["ts"])
+        elif e.get("name") in profiling.LAUNCH_NAMES:
+            calls[correlation] = e["ts"]
+    start = min(e["ts"] for e in trace["traceEvents"]
+                if e.get("cat") == "Trace")
+    offsets = [device[c] - ts for c, ts in calls.items() if c in device]
+    return dict(
+        recorded=len(profiling.kernel_durations(trace, kernel)),
+        fills=len(profiling.kernel_durations(trace, "FillFunctor")),
+        launches=matched["launches"], unrecorded=matched["unrecorded"],
+        by_api=matched["by_api"], unlisted=matched["unlisted"],
+        lost_positions=_ranges([e["position"] for e in lost]),
+        lost_call_us=[round(e["ts_us"], 1) for e in lost[:2] + lost[-1:]],
+        offset_us=[round(min(offsets), 1), round(float(np.median(offsets)),
+                                                 1)] if offsets else None,
+        first_device_us=round(min(device.values()) - start, 1)
+        if device else None)
+
+
+def _ranges(values: list) -> list:
+    """Sorted integers as runs: [0, 1, 2, 5] -> ["0-2", "5"]."""
+    out = []
+    for v in values:
+        if out and v == out[-1][1] + 1:
+            out[-1][1] = v
+        else:
+            out.append([v, v])
+    return [f"{a}-{b}" if b > a else f"{a}" for a, b in out]
+
+
+def matched_session(fn, kernel: str, flush, pause_s: float = 0.0,
+                    primer: int = 0) -> dict:
+    """A plain session (``cuda+cpu/json``) of ``ITERS`` calls of ``fn``,
+    read by :func:`session_report`; with ``pause_s``, the host sleeps
+    that long once the profiler has started and again before it stops
+    (as ``utils.profiling.trace`` does), and with ``primer``, that many
+    small kernels run (the card synchronised after them) before the
+    window, inside the session (their launches count in the report)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(pause_s)
+        if primer:
+            cell = torch.zeros(1, device=flush.device)
+            for _ in range(primer):
+                cell.add_(1)
+            torch.cuda.synchronize()
+        _window(fn, flush)
+        torch.cuda.synchronize()
+        time.sleep(pause_s)
+    torch.cuda.synchronize()
+    return session_report(_exported(prof), kernel)
 
 
 def _timing_sequence(fn, flush):
@@ -168,13 +254,19 @@ def _profiled(fn, kernel, flush, activities, sync=True, reader=_averaged,
     return reader(prof, kernel)
 
 
-def _traced(fn, kernel, flush) -> int:
+def _traced(fn, kernel, flush) -> dict:
+    """``kernel``'s launches in a ``utils.profiling.trace`` of the window,
+    and the tries the trace took (``profiling.retried``)."""
     from mass_tpu_torch.utils import profiling
 
-    with profiling.trace(LOGDIR) as handle:
-        _window(fn, flush)
-    return len(profiling.kernel_durations(
-        profiling.read_trace(handle.path), kernel))
+    def window():
+        with profiling.trace(LOGDIR) as handle:
+            _window(fn, flush)
+        return handle
+    handle, tries = profiling.retried(window)
+    return dict(recorded=len(profiling.kernel_durations(handle.data, kernel)),
+                launches=handle.launches, unrecorded=handle.unrecorded,
+                tries=tries)
 
 
 def ways(fn, flush):
@@ -196,13 +288,21 @@ def ways(fn, flush):
 
 def recorded(fn, kernel: str, flush, only=None) -> dict:
     """Launches of ``kernel`` each way (or each of ``only``) records of
-    ``ITERS`` calls of ``fn``, ``REPEATS`` times over."""
+    ``ITERS`` calls of ``fn``, ``REPEATS`` times over; ``trace``'s as
+    :func:`_traced` returns them.  A ``trace`` still incomplete after its
+    tries is reported as such, a way that raised otherwise (refused on a
+    full card) with its error."""
+    from mass_tpu_torch.utils import profiling
+
     every = ways(fn, flush)
     out = {way: [] for way in (only or every)}
     for _ in range(REPEATS):
         for way in out:
             try:
                 out[way].append(every[way](kernel))
+            except profiling.IncompleteTrace as e:
+                out[way].append(f"incomplete after {profiling.TRACE_TRIES} "
+                                f"tries: {e}"[:200])
             except RuntimeError as e:        # a way refused on a full card
                 out[way].append(f"raised: {e}"[:200])
     return out
@@ -319,7 +419,10 @@ def main() -> None:
     def report(name, counts):
         result[name] = counts
         for way, got in counts.items():
-            print(f"[profile_trace] {name}: {way}: {got} of {ITERS}")
+            tries = [g["tries"] for g in got if isinstance(g, dict)]
+            got = [g["recorded"] if isinstance(g, dict) else g for g in got]
+            print(f"[profile_trace] {name}: {way}: {got} of {ITERS}"
+                  + (f" ({tries} tries)" if tries else ""))
 
     for name, fn in kernels.items():
         fn()
@@ -345,6 +448,12 @@ def main() -> None:
             report(f"{name} with {left} MiB of the card free",
                    recorded(fn, name, flush, only=pair))
     print(json.dumps({"iters": ITERS, "recorded": result}))
+    incomplete = [name for name, counts in result.items()
+                  for got in counts.get("trace", [])
+                  if isinstance(got, str) and got.startswith("incomplete")]
+    if incomplete:
+        raise SystemExit(f"profile_trace: a trace was still incomplete "
+                         f"after its tries in {incomplete}")
 
 
 if __name__ == "__main__":

@@ -12,14 +12,24 @@ trace where the JAX package's capture writes its own:
 ``logdir/plugins/profile/<YYYY_MM_DD_HH_MM_SS>/<host>.trace.json.gz``,
 which Perfetto (ui.perfetto.dev) and TensorBoard's profile plugin open.
 ``block`` waits for the devices that hold a tree's tensors, for timing
-boundaries.  ``read_trace``, ``kernel_durations`` and ``device_summary``
-read a written trace back: a kernel's launches and device times, the
-card's busy share over the window, its top operations and its longest
-idle gaps with the host operation that ran through each.
+boundaries.  ``read_trace``, ``kernel_durations``, ``device_summary``
+and ``unrecorded_launches`` read a trace back: a kernel's launches and
+device times, the card's busy share over the window, its top operations
+and its longest idle gaps with the host operation that ran through each,
+and the launches whose device record the profiler lost.
+
+``trace`` never returns a CUDA trace that lost a launch: it matches every
+launch of its window to the launch's device record and raises
+:class:`IncompleteTrace` where one has none (kineto drops the device
+records it stamps outside its capture window, and the card's clock as it
+converts it runs off the host's: a window's first launches can lose
+their records; ``trace``'s warm-up and pauses keep them in most
+windows).  ``retried`` runs a traced window again in that case.
 
     with trace("build/trace") as t:        # the card, by default
         agent.run_task(0)
-    print(device_summary(read_trace(t.path)))
+    print(t.launches, t.unrecorded)        # every launch, and 0
+    print(device_summary(t.data))          # the trace as it was parsed
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import gzip
 import json
 import os
 import socket
+import threading
 import time
 import types
 from collections import defaultdict
@@ -39,17 +50,62 @@ import torch
 
 from mass_tpu_torch import resolve_device
 
-# kernels launched on each card while the profiler warms up, before the
-# traced window opens: in a process that has loaded many kernels, every
-# second profiler session loses the device records of its first ~20
-# launches (torch's kernels and ctypes-launched ones alike), and these
-# absorb the loss
+# In a process that has run many kernels, every second profiler session
+# loses the device records of its first ~20 launches (kineto counts them
+# outside its capture window), and the card's clock as the profiler
+# converts it drifts off the host's by up to a few milliseconds.  So trace
+# launches PRIMING_LAUNCHES small kernels on each card in use in a warm-up
+# step before the window opens (their records fall outside it, lost or
+# not), and the host waits SKEW_PAUSE_S once the window has opened and
+# again before it closes (PERF.md §6).
 PRIMING_LAUNCHES = 1024
+SKEW_PAUSE_S = 0.05
+# the annotation around the traced block: device_summary's window
+WINDOW = "profiling.trace window"
 # trace categories of work on the device, and of work on the host that
 # can run while the device idles
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATEGORIES = ("cpu_op", "cuda_runtime", "cuda_driver",
                    "user_annotation")
+# trace categories of the host's CUDA calls, and the calls among them that
+# put work on a device: each leaves one device record (a graph launch one
+# per node) under its args["correlation"].  The others (synchronisations,
+# event records, cudaFuncSetAttribute) put none.  A name may end in
+# _ptsz or _ptds (the per-thread default stream's entry points).
+LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
+LAUNCH_APIS = (
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+    "cuLaunchKernel", "cuLaunchKernelEx", "cuLaunchCooperativeKernel",
+    "cudaGraphLaunch", "cuGraphLaunch",
+    "cudaMemcpy", "cudaMemcpyAsync", "cudaMemcpy2D", "cudaMemcpy2DAsync",
+    "cudaMemcpyPeer", "cudaMemcpyPeerAsync", "cudaMemcpyToSymbol",
+    "cudaMemcpyToSymbolAsync", "cudaMemcpyFromSymbol",
+    "cudaMemcpyFromSymbolAsync", "cuMemcpy", "cuMemcpyAsync",
+    "cuMemcpyHtoD_v2", "cuMemcpyDtoH_v2", "cuMemcpyDtoD_v2",
+    "cuMemcpyHtoDAsync_v2", "cuMemcpyDtoHAsync_v2", "cuMemcpyDtoDAsync_v2",
+    "cudaMemset", "cudaMemsetAsync", "cudaMemset2D", "cudaMemset2DAsync",
+    "cuMemsetD8_v2", "cuMemsetD32_v2", "cuMemsetD8Async", "cuMemsetD32Async")
+LAUNCH_NAMES = frozenset(name + suffix for name in LAUNCH_APIS
+                          for suffix in ("", "_ptsz", "_ptds"))
+# a traced window is run at most this many times (retried)
+TRACE_TRIES = 3
+_NO_ARGS: Dict = {}
+
+
+class IncompleteTrace(RuntimeError):
+    """A CUDA trace in which a launch of the window has no device record.
+    ``handle`` is the :class:`Trace`: its file stays at ``handle.path``."""
+
+    def __init__(self, handle: "Trace"):
+        self.handle = handle
+        first = ", ".join(
+            f"{e['name']} at {e['ts_us']:.1f} us"
+            + (f" in {e['op']}" if e["op"] else "")
+            for e in handle.matched["first_unrecorded"])
+        super().__init__(
+            f"trace: {handle.unrecorded} of {handle.launches} launches in "
+            f"the window have no device record (first: {first}); the trace "
+            f"is {handle.path}")
 
 
 class StageTimer:
@@ -94,11 +150,24 @@ class StageTimer:
 @dataclasses.dataclass
 class Trace:
     """A :func:`trace` in progress: whether it records CUDA activity and,
-    once the trace has stopped, ``path``, the written file."""
+    once the trace has stopped, ``path``, the written file; ``data``, the
+    trace as :func:`read_trace` would return it (parsed once, while it was
+    written); ``launches``, the host's calls in the window that put work
+    on a device, and ``unrecorded``, those of them without a device record
+    (0 in a trace that ``trace`` returned); ``matched``, the whole
+    :func:`unrecorded_launches` result; and the seconds the profiler's
+    export, the parse and the match took."""
 
     logdir: str
     cuda: bool
     path: Optional[str] = None
+    data: Optional[Dict] = None
+    launches: int = 0
+    unrecorded: int = 0
+    matched: Optional[Dict] = None
+    export_s: float = 0.0
+    parse_s: float = 0.0
+    check_s: float = 0.0
 
 
 def _cards() -> List[int]:
@@ -115,22 +184,29 @@ def trace(logdir: str, device=None) -> Iterator[Trace]:
 
     Records host operations, and with ``device`` CUDA (the default, as
     every entry point of the port) the card's kernels, copies and
-    runtime calls too; ``device="cpu"`` records the host only.  The
-    profiler starts with a warm-up step, in which
+    runtime calls too; ``device="cpu"`` records the host only.  On the
+    card the profiler starts with a warm-up step, in which
     :data:`PRIMING_LAUNCHES` small kernels run on each card in use
-    (outside the trace), and before it stops it synchronises each of
-    those cards, so the block's first launches and those still in
-    flight land in the trace.  The trace goes to
+    (outside the trace); once the window has opened, and again before it
+    closes, the host waits :data:`SKEW_PAUSE_S`; and every card in use is
+    synchronised at the block's end, so the block's first launches and
+    those still in flight land in the trace.  The block runs inside a
+    :data:`WINDOW` annotation.  The trace goes to
     ``logdir/plugins/profile/<time>/<host>.trace.json.gz``; the yielded
-    :class:`Trace` names that file once the block has run.
+    :class:`Trace` names that file once the block has run, holds the
+    parsed trace and the launches :func:`unrecorded_launches` matched.
 
     Raises ``RuntimeError`` inside another trace (one profiler runs at a
     time, as in JAX), when CUDA is asked for on a machine without it, and
     when CUDA activity was asked for and the trace recorded none: it
-    never records the host alone in place of the card.
+    never records the host alone in place of the card.  Raises
+    :class:`IncompleteTrace` (a ``RuntimeError``) once the file is
+    written where a launch of the window has no device record: it never
+    returns a trace that lost the card's work.  ``device="cpu"`` records
+    no launch: ``launches`` is 0.
     """
-    from torch.profiler import ProfilerActivity, profile, schedule, \
-        supported_activities
+    from torch.profiler import ProfilerActivity, profile, \
+        record_function, schedule, supported_activities
 
     dev = resolve_device(device)
     if torch._C._autograd._profiler_enabled():
@@ -143,24 +219,29 @@ def trace(logdir: str, device=None) -> Iterator[Trace]:
             raise RuntimeError("trace: this PyTorch cannot record CUDA "
                                "activity (built without CUPTI)")
         activities.append(ProfilerActivity.CUDA)
-    cards = _cards() if handle.cuda else []
+    pause = SKEW_PAUSE_S if handle.cuda else 0.0
     with profile(activities=activities,
                  schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        for index in cards:
+        for index in _cards() if handle.cuda else []:
             cell = torch.zeros(1, device=f"cuda:{index}")
             for _ in range(PRIMING_LAUNCHES):
                 cell.add_(1)
             torch.cuda.synchronize(index)
         prof.step()                            # the traced window opens
-        yield handle
-        for index in _cards() if handle.cuda else []:
-            torch.cuda.synchronize(index)
+        time.sleep(pause)
+        with record_function(WINDOW):
+            yield handle
+            for index in _cards() if handle.cuda else []:
+                torch.cuda.synchronize(index)
+        time.sleep(pause)
     out = os.path.join(logdir, "plugins", "profile",
                        time.strftime("%Y_%m_%d_%H_%M_%S"))
     os.makedirs(out, exist_ok=True)
     path = os.path.join(out, f"{socket.gethostname()}.trace.json.gz")
     raw = path[:-len(".gz")]
+    t0 = time.perf_counter()
     prof.export_chrome_trace(raw)
+    handle.export_s = time.perf_counter() - t0
     with open(raw, "rb") as src:
         text = src.read()
     os.remove(raw)
@@ -169,9 +250,40 @@ def trace(logdir: str, device=None) -> Iterator[Trace]:
     if handle.cuda and b'"cuda_runtime"' not in text:
         raise RuntimeError("trace: CUDA activity was asked for and the "
                            "profiler recorded none")
+    # the compression (which releases the GIL) beside the parse
+    writer = threading.Thread(target=_write_gzip, args=(path, text))
+    writer.start()
+    try:
+        t0 = time.perf_counter()
+        handle.data = json.loads(text)
+        t1 = time.perf_counter()
+        handle.matched = unrecorded_launches(handle.data)
+        handle.parse_s, handle.check_s = t1 - t0, time.perf_counter() - t1
+    finally:
+        writer.join()
+    handle.path = path
+    handle.launches = handle.matched["launches"]
+    handle.unrecorded = handle.matched["unrecorded"]
+    if handle.unrecorded:
+        raise IncompleteTrace(handle)
+
+
+def _write_gzip(path: str, text: bytes) -> None:
     with gzip.open(path, "wb", compresslevel=1) as dst:
         dst.write(text)
-    handle.path = path
+
+
+def retried(window, tries: int = TRACE_TRIES):
+    """``window()``, a block that records a :func:`trace`, run again where
+    it raises :class:`IncompleteTrace`, ``tries`` times in all at most:
+    returns (its result, the tries it took).  The last try's
+    ``IncompleteTrace`` propagates; so does any other error at once."""
+    for attempt in range(1, tries + 1):
+        try:
+            return window(), attempt
+        except IncompleteTrace:
+            if attempt == tries:
+                raise
 
 
 def _tensors(tree) -> Iterator[torch.Tensor]:
@@ -227,6 +339,86 @@ def kernel_durations(trace: Dict, name: str) -> List[float]:
             if name in e["name"]]
 
 
+def unrecorded_launches(trace: Dict, first: int = 5) -> Dict:
+    """Match every host call of the trace that puts work on a device to
+    its device record.
+
+    A launch is a ``cuda_runtime`` or ``cuda_driver`` event named in
+    :data:`LAUNCH_APIS`; its device record is an event of
+    :data:`DEVICE_CATEGORIES` with the same ``args["correlation"]`` (a
+    graph launch's nodes share its correlation: it counts once).  Returns
+    ``launches`` and ``unrecorded`` (those without a device record), by
+    API name in ``by_api`` ({name: [launches, unrecorded]}), the first
+    ``first`` unrecorded ones in host order (``name``, ``ts_us`` after
+    the trace's start, ``position`` among the launches, ``op``: the
+    innermost host operation around the call, or ``None``) and
+    ``unlisted``: the names of other host CUDA calls that have a device
+    record (none, where :data:`LAUNCH_APIS` is complete).
+
+    On an H100 (torch 2.11, CUDA 12.8) kineto writes each call as an
+    ``X`` event of category ``cuda_runtime`` with ``args["correlation"]``,
+    and each kernel, copy and memset as one of category ``kernel``,
+    ``gpu_memcpy`` or ``gpu_memset`` with the same key.  A traced episode
+    with NMS and host copies held these launches: ``cudaLaunchKernel``,
+    ``cudaLaunchKernelExC`` (``cudaLaunchKernelEx``, as ``csrc/nms.cu``
+    launches), ``cudaMemcpyAsync`` and ``cudaMemsetAsync``, every one
+    with its device record; and these calls, none with one:
+    ``cudaDeviceSynchronize``, ``cudaStreamSynchronize``,
+    ``cudaStreamIsCapturing``, ``cudaPeekAtLastError``,
+    ``cudaFuncSetAttribute``, ``cudaEventRecordWithFlags``,
+    ``cudaEventQuery``, ``cudaDeviceGetAttribute``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessorWithFlags`` and
+    ``cudaPointerGetAttributes``."""
+    device, host = frozenset(DEVICE_CATEGORIES), frozenset(LAUNCH_CATEGORIES)
+    recorded, calls = set(), []
+    for e in trace["traceEvents"]:
+        cat = e.get("cat")
+        if cat in device:
+            recorded.add(e.get("args", _NO_ARGS).get("correlation"))
+        elif cat in host:
+            calls.append(e)
+    launches, lost, unlisted = [], [], set()
+    by_api: Dict[str, List[int]] = {}
+    for e in calls:
+        seen = e.get("args", _NO_ARGS).get("correlation") in recorded
+        if e["name"] in LAUNCH_NAMES:
+            launches.append(e)
+            counts = by_api.setdefault(e["name"], [0, 0])
+            counts[0] += 1
+            if not seen:
+                lost.append(e)
+                counts[1] += 1
+        elif seen:
+            unlisted.add(e["name"])
+    return dict(launches=len(launches), unrecorded=len(lost), by_api=by_api,
+                first_unrecorded=_first_lost(trace, launches, lost, first),
+                unlisted=sorted(unlisted))
+
+
+def _first_lost(trace: Dict, launches: List[Dict], lost: List[Dict],
+                first: int) -> List[Dict]:
+    """The first ``first`` of ``lost`` in host order, placed in the
+    trace (a second pass over the events, made only where one was lost)."""
+    if not lost or first <= 0:
+        return []
+    spans = _complete(trace, ("Trace",))
+    start = min(e["ts"] for e in spans or launches)
+    order = sorted(launches, key=lambda e: e["ts"])
+    position = {id(e): k for k, e in enumerate(order)}
+    ops = _complete(trace, ("cpu_op", "user_annotation"))
+    out = []
+    for e in sorted(lost, key=lambda e: e["ts"])[:first]:
+        around = [o for o in ops if o["ts"] <= e["ts"]
+                  and e["ts"] + e["dur"] <= o["ts"] + o["dur"]
+                  and not o["name"].startswith("ProfilerStep#")
+                  and o["name"] != WINDOW]
+        op = min(around, key=lambda o: o["dur"], default=None)
+        out.append(dict(name=e["name"], ts_us=e["ts"] - start,
+                        position=position[id(e)],
+                        op=op["name"] if op else None))
+    return out
+
+
 def _merged(intervals) -> List[List[float]]:
     out: List[List[float]] = []
     for start, end in sorted(intervals):
@@ -238,19 +430,25 @@ def _merged(intervals) -> List[List[float]]:
 
 
 def device_summary(trace: Dict, top: int = 10, gaps: int = 3) -> Dict:
-    """What the devices did over the trace's window (the profiler's span).
+    """What the devices did over the trace's window: :func:`trace`'s
+    :data:`WINDOW` annotation, else the profiler's span.
 
     ``busy_share``: the union of kernel, copy and memset intervals over
     the span (any device); ``top``: the device operations that took the
     most time, by name; ``gaps``: the longest stretches with no device
     work, each with the host operation (an op, a runtime call) that
-    overlapped it most (``None`` where the host ran Python only).  Times
-    in us."""
-    spans = _complete(trace, ("Trace",))
+    overlapped it most (``None`` where the host ran Python only);
+    ``launches`` and ``unrecorded_launches``: the window's launches and
+    those the profiler lost (:func:`unrecorded_launches`), whose device
+    time the busy share lacks.  Times in us."""
+    matched = unrecorded_launches(trace, first=0)
+    spans = [e for e in _complete(trace, ("user_annotation",))
+             if e["name"] == WINDOW] or _complete(trace, ("Trace",))
     events = _complete(trace, DEVICE_CATEGORIES)
-    # the profiler's own step annotation spans the whole window
+    # the profiler's own step annotation and trace's window span it all
     host = [e for e in _complete(trace, HOST_CATEGORIES)
-            if not e["name"].startswith("ProfilerStep#")]
+            if not e["name"].startswith("ProfilerStep#")
+            and e["name"] != WINDOW]
     if spans:
         lo = min(e["ts"] for e in spans)
         hi = max(e["ts"] + e["dur"] for e in spans)
@@ -283,6 +481,8 @@ def device_summary(trace: Dict, top: int = 10, gaps: int = 3) -> Dict:
     return dict(
         span_us=hi - lo, busy_us=busy_us,
         busy_share=busy_us / (hi - lo) if hi > lo else 0.0,
+        launches=matched["launches"],
+        unrecorded_launches=matched["unrecorded"],
         device_events=len(events),
         top=[dict(name=n, count=c, total_us=t, share=t / (hi - lo))
              for n, (c, t) in ranked],

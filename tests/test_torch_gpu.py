@@ -1125,6 +1125,7 @@ def test_block_waits_for_the_card(cuda):
     from mass_tpu_torch.utils import profiling
 
     x = torch.zeros(4, device=cuda)
+    x += 1                   # the add's kernel loaded before the sleep
     torch.cuda.synchronize()
     torch.cuda._sleep(20_000_000)          # cycles: about 10 ms
     x += 1
@@ -1133,31 +1134,98 @@ def test_block_waits_for_the_card(cuda):
     assert torch.cuda.current_stream().query()
 
 
-def test_trace_records_every_launch(cuda, tmp_path):
-    """A trace on the card holds one kernel event per launch the wrappers
-    count: 20 single-map splats and 20 NMS launches of the chosen streams
-    in one padded batch (19 problems of 1,024 boxes, whose shared memory
+def _two_kernels(cuda):
+    """20 single-map splats and 20 NMS launches of the chosen streams in
+    one padded batch (19 problems of 1,024 boxes, whose shared memory
     limit is raised at every launch), back to back."""
     from mass_tpu_torch.ops import detection as D
-    from mass_tpu_torch.utils import profiling
 
     data, _, runs = _sorted(cuda)
     gpu = data.to(cuda)
     boxes, scores, _, outputs = TS.nms_batch(sorted(TS.NMS_STREAMS), seed=3)
     boxes, scores = torch.from_numpy(boxes).to(cuda), \
         torch.from_numpy(scores).to(cuda)
-    splats, nms = SP.LAUNCHES, D.LAUNCHES
-    with profiling.trace(str(tmp_path)) as handle:
-        assert handle.cuda
+
+    def window():
         for _ in range(20):
             SP.apply_records(gpu, runs, 0.5)
             D.nms(boxes, scores, 0.5, outputs)
-    assert (SP.LAUNCHES - splats, D.LAUNCHES - nms) == (20, 20)
+    return window
+
+
+def test_trace_records_every_launch(cuda, tmp_path):
+    """A trace on the card holds one kernel event per launch the wrappers
+    count (:func:`_two_kernels`), and every launch of its window has its
+    device record: ``unrecorded`` is 0 and ``launches`` covers the 40
+    counted ones."""
+    from mass_tpu_torch.ops import detection as D
+    from mass_tpu_torch.utils import profiling
+
+    window = _two_kernels(cuda)
+    splats, nms = SP.LAUNCHES, D.LAUNCHES
+
+    def traced():
+        with profiling.trace(str(tmp_path)) as handle:
+            assert handle.cuda
+            window()
+        return handle
+    handle, tries = profiling.retried(traced)
+    assert (SP.LAUNCHES - splats, D.LAUNCHES - nms) == (20 * tries,
+                                                        20 * tries)
+    assert handle.unrecorded == 0 and handle.launches >= 40
+    assert handle.matched["by_api"]["cudaLaunchKernelExC"] == [20, 0]
+    assert handle.matched["unlisted"] == []
     trace = profiling.read_trace(handle.path)
+    assert trace == handle.data
     assert len(profiling.kernel_durations(trace, "splat_onehot_kernel")) \
         == 20
     assert len(profiling.kernel_durations(trace, "nms_kernel")) == 20
-    assert profiling.device_summary(trace)["busy_share"] > 0
+    summary = profiling.device_summary(trace)
+    assert summary["busy_share"] > 0
+    assert (summary["launches"], summary["unrecorded_launches"]) == \
+        (handle.launches, 0)
+
+
+def test_matcher_sees_every_launch_a_session_lost(cuda, tmp_path):
+    """Six plain profiler sessions (CPU and CUDA activity, no warm-up) of
+    :func:`_two_kernels`' window, after the port's kernels have run:
+    in each, ``unrecorded_launches`` counts every NMS launch the session
+    lacks as unrecorded (its ``cudaLaunchKernelExC`` calls, exactly), and
+    at least every launch of either kernel it lacks; and a trace of the
+    window either returns complete or raises IncompleteTrace with its
+    file on disk."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mass_tpu_torch.utils import profiling
+
+    window = _two_kernels(cuda)
+    window()
+    torch.cuda.synchronize()
+    for session in range(6):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            window()
+            torch.cuda.synchronize()
+        path = str(tmp_path / f"session{session}.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+        matched = profiling.unrecorded_launches(trace)
+        splats = len(profiling.kernel_durations(trace, "splat_onehot_kernel"))
+        nms = len(profiling.kernel_durations(trace, "nms_kernel"))
+        assert matched["by_api"]["cudaLaunchKernelExC"] == [20, 20 - nms]
+        assert matched["unrecorded"] >= (20 - splats) + (20 - nms)
+        assert matched["unlisted"] == []
+    for _ in range(3):
+        try:
+            with profiling.trace(str(tmp_path / "trace")) as handle:
+                window()
+        except profiling.IncompleteTrace as e:
+            assert e.handle.unrecorded > 0 and os.path.exists(e.handle.path)
+            continue
+        assert handle.unrecorded == 0
+        assert len(profiling.kernel_durations(handle.data, "nms_kernel")) \
+            == 20
 
 
 # ----------------------------------------------------------------------
@@ -1166,18 +1234,31 @@ def test_trace_records_every_launch(cuda, tmp_path):
 
 @pytest.mark.parametrize("phase", ["fleet default", "fleet compat",
                                    "fleet A", "fleet B", "fleet C",
-                                   "fleet features", "learned"])
+                                   "fleet features", "learned", "tooling",
+                                   "shard episode"])
 def test_small_phases_on_card_equal_cpu(cuda, phase, monkeypatch):
     """``chip_smoke.py``'s small episodes (default, compat, each goal
     head's, the feature-matching protocol's tasks 0 and 2), its small
-    fleets of each (B = 2) and its small learned episode, run on the card
-    and on the CPU by the script's own phase functions: results and
-    actions equal, each fleet's equal to the sequential agent's (the
-    script runs only the card's half, to stay within its time limit)."""
+    fleets of each (B = 2), its small learned episode, its tooling runs
+    (``--videos --snapshot-maps`` default and ``--snapshot-maps`` compat:
+    frames within one level, npz bit-equal) and its small episode in 4
+    slabs, run on the card and on the CPU by the script's own phase
+    functions: results and actions equal, each fleet's equal to the
+    sequential agent's (the script runs only the card's half, to stay
+    within its time limit)."""
     monkeypatch.syspath_prepend(REPO)
     import chip_smoke as C
 
-    if phase == "learned":
+    if phase == "tooling":
+        out = C.phase_tooling_small()
+        for name in ("default", "compat"):
+            assert out[name]["results_equal"] and out[name]["cpu_s"] > 0
+            assert out[name]["frame_levels"] <= C.FRAME_LEVELS
+        return
+    if phase == "shard episode":
+        out = C.phase_shard_small_episode(
+            C.phase_small_episodes(cpu=False))
+    elif phase == "learned":
         out = C.phase_small_learned()
     elif phase == "fleet features":
         out = C.phase_small_feature_fleet(C.phase_small_features())

@@ -186,7 +186,9 @@ SCRIPT = textwrap.dedent("""
     from mass_tpu_torch.utils import profiling
     assert "mass_tpu_torch.utils.profiling" in names
     for entry in (profiling.trace, profiling.block, profiling.read_trace,
-                  profiling.kernel_durations, profiling.device_summary):
+                  profiling.kernel_durations, profiling.device_summary,
+                  profiling.unrecorded_launches, profiling.retried,
+                  profiling.IncompleteTrace):
         assert callable(entry), entry
     cpu4 = mesh.make_mesh((4,), ("map",), ["cpu"] * 4)
     assert sharding.ShardedVoxelMap.create(

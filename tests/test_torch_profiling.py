@@ -220,3 +220,214 @@ def test_device_summary_of_a_made_up_timeline():
         (35.0, 45.0, "cudaStreamSynchronize"), (0.0, 10.0, "aten::sort")]
     assert TP.kernel_durations({"traceEvents": events}, "nms_kernel") == \
         [5.0, 6.0]
+
+
+def _call(cat, name, ts, correlation, dur=2.0):
+    return dict(ph="X", cat=cat, name=name, ts=ts, dur=dur,
+                args={"correlation": correlation})
+
+
+# made-up windows for the launch matcher: (events, launches, unrecorded,
+# by_api, first unrecorded names)
+_KERNEL = "void at::native::vectorized_elementwise_kernel<4>()"
+_WINDOWS = {
+    "complete": (
+        [_call("cuda_runtime", "cudaLaunchKernel", 10.0, 1),
+         _call("kernel", _KERNEL, 12.0, 1),
+         _call("cuda_runtime", "cudaMemcpyAsync", 20.0, 2),
+         _call("gpu_memcpy", "Memcpy DtoH (Device -> Pinned)", 22.0, 2),
+         _call("cuda_runtime", "cudaMemsetAsync", 30.0, 3),
+         _call("gpu_memset", "Memset (Device)", 31.0, 3)],
+        3, 0, {"cudaLaunchKernel": [1, 0], "cudaMemcpyAsync": [1, 0],
+               "cudaMemsetAsync": [1, 0]}, []),
+    "lost kernel": (
+        [_call("cuda_runtime", "cudaLaunchKernel", 10.0, 1),
+         _call("cuda_runtime", "cudaLaunchKernel", 20.0, 2),
+         _call("kernel", _KERNEL, 22.0, 2)],
+        2, 1, {"cudaLaunchKernel": [2, 1]}, ["cudaLaunchKernel"]),
+    "lost copy": (
+        [_call("cuda_runtime", "cudaLaunchKernel", 10.0, 1),
+         _call("kernel", _KERNEL, 12.0, 1),
+         _call("cuda_runtime", "cudaMemcpyAsync", 20.0, 2)],
+        2, 1, {"cudaLaunchKernel": [1, 0], "cudaMemcpyAsync": [1, 1]},
+        ["cudaMemcpyAsync"]),
+    "lost cluster launch": (
+        [_call("cuda_runtime", "cudaFuncSetAttribute", 9.0, 1),
+         _call("cuda_runtime", "cudaLaunchKernelExC", 10.0, 2),
+         _call("cuda_runtime", "cudaFuncSetAttribute", 19.0, 3),
+         _call("cuda_runtime", "cudaLaunchKernelExC", 20.0, 4),
+         _call("kernel", "nms_kernel(float4 const*)", 22.0, 4),
+         _call("cuda_driver", "cuLaunchKernel", 30.0, 5),
+         _call("kernel", "toy_kernel(float*)", 31.0, 5)],
+        3, 1, {"cudaLaunchKernelExC": [2, 1], "cuLaunchKernel": [1, 0]},
+        ["cudaLaunchKernelExC"]),
+    "graph launch": (
+        [_call("cuda_runtime", "cudaGraphLaunch", 10.0, 7),
+         _call("kernel", _KERNEL, 12.0, 7),
+         _call("kernel", "nms_kernel(float4 const*)", 13.0, 7),
+         _call("gpu_memcpy", "Memcpy DtoD (Device -> Device)", 14.0, 7)],
+        1, 0, {"cudaGraphLaunch": [1, 0]}, []),
+    "syncs left out": (
+        [_call("cuda_runtime", "cudaFuncSetAttribute", 9.0, 1),
+         _call("cuda_runtime", "cudaStreamSynchronize", 10.0, 2),
+         _call("cuda_runtime", "cudaDeviceSynchronize", 11.0, 3),
+         _call("cuda_runtime", "cudaEventRecord", 12.0, 4),
+         _call("cuda_runtime", "cudaStreamIsCapturing", 13.0, 5),
+         _call("cuda_runtime", "cudaLaunchKernel_ptsz", 20.0, 6),
+         _call("kernel", _KERNEL, 21.0, 6)],
+        1, 0, {"cudaLaunchKernel_ptsz": [1, 0]}, []),
+}
+
+
+@pytest.mark.parametrize("window", sorted(_WINDOWS))
+def test_unrecorded_launches_of_made_up_windows(window):
+    """Every host call that puts work on the card is matched to its device
+    record by correlation: a kernel, a copy, a memset; a graph launch's
+    nodes count once; synchronisations, event records and
+    cudaFuncSetAttribute are no launch."""
+    events, launches, unrecorded, by_api, names = _WINDOWS[window]
+    trace = {"traceEvents": [
+        _event("Trace", "PyTorch Profiler (0)", 5.0, 40.0),
+        _event("user_annotation", "ProfilerStep#1", 5.0, 40.0),
+        _event("cpu_op", "aten::fill_", 19.0, 5.0)] + events
+        + [{"ph": "M", "name": "process_name", "pid": 1},
+           {"ph": "f", "cat": "ac2g", "name": "ac2g", "id": 1, "ts": 12.0}]}
+    got = TP.unrecorded_launches(trace)
+    assert (got["launches"], got["unrecorded"]) == (launches, unrecorded)
+    assert got["by_api"] == by_api and got["unlisted"] == []
+    assert [e["name"] for e in got["first_unrecorded"]] == names
+    for e in got["first_unrecorded"]:
+        # the lost call at 20 us lies inside aten::fill_ (19-24 us); the
+        # one at 10 us inside no op; ts from the trace's start (5 us)
+        assert e["op"] == ("aten::fill_" if e["ts_us"] == 15.0 else None)
+    summary = TP.device_summary(trace)
+    assert (summary["launches"], summary["unrecorded_launches"]) == \
+        (launches, unrecorded)
+
+
+def test_unrecorded_launches_names_unlisted_calls():
+    """A host call outside LAUNCH_APIS that left a device record is
+    named, so a missing API name shows."""
+    trace = {"traceEvents": [
+        _call("cuda_runtime", "cudaLaunchHostFunc", 10.0, 1),
+        _call("cuda_runtime", "cudaMemcpy3DAsync", 20.0, 2),
+        _call("gpu_memcpy", "Memcpy HtoD (Pinned -> Device)", 21.0, 2)]}
+    got = TP.unrecorded_launches(trace)
+    assert (got["launches"], got["unrecorded"]) == (0, 0)
+    assert got["unlisted"] == ["cudaMemcpy3DAsync"]
+
+
+def test_device_summary_reports_lost_launches():
+    """``device_summary`` carries the window's launches and those without
+    a device record beside its busy share, which lacks their time."""
+    trace = {"traceEvents": [
+        _event("Trace", "PyTorch Profiler (0)", 0.0, 100.0),
+        _call("cuda_runtime", "cudaLaunchKernel", 10.0, 1),
+        _call("cuda_runtime", "cudaLaunchKernel", 20.0, 2),
+        _call("kernel", _KERNEL, 22.0, 2, dur=30.0),
+        _call("cuda_runtime", "cudaMemcpyAsync", 60.0, 3)]}
+    summary = TP.device_summary(trace)
+    assert summary["busy_share"] == 0.3
+    assert (summary["launches"], summary["unrecorded_launches"]) == (3, 2)
+
+
+def test_cpu_trace_matches_no_launch(tmp_path):
+    """A CPU trace records no launch: 0 launches, nothing raised; the
+    handle holds the parsed trace, equal to the file's."""
+    fr = _frame(0)
+    with TP.trace(str(tmp_path), device="cpu") as handle:
+        _torch_update(fr)
+    path, trace = _only_trace(tmp_path)
+    assert (handle.launches, handle.unrecorded) == (0, 0)
+    assert handle.matched["first_unrecorded"] == []
+    assert handle.data == trace and handle.path == path
+    assert handle.export_s > 0 and handle.parse_s > 0 and handle.check_s > 0
+
+
+def test_trace_refuses_a_window_that_lost_a_launch(tmp_path, monkeypatch):
+    """Where the matcher finds a launch without its device record,
+    ``trace`` raises IncompleteTrace (a RuntimeError) naming the counts
+    and the first lost call, and leaves the file for inspection."""
+    lost = dict(launches=40, unrecorded=3, by_api={},
+                first_unrecorded=[dict(name="cudaLaunchKernelExC",
+                                       ts_us=12.5, position=1, op=None)],
+                unlisted=[])
+    monkeypatch.setattr(TP, "unrecorded_launches", lambda trace: lost)
+    with pytest.raises(TP.IncompleteTrace,
+                       match=r"3 of 40 launches .* cudaLaunchKernelExC at "
+                             r"12\.5 us") as raised:
+        with TP.trace(str(tmp_path), device="cpu"):
+            _torch_update(_frame(0))
+    assert isinstance(raised.value, RuntimeError)
+    handle = raised.value.handle
+    assert (handle.launches, handle.unrecorded) == (40, 3)
+    path, _ = _only_trace(tmp_path)
+    assert handle.path == path
+
+
+@pytest.mark.parametrize("failures", [0, 1, 2, 3])
+def test_retried_runs_an_incomplete_window_again(failures):
+    """``retried`` re-runs a window that raised IncompleteTrace, three
+    tries in all; the third failure propagates."""
+    tries = []
+
+    def window():
+        tries.append(1)
+        if len(tries) <= failures:
+            raise TP.IncompleteTrace(TP.Trace(
+                "logdir", cuda=True, path="t.json.gz", launches=2,
+                unrecorded=1, matched=dict(first_unrecorded=[])))
+        return "handle"
+
+    if failures < TP.TRACE_TRIES:
+        assert TP.retried(window) == ("handle", failures + 1)
+    else:
+        with pytest.raises(TP.IncompleteTrace, match="1 of 2 launches"):
+            TP.retried(window)
+    assert len(tries) == min(failures + 1, TP.TRACE_TRIES)
+
+
+def test_retried_lets_other_errors_through():
+    def window():
+        raise RuntimeError("CUDA activity was asked for and the profiler "
+                           "recorded none")
+
+    with pytest.raises(RuntimeError, match="recorded none"):
+        TP.retried(window)
+
+
+def test_device_summary_reads_the_window_annotation():
+    """Where the trace holds ``trace``'s window annotation, the summary's
+    span is the annotation's, not the profiler's (which includes the
+    pauses at each end), and the annotation is no host operation of a
+    gap."""
+    trace = {"traceEvents": [
+        _event("Trace", "PyTorch Profiler (0)", 0.0, 200.0),
+        _event("user_annotation", TP.WINDOW, 50.0, 100.0),
+        _call("cuda_runtime", "cudaLaunchKernel", 60.0, 1),
+        _call("kernel", _KERNEL, 70.0, 1, dur=25.0)]}
+    summary = TP.device_summary(trace, gaps=1)
+    assert summary["span_us"] == 100.0 and summary["busy_share"] == 0.25
+    assert summary["gaps"] == [dict(start_us=45.0, length_us=55.0,
+                                    host=None)]
+    with_trace = TP.device_summary({"traceEvents": trace["traceEvents"][:1]
+                                    + trace["traceEvents"][2:]})
+    assert with_trace["span_us"] == 200.0
+
+
+def test_cpu_trace_annotates_its_window(tmp_path):
+    """The traced block runs inside one window annotation, which holds
+    the block's host operations."""
+    with TP.trace(str(tmp_path), device="cpu") as handle:
+        _torch_update(_frame(0))
+    windows = [e for e in handle.data["traceEvents"]
+               if e.get("name") == TP.WINDOW]
+    assert len(windows) == 1 and windows[0]["cat"] == "user_annotation"
+    lo, hi = windows[0]["ts"], windows[0]["ts"] + windows[0]["dur"]
+    sorts = [e for e in handle.data["traceEvents"]
+             if e.get("name") == "aten::sort"]
+    assert sorts and all(lo <= e["ts"] and e["ts"] + e["dur"] <= hi
+                         for e in sorts)
+    # (hi - lo in float64 against the file's rounded dur)
+    assert TP.device_summary(handle.data)["span_us"] == \
+        pytest.approx(windows[0]["dur"], abs=1e-3)
