@@ -1,0 +1,49 @@
+"""Faults planted in the timed path, underneath the harness, for the
+tests that see ``correct`` come out false: maps left unchanged, half of
+the batch left out, a plan's target altered where it is produced, a
+frame's classes altered where the sensor produces them.  One card: there
+is no exchange between chips to leave out."""
+
+import numpy as np
+
+FAULTS = ("state_unchanged", "half_batch_left_out", "answer_altered",
+          "class_altered")
+
+
+def plant(name, monkeypatch) -> None:
+    from mass_tpu_torch.nav import grid as NG
+    from mass_tpu_torch.parallel.fleet import FleetMaps
+    from mass_tpu_torch.perception import segmentation
+
+    update, to_host = FleetMaps.update_batch, NG.plan_to_host
+    if name == "state_unchanged":
+        monkeypatch.setattr(FleetMaps, "update_batch",
+                            lambda self, *a, **k: None)
+    elif name == "half_batch_left_out":
+        def half(self, *a, active=None, **k):
+            keep = np.arange(self.batch) < self.batch // 2
+            return update(self, *a, active={n: m & keep
+                                            for n, m in active.items()}, **k)
+        monkeypatch.setattr(FleetMaps, "update_batch", half)
+    elif name == "answer_altered":
+        def altered(*a):
+            dist, tgt, agent, er, ed = to_host(*a)
+            tgt[0, 0] += 1
+            return dist, tgt, agent, er, ed
+        monkeypatch.setattr(NG, "plan_to_host", altered)
+    elif name == "class_altered":
+        make = segmentation.make_batched_sensor
+
+        def altered_sensor(sensor):
+            batched = make(sensor)
+
+            def run_(rgb):
+                # the first frame's answer altered: every pixel one class on
+                out = batched(rgb)
+                out[0] = (out[0] + 1) % 54
+                return out
+            return run_
+        monkeypatch.setattr(segmentation, "make_batched_sensor",
+                            altered_sensor)
+    else:
+        raise KeyError(name)
