@@ -14,6 +14,10 @@ updates, the row-local reads and the coordinate transforms) lives in
 :class:`BaseVoxelMap`, written against :meth:`~BaseVoxelMap.slabs` and
 :meth:`~BaseVoxelMap.rows`; ``parallel/sharding.ShardedVoxelMap`` is the
 same map cut into row slabs over several devices.
+
+An update's parts run in ``mass.mapping.records`` (binning, corner
+records, the class upsample) and ``mass.mapping.splat`` (sort and
+splat) spans (``utils/profiling.span``), as the fleet's do.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from mass_tpu_torch.config import MapGeometry
 from mass_tpu_torch.core import geometry as G
 from mass_tpu_torch.ops import scatter as S
 from mass_tpu_torch.ops import splat as SP
+from mass_tpu_torch.utils.profiling import span
 
 
 def _bins(origin, g: MapGeometry, device):
@@ -123,8 +128,10 @@ class BaseVoxelMap:
         """EMA-blend one frame's dense records (``features [N, F]``) into
         the map in place, sorted once (the dense splat kernel on CUDA,
         one launch a slab; its plain version on the CPU)."""
-        records = SP.sorted_dense_records(ids, weights, features.shape[0])
-        apply_dense_records(self, records, features)
+        with span("mass.mapping.splat"):
+            records = SP.sorted_dense_records(ids, weights,
+                                              features.shape[0])
+            apply_dense_records(self, records, features)
         return self
 
     def update_classes(self, rays, position, yaw, elevation, depth,
@@ -133,10 +140,11 @@ class BaseVoxelMap:
         """Project an ``[h, w]`` integer class image (implicit
         ``one_hot(classes, F)`` features) into the map in place."""
         h, w = rays.shape[0], rays.shape[1]
-        classes = G.upsample_features(classes[..., None], h, w)[..., 0]
-        ids, weights = self.contributions(rays, position, yaw, elevation,
-                                          depth, min_ray_depth,
-                                          max_ray_depth)
+        with span("mass.mapping.records"):
+            classes = G.upsample_features(classes[..., None], h, w)[..., 0]
+            ids, weights = self.contributions(rays, position, yaw,
+                                              elevation, depth,
+                                              min_ray_depth, max_ray_depth)
         return self.apply_onehot(ids, weights, classes)
 
     def update(self, rays, position, yaw, elevation, depth, features,
@@ -155,10 +163,11 @@ class BaseVoxelMap:
             the ray grid if smaller.
         """
         h, w = rays.shape[0], rays.shape[1]
-        features = G.upsample_features(features, h, w)
-        ids, weights = self.contributions(rays, position, yaw, elevation,
-                                          depth, min_ray_depth,
-                                          max_ray_depth)
+        with span("mass.mapping.records"):
+            features = G.upsample_features(features, h, w)
+            ids, weights = self.contributions(rays, position, yaw,
+                                              elevation, depth,
+                                              min_ray_depth, max_ray_depth)
         return self.apply_dense(ids, weights, features.reshape(
             -1, self.geometry.feature_size))
 
@@ -298,13 +307,15 @@ class VoxelMap(BaseVoxelMap):
           upsampled to the ray grid).
         """
         h, w = rays.shape[0], rays.shape[1]
-        ids, weights = self.contributions_frames(
-            rays, positions, yaws, elevations, depths, min_ray_depth,
-            max_ray_depth)
-        classes = G.upsample_features(classes[..., None], h, w)[..., 0]
-        SP.splat_onehot_frames(self.data, ids, weights,
-                               classes.reshape(classes.shape[0], -1),
-                               self.geometry.interpolation_weight)
+        with span("mass.mapping.records"):
+            ids, weights = self.contributions_frames(
+                rays, positions, yaws, elevations, depths, min_ray_depth,
+                max_ray_depth)
+            classes = G.upsample_features(classes[..., None], h, w)[..., 0]
+        with span("mass.mapping.splat"):
+            SP.splat_onehot_frames(self.data, ids, weights,
+                                   classes.reshape(classes.shape[0], -1),
+                                   self.geometry.interpolation_weight)
         return self
 
 
@@ -449,27 +460,29 @@ def apply_onehot_group(vms, ids, weights, classes_list):
     at most four: two to four maps in one launch of the multi-map kernel,
     one map in one launch of the single-map kernel.  Each map equals its
     own single-map update bit for bit, so the group equals per-map
-    updates, and a sharded map equals the unsharded one."""
+    updates, and a sharded map equals the unsharded one.  Runs in one
+    ``mass.mapping.splat`` span."""
     vms = list(vms)
-    parts = _shared_slabs(vms)
-    first, slab = parts[0][-1]
-    SP.check_voxels(first + slab.shape[0])
-    records = SP.sorted_records_multi(
-        ids, weights, [c.reshape(-1) for c in classes_list])
-    iws = [vm.geometry.interpolation_weight for vm in vms]
-    for k, (first, slab) in enumerate(parts[0]):
-        slab_records = SP.rebase_records(records, first, slab.device)
-        datas = [p[k][1] for p in parts]
-        for lo in range(0, len(vms), SP.MAX_MAPS):
-            chunk = datas[lo:lo + SP.MAX_MAPS]
-            classes = slab_records.classes[lo:lo + len(chunk)]
-            if len(chunk) == 1:
-                SP.apply_records(chunk[0], slab_records._replace(
-                    classes=classes[0]), iws[lo])
-            else:
-                SP.apply_records_multi(chunk, slab_records._replace(
-                    classes=classes), iws[lo:lo + len(chunk)])
-    return vms
+    with span("mass.mapping.splat"):
+        parts = _shared_slabs(vms)
+        first, slab = parts[0][-1]
+        SP.check_voxels(first + slab.shape[0])
+        records = SP.sorted_records_multi(
+            ids, weights, [c.reshape(-1) for c in classes_list])
+        iws = [vm.geometry.interpolation_weight for vm in vms]
+        for k, (first, slab) in enumerate(parts[0]):
+            slab_records = SP.rebase_records(records, first, slab.device)
+            datas = [p[k][1] for p in parts]
+            for lo in range(0, len(vms), SP.MAX_MAPS):
+                chunk = datas[lo:lo + SP.MAX_MAPS]
+                classes = slab_records.classes[lo:lo + len(chunk)]
+                if len(chunk) == 1:
+                    SP.apply_records(chunk[0], slab_records._replace(
+                        classes=classes[0]), iws[lo])
+                else:
+                    SP.apply_records_multi(chunk, slab_records._replace(
+                        classes=classes), iws[lo:lo + len(chunk)])
+        return vms
 
 
 def apply_dense_records(vm: BaseVoxelMap, records: SP.DenseRecords,

@@ -22,6 +22,11 @@ camera, through the dense splat.
 axis (``parallel/sharding.py``): n slabs, one on each of the axis's devices,
 each updated by its own splat launch from the frame's one binning pass;
 the layer's ``device`` is the axis's first device.
+
+An update's parts run in ``mass.mapping.*`` spans as the fleet's do
+(``utils/profiling.span``): ``upload`` (the observation's pose, depth
+and class image or RGB to the layer's device), ``records`` and
+``splat``.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from mass_tpu_torch.core import geometry as G
 from mass_tpu_torch.core.voxelmap import VoxelMap, apply_onehot_group
 from mass_tpu_torch.parallel.mesh import canonical_device
 from mass_tpu_torch.parallel.sharding import ShardedVoxelMap
+from mass_tpu_torch.utils.profiling import span
 
 
 def _pose_args(observation: Dict, device):
@@ -160,10 +166,12 @@ class FeatureMap(_BaseMap):
         return _rgb(observation, self.device)
 
     def update_from_observation(self, observation: Dict) -> None:
-        position, yaw, elevation, depth = _pose_args(observation,
-                                                     self.device)
+        with span("mass.mapping.upload"):
+            position, yaw, elevation, depth = _pose_args(observation,
+                                                         self.device)
+            rgb = self.aux_from_observation(observation)
         k = self.stride
-        feats = self.backbone(self.aux_from_observation(observation))
+        feats = self.backbone(rgb)
         self.voxel_map.update(self.rays, position, yaw, elevation,
                               depth[k // 2::k, k // 2::k].contiguous(),
                               feats)
@@ -190,9 +198,11 @@ class ClipMap(_BaseMap):
         return _rgb(observation, self.device)
 
     def update_from_observation(self, observation: Dict) -> None:
-        position, yaw, elevation, depth = _pose_args(observation,
-                                                     self.device)
-        embedding = self.encoder(self.aux_from_observation(observation))
+        with span("mass.mapping.upload"):
+            position, yaw, elevation, depth = _pose_args(observation,
+                                                         self.device)
+            rgb = self.aux_from_observation(observation)
+        embedding = self.encoder(rgb)
         h, w = depth.shape[0], depth.shape[1]
         self.voxel_map.update(
             self.rays, position, yaw, elevation,
@@ -222,17 +232,19 @@ class MapSet(dict):
                 layer.update_from_observation(observation)
                 continue
             vm, g = layer.voxel_map, layer.geometry
-            position, yaw, elevation, depth = _pose_args(observation,
-                                                         layer.device)
+            with span("mass.mapping.upload"):
+                position, yaw, elevation, depth = _pose_args(observation,
+                                                             layer.device)
+                aux = layer.aux_from_observation(observation)
             sig = (tuple(layer.rays.shape), g.map_height, g.map_width,
                    g.map_depth, g.grid_resolution,
                    tuple(slab.device for _, slab in vm.slabs()))
-            if sig not in shared:
-                shared[sig] = vm.contributions(layer.rays, position, yaw,
-                                               elevation, depth)
-            grouped.setdefault(sig, []).append(
-                (layer, layer.classes_for(
-                    layer.aux_from_observation(observation), depth)))
+            with span("mass.mapping.records"):
+                if sig not in shared:
+                    shared[sig] = vm.contributions(layer.rays, position,
+                                                   yaw, elevation, depth)
+                grouped.setdefault(sig, []).append(
+                    (layer, layer.classes_for(aux, depth)))
         for sig, members in grouped.items():
             ids, weights = shared[sig]
             apply_onehot_group([layer.voxel_map for layer, _ in members],

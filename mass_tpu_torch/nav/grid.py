@@ -10,6 +10,12 @@ failed-action prunes stay sticky in ``NavGrid.pruned``; ``monotone=True``
 keeps the reference's only-ever-remove rule.  Path extraction backtracks
 the distance field on the host.
 
+A plan's parts run in ``mass.planning.*`` spans (``utils/profiling.span``):
+``refresh`` (the navigable area and the mesh's refresh), ``snap`` (agent
+and goal cells, seeds, nearest nodes), ``bfs`` (the whole field) with a
+``bfs_check`` span around each convergence check inside it, and
+``to_host`` (:func:`plan_to_host`'s copy).
+
 Every mesh function also takes a batch of G meshes (masks ``[G, ny,
 nx]``, offsets a ``[G]`` tensor; :func:`stack_grids`), which
 :func:`plan_batch` plans at once for a fleet of episodes; each mesh of a
@@ -26,6 +32,7 @@ import torch
 from mass_tpu_torch.core import geometry as G
 from mass_tpu_torch.core.voxelmap import VoxelMap, world_to_cells
 from mass_tpu_torch.ops.pool import max_pool2d_same
+from mass_tpu_torch.utils.profiling import span
 
 INF = 1 << 28
 
@@ -218,33 +225,42 @@ def distance_field_from_seeds(grid: NavGrid,
     batch) from a seed node set over alive nodes and intact edges;
     ``INF`` where unreachable.  Relaxes 8 hops between host convergence
     checks, one check for the whole batch (hops past a mesh's fixpoint
-    change nothing)."""
-    alive = grid.alive
-    er = grid.edge_right & alive & torch.roll(alive, -1, dims=-1)
-    ed = grid.edge_down & alive & torch.roll(alive, -1, dims=-2)
-    er_l = torch.roll(er, 1, dims=-1)
-    er_l[..., :, 0] = False
-    ed_u = torch.roll(ed, 1, dims=-2)
-    ed_u[..., 0, :] = False
-    inf = torch.full_like(alive, INF, dtype=torch.int32)
+    change nothing).  The field runs in a ``mass.planning.bfs`` span and
+    each check in a ``mass.planning.bfs_check`` span inside it: a field
+    of c checks relaxed 8c + 1 hops."""
+    with span("mass.planning.bfs"):
+        alive = grid.alive
+        er = grid.edge_right & alive & torch.roll(alive, -1, dims=-1)
+        ed = grid.edge_down & alive & torch.roll(alive, -1, dims=-2)
+        er_l = torch.roll(er, 1, dims=-1)
+        er_l[..., :, 0] = False
+        ed_u = torch.roll(ed, 1, dims=-2)
+        ed_u[..., 0, :] = False
+        inf = torch.full_like(alive, INF, dtype=torch.int32)
 
-    def relax(dist):
-        from_left = torch.where(er_l, torch.roll(dist, 1, dims=-1) + 1, inf)
-        from_right = torch.where(er, torch.roll(dist, -1, dims=-1) + 1, inf)
-        from_up = torch.where(ed_u, torch.roll(dist, 1, dims=-2) + 1, inf)
-        from_down = torch.where(ed, torch.roll(dist, -1, dims=-2) + 1, inf)
-        best = torch.minimum(torch.minimum(from_left, from_right),
-                             torch.minimum(from_up, from_down))
-        return torch.where(alive, torch.minimum(dist, best), inf)
+        def relax(dist):
+            from_left = torch.where(er_l, torch.roll(dist, 1, dims=-1) + 1,
+                                    inf)
+            from_right = torch.where(er, torch.roll(dist, -1, dims=-1) + 1,
+                                     inf)
+            from_up = torch.where(ed_u, torch.roll(dist, 1, dims=-2) + 1,
+                                  inf)
+            from_down = torch.where(ed, torch.roll(dist, -1, dims=-2) + 1,
+                                    inf)
+            best = torch.minimum(torch.minimum(from_left, from_right),
+                                 torch.minimum(from_up, from_down))
+            return torch.where(alive, torch.minimum(dist, best), inf)
 
-    dist = relax(torch.where(seeds & alive, torch.zeros_like(inf), inf))
-    while True:
-        new = dist
-        for _ in range(8):
-            new = relax(new)
-        if not bool((new != dist).any()):
-            return new
-        dist = new
+        dist = relax(torch.where(seeds & alive, torch.zeros_like(inf), inf))
+        while True:
+            new = dist
+            for _ in range(8):
+                new = relax(new)
+            with span("mass.planning.bfs_check"):
+                changed = bool((new != dist).any())
+            if not changed:
+                return new
+            dist = new
 
 
 def distance_field(grid: NavGrid, src_j: int, src_i: int) -> torch.Tensor:
@@ -288,24 +304,26 @@ def nearest_node(grid: NavGrid, dist: torch.Tensor, cell_xy, step: int,
     return torch.stack([k % nx, k // nx], dim=-1)
 
 
-def _plan(grid: NavGrid, navigable, bins, agent_world: torch.Tensor,
-          goal_world: torch.Tensor, step: int, monotone: bool):
-    """:func:`plan` of one mesh or a batch, given the navigable mask of a
-    refresh (None: no refresh) and the grids' bins."""
-    if navigable is not None:
-        grid = refresh_nav_grid(grid, navigable, step=step, monotone=monotone)
-    agent_cell = world_to_cells(bins, agent_world[..., :2])
-    goal_cell = world_to_cells(bins, goal_world[..., :2])
-    seeds = seeds_near_cell(grid, agent_cell, step, radius_cells=2 * step)
-    src = nearest_node(grid, torch.zeros_like(grid.alive, dtype=torch.int32),
-                       agent_cell, step, reachable_only=False)
-    ny, nx = grid.alive.shape[-2:]
-    node = torch.arange(ny * nx, device=grid.alive.device).view(ny, nx)
-    fallback = node == (src[..., 1] * nx + src[..., 0])[..., None, None]
-    seeds = torch.where(seeds.flatten(-2).any(-1)[..., None, None], seeds,
-                        fallback)
+def _plan(grid: NavGrid, bins, agent_world: torch.Tensor,
+          goal_world: torch.Tensor, step: int):
+    """:func:`plan` of one (refreshed) mesh or a batch, given the grids'
+    bins."""
+    with span("mass.planning.snap"):
+        agent_cell = world_to_cells(bins, agent_world[..., :2])
+        goal_cell = world_to_cells(bins, goal_world[..., :2])
+        seeds = seeds_near_cell(grid, agent_cell, step,
+                                radius_cells=2 * step)
+        src = nearest_node(grid, torch.zeros_like(grid.alive,
+                                                  dtype=torch.int32),
+                           agent_cell, step, reachable_only=False)
+        ny, nx = grid.alive.shape[-2:]
+        node = torch.arange(ny * nx, device=grid.alive.device).view(ny, nx)
+        fallback = node == (src[..., 1] * nx + src[..., 0])[..., None, None]
+        seeds = torch.where(seeds.flatten(-2).any(-1)[..., None, None],
+                            seeds, fallback)
     dist = distance_field_from_seeds(grid, seeds)
-    tgt = nearest_node(grid, dist, goal_cell, step, reachable_only=True)
+    with span("mass.planning.snap"):
+        tgt = nearest_node(grid, dist, goal_cell, step, reachable_only=True)
     return grid, dist, tgt, agent_cell, goal_cell
 
 
@@ -318,10 +336,13 @@ def plan(grid: NavGrid, occ_vm: VoxelMap, agent_world: torch.Tensor,
     neighbourhood was pruned), and snap the goal to the nearest
     reachable node.  Returns ``(grid, dist, target_ji, agent_cell,
     goal_cell)`` as device tensors."""
-    nav = (navigable_area(occ_vm, padding, z_start, z_stop, threshold,
-                          blocked=blocked) if refresh else None)
-    return _plan(grid, nav, occ_vm.bins, agent_world, goal_world, step,
-                 monotone)
+    if refresh:
+        with span("mass.planning.refresh"):
+            grid = refresh_nav_grid(
+                grid, navigable_area(occ_vm, padding, z_start, z_stop,
+                                     threshold, blocked=blocked),
+                step=step, monotone=monotone)
+    return _plan(grid, occ_vm.bins, agent_world, goal_world, step)
 
 
 def plan_batch(grids: NavGrid, occ_vms: Sequence[VoxelMap],
@@ -338,15 +359,16 @@ def plan_batch(grids: NavGrid, occ_vms: Sequence[VoxelMap],
     checks convergence once per 8 hops for the whole batch.  Returns
     :func:`plan`'s tuple with a leading ``[G]``, each episode's entries
     equal to its own :func:`plan`."""
-    bins = tuple(torch.stack(axis) for axis in zip(*(vm.bins
-                                                     for vm in occ_vms)))
-    nav = None
     if refresh:
-        nav = _navigable(torch.stack([
-            vm.occupancy_mask(z_start, z_stop, threshold) for vm in occ_vms]),
-            blocked, padding)
-    return _plan(grids, nav, bins, agent_worlds, goal_worlds, step,
-                 monotone)
+        with span("mass.planning.refresh"):
+            grids = refresh_nav_grid(grids, _navigable(torch.stack([
+                vm.occupancy_mask(z_start, z_stop, threshold)
+                for vm in occ_vms]), blocked, padding), step=step,
+                monotone=monotone)
+    with span("mass.planning.snap"):
+        bins = tuple(torch.stack(axis)
+                     for axis in zip(*(vm.bins for vm in occ_vms)))
+    return _plan(grids, bins, agent_worlds, goal_worlds, step)
 
 
 def plan_to_host(grid: NavGrid, dist: torch.Tensor, tgt: torch.Tensor,
@@ -357,7 +379,9 @@ def plan_to_host(grid: NavGrid, dist: torch.Tensor, tgt: torch.Tensor,
     parts = (dist, tgt, agent_cell, grid.edge_right, grid.edge_down)
     lead = dist.shape[:-2]
     flat = [p.reshape(*lead, -1).to(torch.int64) for p in parts]
-    host = torch.cat(flat, dim=-1).cpu().numpy()
+    packed = torch.cat(flat, dim=-1)
+    with span("mass.planning.to_host"):
+        host = packed.cpu().numpy()
     out, lo = [], 0
     for p, f in zip(parts, flat):
         out.append(host[..., lo:lo + f.shape[-1]].reshape(p.shape))

@@ -28,6 +28,11 @@ serves every slab, one launch a slab.  An episode lies inside one slab
 when n divides B; otherwise its rows cross slabs.  Either way
 :meth:`FleetMaps.view` is a ``ShardedVoxelMap`` over its pieces, whose
 reads land on the fleet's device.
+
+An update's parts run in ``mass.mapping.*`` spans
+(``utils/profiling.span``): ``upload`` (the host inputs' staging to the
+card), ``records`` (binning, corner records, the class upsample) and
+``splat`` (each group's sort and splat, one span a group).
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from mass_tpu_torch.core.voxelmap import (BaseVoxelMap, VoxelMap, _bins,
 from mass_tpu_torch.ops import splat as SP
 from mass_tpu_torch.parallel.mesh import canonical_device
 from mass_tpu_torch.parallel.sharding import ShardedVoxelMap
+from mass_tpu_torch.utils.profiling import span
 
 
 class FleetMaps:
@@ -192,20 +198,26 @@ class FleetMaps:
         B = self.batch
         h, w = self.rays.shape[0], self.rays.shape[1]
         n = h * w
-        gids, gw = self._records(self.rays, positions, yaws, elevations,
-                                 self._put(depths, torch.float32))
-        cls = {}
-        for name in self.names:
-            if name in classes:
-                up = G.upsample_features(
-                    self._put(classes[name], torch.int32)[..., None], h,
-                    w)[..., 0]
-                cls[name] = up.reshape(-1)
-            else:
-                cls[name] = torch.zeros(B * n, dtype=torch.int32,
-                                        device=self.device)
+        with span("mass.mapping.upload"):
+            positions = self._put(positions, torch.float32)
+            depths = self._put(depths, torch.float32)
+            labels = {name: self._put(classes[name], torch.int32)
+                      for name in self.names if name in classes}
+        with span("mass.mapping.records"):
+            gids, gw = self._records(self.rays, positions, yaws, elevations,
+                                     depths)
+            cls = {}
+            for name in self.names:
+                if name in labels:
+                    up = G.upsample_features(labels[name][..., None], h,
+                                             w)[..., 0]
+                    cls[name] = up.reshape(-1)
+                else:
+                    cls[name] = torch.zeros(B * n, dtype=torch.int32,
+                                            device=self.device)
+            groups = list(self._family_ids(self.names, gids, active))
 
-        for names, fam_ids in self._family_ids(self.names, gids, active):
+        for names, fam_ids in groups:
             apply_onehot_group([self._fleet_maps[name] for name in names],
                                fam_ids, gw, [cls[name] for name in names])
 
@@ -227,17 +239,24 @@ class FleetMaps:
             raise ValueError("no dense feature families configured")
         B, k = self.batch, self._stride
         hd, wd = self.dense_rays.shape[0], self.dense_rays.shape[1]
-        feats = self._backbone(self._put(rgbs, torch.float32))
-        feats = G.upsample_features(feats, hd, wd)
-        feats = feats.reshape(B * hd * wd, feats.shape[-1]).contiguous()
-        sub = self._put(depths, torch.float32)[:, k // 2::k, k // 2::k]
-        gids, gw = self._records(self.dense_rays, positions, yaws,
-                                 elevations, sub.contiguous())
-        for names, fam_ids in self._family_ids(self.dense_names, gids,
-                                               active):
-            records = SP.sorted_dense_records(fam_ids, gw, B * hd * wd)
-            for name in names:
-                apply_dense_records(self._fleet_maps[name], records, feats)
+        with span("mass.mapping.upload"):
+            rgbs = self._put(rgbs, torch.float32)
+            positions = self._put(positions, torch.float32)
+            depths = self._put(depths, torch.float32)
+        feats = self._backbone(rgbs)
+        with span("mass.mapping.records"):
+            feats = G.upsample_features(feats, hd, wd)
+            feats = feats.reshape(B * hd * wd, feats.shape[-1]).contiguous()
+            sub = depths[:, k // 2::k, k // 2::k]
+            gids, gw = self._records(self.dense_rays, positions, yaws,
+                                     elevations, sub.contiguous())
+            groups = list(self._family_ids(self.dense_names, gids, active))
+        for names, fam_ids in groups:
+            with span("mass.mapping.splat"):
+                records = SP.sorted_dense_records(fam_ids, gw, B * hd * wd)
+                for name in names:
+                    apply_dense_records(self._fleet_maps[name], records,
+                                        feats)
 
     def _records(self, rays, positions, yaws, elevations, depths):
         """The B frames' corner records on their episodes' grids, re-based

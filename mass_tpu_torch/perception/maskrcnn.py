@@ -44,6 +44,7 @@ from mass_tpu_torch.ops.detection import _bilinear_pool, nms
 from mass_tpu_torch.perception.resnet import (STAGE_WIDTHS, ResNet50,
                                               trunk_flops)
 from mass_tpu_torch.perception.segmentation import Detections
+from mass_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -579,41 +580,48 @@ def detect(model: MaskRCNN, rgb: torch.Tensor, anchors, marks=None,
     binary, ``classes``, ``scores [(B,) K]``).
     ``marks``, if given, is called with a stage name after each of the
     network, the proposals, the heads and the paste (``chip_smoke.py``
-    times the stages with it).  ``with_probs`` also returns the pasted
+    times the stages with it); each stage runs in a ``mass.sensor.<stage>``
+    span (``utils/profiling.span``).  ``with_probs`` also returns the pasted
     mask probabilities that were binarised at 0.5 (zero on empty slots),
     the deciding values of the margin rule that compares two runs."""
     c = model.config
     single = rgb.dim() == 3
-    x = (rgb[None] if single else rgb).to(torch.float32)
-    B = x.shape[0]
     mark = marks or (lambda name: None)
-    maps = model.feature_maps(x)
-    feats = [f.permute(0, 2, 3, 1).contiguous() for f in maps[:4]]
-    with _cudnn():
-        rpn_out = [model.proposal_generator.rpn_head(f) for f in maps]
-    mark("network")
-    proposals, pscores = generate_proposals(c, rpn_out, anchors)
-    mark("proposals")
+    with span("mass.sensor.network"):
+        x = (rgb[None] if single else rgb).to(torch.float32)
+        B = x.shape[0]
+        maps = model.feature_maps(x)
+        feats = [f.permute(0, 2, 3, 1).contiguous() for f in maps[:4]]
+        with _cudnn():
+            rpn_out = [model.proposal_generator.rpn_head(f) for f in maps]
+        mark("network")
+    with span("mass.sensor.proposals"):
+        proposals, pscores = generate_proposals(c, rpn_out, anchors)
+        mark("proposals")
 
-    R = proposals.shape[1]
-    rois = multilevel_roi_align(feats, proposals, 7)
-    logits, deltas = model.box(rois.reshape(B * R, 7, 7, -1))
-    cand, top, cls = box_candidates(c, proposals, pscores,
-                                    logits.view(B, R, -1),
-                                    deltas.view(B, R, c.num_classes, 4))
-    det_boxes, det_scores, det_cls = select_detections(c, cand, top, cls)
-    K = det_boxes.shape[1]
-    mrois = multilevel_roi_align(feats, det_boxes, 14)
-    mask_logits = model.mask_logits(mrois.reshape(B * K, 14, 14, -1))
-    sel = torch.gather(mask_logits, 1, det_cls.reshape(-1, 1, 1, 1).long()
-                       .expand(-1, 1, *mask_logits.shape[-2:]))[:, 0]
-    mask_probs = torch.sigmoid(sel).view(B, K, *sel.shape[-2:])
-    mark("heads")
-    full = paste_masks(mask_probs, det_boxes, c.image_size, c.image_size)
-    binary = (full >= 0.5).to(torch.float32)
-    live = (det_scores > 0)[..., None, None]
-    binary = binary * live
-    mark("paste")
+    with span("mass.sensor.heads"):
+        R = proposals.shape[1]
+        rois = multilevel_roi_align(feats, proposals, 7)
+        logits, deltas = model.box(rois.reshape(B * R, 7, 7, -1))
+        cand, top, cls = box_candidates(c, proposals, pscores,
+                                        logits.view(B, R, -1),
+                                        deltas.view(B, R, c.num_classes, 4))
+        det_boxes, det_scores, det_cls = select_detections(c, cand, top,
+                                                           cls)
+        K = det_boxes.shape[1]
+        mrois = multilevel_roi_align(feats, det_boxes, 14)
+        mask_logits = model.mask_logits(mrois.reshape(B * K, 14, 14, -1))
+        sel = torch.gather(mask_logits, 1,
+                           det_cls.reshape(-1, 1, 1, 1).long().expand(
+                               -1, 1, *mask_logits.shape[-2:]))[:, 0]
+        mask_probs = torch.sigmoid(sel).view(B, K, *sel.shape[-2:])
+        mark("heads")
+    with span("mass.sensor.paste"):
+        full = paste_masks(mask_probs, det_boxes, c.image_size, c.image_size)
+        binary = (full >= 0.5).to(torch.float32)
+        live = (det_scores > 0)[..., None, None]
+        binary = binary * live
+        mark("paste")
     det = Detections(masks=binary, classes=det_cls, scores=det_scores)
     full = full * live
     if single:
@@ -637,7 +645,8 @@ def make_detector(model: MaskRCNN, class_offset: int = 0):
     anchors = device_anchors(model.config, device)
 
     def run(rgb) -> Detections:
-        rgb = torch.as_tensor(rgb, dtype=torch.float32).to(device)
+        with span("mass.sensor.upload"):
+            rgb = torch.as_tensor(rgb, dtype=torch.float32).to(device)
         det = detect(model, rgb, anchors)
         return det._replace(classes=det.classes + class_offset)
 

@@ -13,7 +13,9 @@ Two ways to produce the per-pixel class image the semantic map reads
 The fusion runs on the detections' device with no host sync; a sensor
 returns the class image as host numpy, as the JAX package's does.  The
 mask sums are sums of 0/1 values, exact in float32, so the fused image is
-the same on every device.
+the same on every device.  The fusion runs in a ``mass.sensor.fuse`` span
+and the class image's copy to the host in a ``mass.sensor.to_host`` span
+(``utils/profiling.span``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from mass_tpu_torch import taxonomy
+from mass_tpu_torch.utils.profiling import span
 
 
 def colors_to_classes(seg_frame) -> torch.Tensor:
@@ -121,13 +124,20 @@ class DetectorSegmentation:
     def semantic(self, rgb) -> torch.Tensor:
         """RGB ``[(B,) h, w, 3]`` -> fused classes ``[(B,) h, w, 1]`` on
         the detector's device."""
-        return detections_to_semantic(self.model(rgb),
-                                      self.detection_threshold,
-                                      self.num_classes)
+        detections = self.model(rgb)
+        with span("mass.sensor.fuse"):
+            return detections_to_semantic(detections,
+                                          self.detection_threshold,
+                                          self.num_classes)
 
     def __call__(self, observation) -> np.ndarray:
-        return self.semantic(np.asarray(observation["rgb"],
-                                        np.float32)).cpu().numpy()
+        return _to_host(self.semantic(np.asarray(observation["rgb"],
+                                                 np.float32)))
+
+
+def _to_host(classes: torch.Tensor) -> np.ndarray:
+    with span("mass.sensor.to_host"):
+        return classes.cpu().numpy()
 
 
 def make_batched_sensor(sensor):
@@ -138,8 +148,8 @@ def make_batched_sensor(sensor):
     sensor is called frame by frame."""
     if isinstance(sensor, DetectorSegmentation):
         def batched(rgb_batch) -> np.ndarray:
-            return sensor.semantic(np.asarray(rgb_batch, np.float32)
-                                   ).cpu().numpy()
+            return _to_host(sensor.semantic(np.asarray(rgb_batch,
+                                                       np.float32)))
         return batched
 
     def looped(rgb_batch) -> np.ndarray:

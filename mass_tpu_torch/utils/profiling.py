@@ -1,10 +1,18 @@
 """Tracing and step timing (the port of ``mass_tpu.utils.profiling``).
 
+``span`` names a part of the port's work in a trace: while a profiler
+runs it opens a ``record_function`` range, and otherwise it costs one
+flag check.  The port opens ``mass.*`` spans where its fleet tick does
+the work (the learned sensor's upload, stages, fusion and copy back; the
+map update's upload, records and splats; the planner's refresh, snaps,
+BFS, convergence checks and copy back).
+
 ``StageTimer`` aggregates wall time per pipeline stage (mapping,
-planning, simulator, matching) across an episode.  PyTorch returns from
-a CUDA call before the card has finished it, so a timer whose stages
-launch device work synchronises the card at the end of each stage; on
-the CPU there is nothing to wait for.
+planning, simulator, matching) across an episode, each stage inside a
+``mass.stage.<name>`` span.  PyTorch returns from a CUDA call before the
+card has finished it, so a timer whose stages launch device work
+synchronises the card at the end of each stage; on the CPU there is
+nothing to wait for.
 
 ``trace`` captures a ``torch.profiler`` trace, host operations and, on a
 card, the card's kernels and copies (CUPTI), and writes it as a Chrome
@@ -24,11 +32,15 @@ launch of its window to the launch's device record and raises
 records it stamps outside its capture window, and the card's clock as it
 converts it runs off the host's: a window's first launches can lose
 their records; ``trace``'s warm-up and pauses keep them in most
-windows).  ``retried`` runs a traced window again in that case.
+windows).  ``retried`` runs a traced window again in that case.  It puts
+each card's records on the host's clock (:func:`align_clock`): no record
+starts before its launch call, and no synchronisation returns before the
+work it waited for has ended.
 
     with trace("build/trace") as t:        # the card, by default
         agent.run_task(0)
     print(t.launches, t.unrecorded)        # every launch, and 0
+    print(t.clock)                         # each card's offsets and shift
     print(device_summary(t.data))          # the trace as it was parsed
 """
 
@@ -43,9 +55,11 @@ import socket
 import threading
 import time
 import types
+import warnings
 from collections import defaultdict
 from typing import Dict, Iterator, List, Optional
 
+import numpy as np
 import torch
 
 from mass_tpu_torch import resolve_device
@@ -87,9 +101,37 @@ LAUNCH_APIS = (
     "cuMemsetD8_v2", "cuMemsetD32_v2", "cuMemsetD8Async", "cuMemsetD32Async")
 LAUNCH_NAMES = frozenset(name + suffix for name in LAUNCH_APIS
                           for suffix in ("", "_ptsz", "_ptds"))
+# host calls that return only once work on the card has ended: a
+# synchronisation waits for what was launched before it (on the stream
+# of the thread's last launch, or on the whole card), and a synchronous
+# copy to the host for its own record
+SYNC_NAMES = frozenset(name + suffix for name in (
+    "cudaStreamSynchronize", "cudaDeviceSynchronize")
+    for suffix in ("", "_ptsz", "_ptds"))
+BLOCKING_COPY_NAMES = frozenset(name + suffix for name in (
+    "cudaMemcpy", "cudaMemcpy2D", "cudaMemcpyFromSymbol", "cuMemcpy",
+    "cuMemcpyDtoH_v2") for suffix in ("", "_ptsz", "_ptds"))
+# the trace's top-level key that records align_clock's result
+CLOCK_KEY = "mass_clock"
+# the prefix of every span the port opens
+SPAN_PREFIX = "mass."
 # a traced window is run at most this many times (retried)
 TRACE_TRIES = 3
 _NO_ARGS: Dict = {}
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that names a part of the port's work in a trace: a
+    ``record_function`` range while a profiler runs, else a shared no-op
+    context (one flag check: no ``record_function``).  Names start with
+    :data:`SPAN_PREFIX` and name a part of a layer,
+    ``mass.<layer>.<part>``: no span wraps a whole layer, so a reader
+    that names a stretch of the trace by the first span over it finds
+    the part."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 class IncompleteTrace(RuntimeError):
@@ -124,14 +166,17 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
+        """Time the block, and its card's work, as stage ``name``, inside
+        a ``mass.stage.<name>`` span."""
         t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.device is not None and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+        with span(SPAN_PREFIX + "stage." + name):
+            try:
+                yield
+            finally:
+                if self.device is not None and self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                self.totals[name] += time.perf_counter() - t0
+                self.counts[name] += 1
 
     def summary(self) -> Dict[str, Dict[str, float]]:
         return {name: dict(total_s=self.totals[name],
@@ -139,12 +184,6 @@ class StageTimer:
                            mean_ms=1e3 * self.totals[name] /
                            max(self.counts[name], 1))
                 for name in sorted(self.totals)}
-
-    def report(self) -> str:
-        lines = [f"{name:24s} {s['count']:6d}x  "
-                 f"{s['mean_ms']:8.2f} ms  {s['total_s']:8.2f} s"
-                 for name, s in self.summary().items()]
-        return "\n".join(lines)
 
 
 @dataclasses.dataclass
@@ -155,8 +194,9 @@ class Trace:
     written); ``launches``, the host's calls in the window that put work
     on a device, and ``unrecorded``, those of them without a device record
     (0 in a trace that ``trace`` returned); ``matched``, the whole
-    :func:`unrecorded_launches` result; and the seconds the profiler's
-    export, the parse and the match took."""
+    :func:`unrecorded_launches` result; ``clock``, :func:`align_clock`'s
+    result; and the seconds the profiler's export, the parse and the
+    clock's alignment with the match took."""
 
     logdir: str
     cuda: bool
@@ -165,6 +205,7 @@ class Trace:
     launches: int = 0
     unrecorded: int = 0
     matched: Optional[Dict] = None
+    clock: Optional[Dict] = None
     export_s: float = 0.0
     parse_s: float = 0.0
     check_s: float = 0.0
@@ -195,6 +236,9 @@ def trace(logdir: str, device=None) -> Iterator[Trace]:
     ``logdir/plugins/profile/<time>/<host>.trace.json.gz``; the yielded
     :class:`Trace` names that file once the block has run, holds the
     parsed trace and the launches :func:`unrecorded_launches` matched.
+    Each card's records are put on the host's clock before the file is
+    written (:func:`align_clock`; ``clock`` on the handle, and
+    :data:`CLOCK_KEY` in the file).
 
     Raises ``RuntimeError`` inside another trace (one profiler runs at a
     time, as in JAX), when CUDA is asked for on a machine without it, and
@@ -250,13 +294,15 @@ def trace(logdir: str, device=None) -> Iterator[Trace]:
     if handle.cuda and b'"cuda_runtime"' not in text:
         raise RuntimeError("trace: CUDA activity was asked for and the "
                            "profiler recorded none")
-    # the compression (which releases the GIL) beside the parse
+    t0 = time.perf_counter()
+    handle.data = json.loads(text)
+    t1 = time.perf_counter()
+    handle.clock = align_clock(handle.data)
+    text = json.dumps(handle.data).encode()
+    # the compression (which releases the GIL) beside the match
     writer = threading.Thread(target=_write_gzip, args=(path, text))
     writer.start()
     try:
-        t0 = time.perf_counter()
-        handle.data = json.loads(text)
-        t1 = time.perf_counter()
         handle.matched = unrecorded_launches(handle.data)
         handle.parse_s, handle.check_s = t1 - t0, time.perf_counter() - t1
     finally:
@@ -419,6 +465,171 @@ def _first_lost(trace: Dict, launches: List[Dict], lost: List[Dict],
     return out
 
 
+def _card(record: Dict) -> int:
+    return record.get("args", _NO_ARGS).get("device", record.get("pid"))
+
+
+def _clock_points(trace: Dict) -> Dict[int, Dict]:
+    """For each card, the constraints the trace's host calls put on the
+    offset (us) to add to its records' times, each at a record's start
+    on the card's clock: ``lower`` ``[n, 2]`` rows (record start, its
+    launch call's start less the record's: no record starts before its
+    launch call) and ``upper`` rows (the start of the last record a
+    synchronisation waited for, the call's return less that record's
+    end: no synchronisation, or synchronous copy to the host, returns
+    before the work it waited for has ended).  A synchronisation waits
+    for every record launched before it on the stream of its thread's
+    last launch (``cudaStreamSynchronize``, as PyTorch's copies to the
+    host and ``item()`` call it) or on the whole card
+    (``cudaDeviceSynchronize``)."""
+    device: Dict = {}
+    for e in _complete(trace, DEVICE_CATEGORIES):
+        device.setdefault(e.get("args", _NO_ARGS).get("correlation"),
+                          []).append(e)
+    calls = sorted(_complete(trace, LAUNCH_CATEGORIES), key=lambda e: e["ts"])
+    points: Dict[int, Dict] = {}
+    ended: Dict = {}          # (card, stream) -> the latest-ending record
+    last: Dict = {}           # host thread -> (card, stream) of its launch
+
+    def card_points(card: int) -> Dict:
+        return points.setdefault(card, dict(lower=[], upper=[]))
+
+    for e in calls:
+        end = e["ts"] + e["dur"]
+        if e["name"] in LAUNCH_NAMES:
+            records = device.get(e.get("args", _NO_ARGS).get("correlation"))
+            for r in records or ():
+                card = _card(r)
+                at = card_points(card)
+                at["lower"].append((r["ts"], e["ts"] - r["ts"]))
+                key = (card, r.get("args", _NO_ARGS).get("stream"))
+                if key not in ended or r["ts"] + r["dur"] > \
+                        ended[key]["ts"] + ended[key]["dur"]:
+                    ended[key] = r
+                last[e.get("tid")] = key
+                if e["name"] in BLOCKING_COPY_NAMES and "DtoH" in r["name"]:
+                    at["upper"].append((r["ts"], end - r["ts"] - r["dur"]))
+        elif e["name"] in SYNC_NAMES and e.get("tid") in last:
+            card, stream = last[e.get("tid")]
+            if e["name"].startswith("cudaDeviceSynchronize"):
+                done = max((r for (c, _), r in ended.items() if c == card),
+                           key=lambda r: r["ts"] + r["dur"])
+            else:
+                done = ended[card, stream]
+            card_points(card)["upper"].append(
+                (done["ts"], end - done["ts"] - done["dur"]))
+    return {card: {k: np.asarray(v, np.float64).reshape(-1, 2)
+                   for k, v in at.items()} for card, at in points.items()}
+
+
+def _offsets(at: Dict, t0: float, drift: float):
+    """The interval of offsets at ``t0`` that the card's constraints
+    allow for a clock that runs ``drift`` (a rate, us per us) off the
+    host's."""
+    lower, upper = at["lower"], at["upper"]
+    lo = float(np.max(lower[:, 1] - drift * (lower[:, 0] - t0))) \
+        if len(lower) else -float("inf")
+    hi = float(np.min(upper[:, 1] - drift * (upper[:, 0] - t0))) \
+        if len(upper) else float("inf")
+    return lo, hi
+
+
+def _widest_drift(at: Dict, t0: float) -> float:
+    """The drift whose interval of offsets is widest (or least crossed):
+    the width is concave in the drift, so a golden-section search finds
+    its peak within 5% of the host's rate."""
+    def width(drift: float) -> float:
+        lo, hi = _offsets(at, t0, drift)
+        return hi - lo
+
+    a, b = -0.05, 0.05
+    g = (5 ** 0.5 - 1) / 2
+    c, d = b - g * (b - a), a + g * (b - a)
+    wc, wd = width(c), width(d)
+    while b - a > 1e-13:
+        if wc >= wd:
+            b, d, wd = d, c, wc
+            c = b - g * (b - a)
+            wc = width(c)
+        else:
+            a, c, wc = c, d, wd
+            d = a + g * (b - a)
+            wd = width(d)
+    return (a + b) / 2
+
+
+def align_clock(trace: Dict) -> Dict[int, Dict]:
+    """Put each card's records on the host's clock, in place.
+
+    The card's clock, as the profiler converts it, may sit off the
+    host's by a constant and may run at another rate (on an H100 up to
+    4 ms a second inside one trace).  The constraints of
+    :func:`_clock_points` bound the constant offsets that may be added
+    to the card's records: ``lo_us``, minus the shortest wait from a
+    launch call to its record's start, and ``hi_us``, the shortest wait
+    from the end of the work to a synchronisation's return; a trace whose
+    clocks agree has ``lo_us`` <= 0 <= ``hi_us`` and is left as it is.
+    Where ``lo_us`` <= ``hi_us`` the records keep their rate and move by
+    the offset nearest 0, the nearer end, 1 ns inside it (the trace's
+    resolution).  Otherwise the offset is a line in the record's time,
+    ``shift_us`` at the card's first record plus ``drift_ppm`` millionths
+    of the time since: the drift whose interval of offsets is widest, and
+    the offset in it chosen as above (in an interval narrower than 2 ns,
+    its midpoint).  Each record (kernels, copies,
+    memsets, and the ends of the flow arrows from their launches) moves
+    by the line at its start.  Where even the widest line's interval is
+    crossed (``consistent`` False), no line puts the records back: they
+    are left as they are (``shift_us`` and ``drift_ppm`` 0) and a warning
+    says so.
+
+    Returns {card: ``lo_us``, ``hi_us``, ``launches`` and ``syncs`` (the
+    records and calls behind the bounds), ``shift_us``, ``drift_ppm``,
+    ``consistent``}, which the trace also keeps under :data:`CLOCK_KEY`
+    (cards as strings, as JSON has them)."""
+    clock, moved = {}, {}
+    for card, at in _clock_points(trace).items():
+        t0 = float(np.min(at["lower"][:, 0])) if len(at["lower"]) else 0.0
+        lo, hi = _offsets(at, t0, 0.0)
+        drift = 0.0 if lo <= hi else _widest_drift(at, t0)
+        low, high = _offsets(at, t0, drift)
+        consistent = low <= high
+        if not consistent:
+            warnings.warn(f"align_clock: card {card}'s records cross every "
+                          f"line of offsets; left as they are")
+            shift = drift = 0.0
+        elif low <= 0.0 <= high and not drift:
+            shift = 0.0
+        elif high - low > 2e-3:
+            shift = min(max(0.0, low + 1e-3), high - 1e-3)
+        else:
+            shift = (low + high) / 2
+        clock[card] = dict(lo_us=lo, hi_us=hi, launches=len(at["lower"]),
+                           syncs=len(at["upper"]), shift_us=shift,
+                           drift_ppm=drift * 1e6, consistent=consistent)
+        if shift or drift:
+            moved[card] = (t0, shift, drift)
+    for e in trace["traceEvents"] if moved else ():
+        if e.get("cat") in DEVICE_CATEGORIES:
+            line = moved.get(_card(e))
+        elif e.get("cat") == "ac2g" and e.get("ph") == "f":
+            line = moved.get(e.get("pid"))
+        else:
+            continue
+        if line:
+            t0, shift, drift = line
+            e["ts"] += shift + drift * (e["ts"] - t0)
+    trace[CLOCK_KEY] = {str(card): {k: _finite(v) for k, v in c.items()}
+                        for card, c in clock.items()}
+    return clock
+
+
+def _finite(value):
+    """An unbounded end as None (JSON has no infinity)."""
+    if isinstance(value, float) and value in (float("inf"), -float("inf")):
+        return None
+    return value
+
+
 def _merged(intervals) -> List[List[float]]:
     out: List[List[float]] = []
     for start, end in sorted(intervals):
@@ -437,7 +648,9 @@ def device_summary(trace: Dict, top: int = 10, gaps: int = 3) -> Dict:
     the span (any device); ``top``: the device operations that took the
     most time, by name; ``gaps``: the longest stretches with no device
     work, each with the host operation (an op, a runtime call) that
-    overlapped it most (``None`` where the host ran Python only);
+    overlapped it most (``host``, ``None`` where the host ran Python
+    only) and the port's :func:`span` that overlapped it most (``span``,
+    ``None`` where none did; of equal overlaps, the innermost);
     ``launches`` and ``unrecorded_launches``: the window's launches and
     those the profiler lost (:func:`unrecorded_launches`), whose device
     time the busy share lacks.  Times in us."""
@@ -445,10 +658,15 @@ def device_summary(trace: Dict, top: int = 10, gaps: int = 3) -> Dict:
     spans = [e for e in _complete(trace, ("user_annotation",))
              if e["name"] == WINDOW] or _complete(trace, ("Trace",))
     events = _complete(trace, DEVICE_CATEGORIES)
-    # the profiler's own step annotation and trace's window span it all
-    host = [e for e in _complete(trace, HOST_CATEGORIES)
-            if not e["name"].startswith("ProfilerStep#")
-            and e["name"] != WINDOW]
+    # the profiler's own step annotation and trace's window span it all;
+    # the port's spans are named apart from the host's operations
+    host, parts = [], []
+    for e in _complete(trace, HOST_CATEGORIES):
+        if e["name"].startswith(SPAN_PREFIX):
+            parts.append(e)
+        elif not e["name"].startswith("ProfilerStep#") \
+                and e["name"] != WINDOW:
+            host.append(e)
     if spans:
         lo = min(e["ts"] for e in spans)
         hi = max(e["ts"] + e["dur"] for e in spans)
@@ -470,13 +688,13 @@ def device_summary(trace: Dict, top: int = 10, gaps: int = 3) -> Dict:
                    if edges[k + 1] > edges[k]),
                   key=lambda g: g[0] - g[1])[:gaps]
 
-    def host_op(a: float, b: float):
-        # the most overlap; of equals, the innermost (shortest) operation
+    def around(events: List[Dict], a: float, b: float):
+        # the most overlap; of equals, the innermost (shortest) event
         overlaps = [(min(b, e["ts"] + e["dur"]) - max(a, e["ts"]),
-                     -e["dur"], k) for k, e in enumerate(host)]
+                     -e["dur"], k) for k, e in enumerate(events)]
         overlap, _, k = max(overlaps, default=(0.0, 0.0, -1))
         return None if overlap <= 0 else dict(
-            name=host[k]["name"], cat=host[k]["cat"], overlap_us=overlap)
+            name=events[k]["name"], cat=events[k]["cat"], overlap_us=overlap)
 
     return dict(
         span_us=hi - lo, busy_us=busy_us,
@@ -486,5 +704,6 @@ def device_summary(trace: Dict, top: int = 10, gaps: int = 3) -> Dict:
         device_events=len(events),
         top=[dict(name=n, count=c, total_us=t, share=t / (hi - lo))
              for n, (c, t) in ranked],
-        gaps=[dict(start_us=a - lo, length_us=b - a, host=host_op(a, b))
+        gaps=[dict(start_us=a - lo, length_us=b - a, host=around(host, a, b),
+                   span=around(parts, a, b))
               for a, b in idle])

@@ -1,0 +1,9 @@
+"""Time a tick the card idles inside the union of the program's
+mass.sensor.* spans, in ms."""
+
+from portbench.reference import spans
+
+
+def read(run):
+    return spans.idle_inside(
+        run, lambda name: name.startswith("mass.sensor."))

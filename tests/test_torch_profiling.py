@@ -409,7 +409,7 @@ def test_device_summary_reads_the_window_annotation():
     summary = TP.device_summary(trace, gaps=1)
     assert summary["span_us"] == 100.0 and summary["busy_share"] == 0.25
     assert summary["gaps"] == [dict(start_us=45.0, length_us=55.0,
-                                    host=None)]
+                                    host=None, span=None)]
     with_trace = TP.device_summary({"traceEvents": trace["traceEvents"][:1]
                                     + trace["traceEvents"][2:]})
     assert with_trace["span_us"] == 200.0
