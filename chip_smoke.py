@@ -2,17 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds the port's five kernels from the sources in this checkout, one
+Builds the port's six kernels from the sources in this checkout, one
 ``nvcc`` a source, in parallel (the single-map, multi-map and frames
 kernels share ``csrc/splat_onehot.cu``; the dense-row splat has
-``csrc/splat_dense.cu``, the greedy NMS ``csrc/nms.cu``), holds each
+``csrc/splat_dense.cu``, the greedy NMS ``csrc/nms.cu``, the planner's
+BFS field ``csrc/bfs.cu``), holds each
 splat kernel against its plain PyTorch
 version at the shapes its path gives it (the single-map and multi-map
 kernels on one full 224x224 room frame into 384x384x96 maps, and on a
 frame 0.3 m from a wall whose runs outgrow a tile, and on a stream of
 more tiles than the persistent grid has blocks; the frames kernel on
 bench.py's 128-frame stream in groups of 8, and on 8 frames of a wall
-0.30-0.37 m ahead whose sub-runs cross tile ends), runs the default and
+0.30-0.37 m ahead whose sub-runs cross tile ends), holds the BFS kernel
+against the plain relaxation on the CPU bit for bit (``[bfs]``: a
+fleet's eight full-width 77x77 meshes built and refreshed from room maps
+in one launch, one of them alone, and two 384x384 meshes of step 1),
+with its time against the hop chain's bound, runs the default and
 the ``--reference-compat`` two-phase episodes
 on the card at a small geometry (the same runs on the CPU, which must
 give equal results, are left to ``tests/test_torch_gpu.py``, as are
@@ -21,7 +26,9 @@ fleet, of the small tooling runs and of the small sharded episode: the
 script stays within its time limit), then both
 episodes at full width (384x384x96 voxels x 54 classes, 224x224 camera)
 through ``python -m mass_tpu_torch.agent.cli``'s entry point, with the
-kernels' launch counts set to 0 before each path and read after it.
+kernels' launch counts set to 0 before each path and read after it
+(every distance field planned on the card one BFS launch, in the
+full-width episodes and fleets).
 Then the lockstep fleet: ``FleetMaps`` of 8 full-width
 episodes (three families in [8V, F] buffers, 49 GB) through an
 unmasked and a mixed-mask step, held bit for bit against single-map
@@ -72,7 +79,7 @@ window under the profiler and stopped once the window has closed: every
 launch of a window must have its device record (a window that lost one
 is run again, three tries in all), its kernel events
 (``splat_onehot_kernel`` by its template, ``splat_dense_kernel``,
-``nms_kernel``) must equal the port's launch counters over it, and its
+``nms_kernel``, ``bfs_field_kernel``) must equal the port's launch counters over it, and its
 calls (each step's pose, each sensor call's classes, each tick's
 episode phases, map updates and positions) those of the same calls in
 the untraced run; it prints the
@@ -1072,6 +1079,7 @@ def phase_full_episode(compat: bool = False, head=None,
     instead of ground-truth segmentation, the sensor timed by
     :class:`SensorTimer`)."""
     from mass_tpu_torch.agent import cli
+    from mass_tpu_torch.nav import grid as NG
     from mass_tpu_torch.ops import detection as D
     from mass_tpu_torch.ops import splat as SP
 
@@ -1084,9 +1092,10 @@ def phase_full_episode(compat: bool = False, head=None,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with SplatCounter() as counter, SensorTimer() as sensor:
+    with SplatCounter() as counter, SensorTimer() as sensor, \
+            BfsCounter() as bfs:
         # main path starts here
-        SP.LAUNCHES = SP.MULTI_LAUNCHES = D.LAUNCHES = 0
+        SP.LAUNCHES = SP.MULTI_LAUNCHES = D.LAUNCHES = NG.BFS_LAUNCHES = 0
         t0 = time.perf_counter()
         metrics = cli.main(full_args(learned) + FULL_BUDGETS + flags
                            + ["--logdir", logdir])
@@ -1094,6 +1103,7 @@ def phase_full_episode(compat: bool = False, head=None,
         wall_s = time.perf_counter() - t0
         # main path ends here
         single, multi, nms = SP.LAUNCHES, SP.MULTI_LAUNCHES, D.LAUNCHES
+        bfs_launches = NG.BFS_LAUNCHES
     check(len(metrics) == 1, "the CLI ran no episode")
     with open(os.path.join(logdir, "results", "2.json")) as f:
         results = json.load(f)
@@ -1114,10 +1124,132 @@ def phase_full_episode(compat: bool = False, head=None,
                peak_memory_bytes=torch.cuda.max_memory_allocated(),
                timing=results["timing"],
                metrics={k: v for k, v in results.items()
-                        if k != "timing"})
+                        if k != "timing"}, **bfs.check(bfs_launches))
     if learned:
         out.update(sensor.check(nms, batch=1))
     return out
+
+
+# ----------------------------------------------------------------------
+# the planner's BFS field (csrc/bfs.cu, nav/grid.py)
+# ----------------------------------------------------------------------
+
+class BfsCounter:
+    """Counts the distance fields planned on the card (calls of
+    ``nav/grid.distance_field_from_seeds`` with CUDA seeds), by wrapping
+    it: each must be one launch of the BFS kernel."""
+
+    def __enter__(self):
+        from mass_tpu_torch.nav import grid as NG
+
+        self.fields = 0
+        self._field = NG.distance_field_from_seeds
+
+        def field(grid, seeds):
+            self.fields += seeds.device.type == "cuda"
+            return self._field(grid, seeds)
+        NG.distance_field_from_seeds = field
+        return self
+
+    def __exit__(self, *exc):
+        from mass_tpu_torch.nav import grid as NG
+
+        NG.distance_field_from_seeds = self._field
+
+    def check(self, launches: int) -> dict:
+        check(self.fields > 0 and launches == self.fields,
+              f"{launches} BFS launches for {self.fields} fields planned "
+              f"on the card")
+        return dict(bfs_launches=launches, bfs_fields=self.fields)
+
+
+def check_bfs(dev, masks) -> dict:
+    """The kernel's field of ``masks`` (alive, edge_right, edge_down,
+    seeds on the CPU) on the card, one launch, against the plain
+    relaxation's on the CPU: equal, node for node."""
+    from mass_tpu_torch.nav import grid as NG
+
+    before = NG.BFS_LAUNCHES
+    got = NG._bfs_kernel(*(m.to(dev) for m in masks)).cpu()
+    check(NG.BFS_LAUNCHES == before + 1, "a field took more than a launch")
+    want = NG.distance_field_reference(*masks)
+    equal = torch.equal(got, want)
+    check(equal, f"BFS kernel differs from the plain relaxation on "
+          f"{tuple(masks[0].shape)}: {int((got != want).sum())} nodes")
+    finite = want[want < NG.INF]
+    return dict(shape=list(masks[0].shape), equal=equal,
+                alive=int(masks[0].sum()), reached=int(finite.numel()),
+                hops=int(finite.max()) if finite.numel() else 0)
+
+
+def bfs_bound(problem: dict, op_ns: float) -> dict:
+    """The BFS kernel's least time on a problem, the larger of two terms:
+    the bytes (four one-byte masks read and the int32 field written, 8 B
+    a node) and the hop chain: the longest shortest path's hops, each a
+    dependent add and min (:func:`dependent_steps`)."""
+    terms = {"bytes": 8 * int(np.prod(problem["shape"])) / HBM_BYTES_PER_S,
+             "hop chain": 2 * problem["hops"] * op_ns * 1e-9}
+    term = max(terms, key=terms.get)
+    return dict(bound_ms=1e3 * terms[term],
+                bound_by="bytes" if term == "bytes" else "operations",
+                bound_term=term,
+                terms_ms={k: 1e3 * v for k, v in terms.items()})
+
+
+def phase_bfs(dev) -> dict:
+    """The BFS kernel against the plain relaxation on the CPU, bit for
+    bit: a fleet's eight full-width meshes (77 x 77 nodes, built and
+    refreshed from room maps by ``tests/torch_streams.nav_meshes``) in
+    one launch, the first of them alone, and two 384 x 384 meshes (step
+    1, 147,456 nodes each).  Times on the eight: CUDA events after an L2
+    flush, the profiler's device time a recorded launch, the plain
+    relaxation on the card, and the bound with its dependent step
+    measured; and CUDA events on the two large meshes."""
+    from tests import torch_streams as TS
+    from mass_tpu_torch.nav import grid as NG
+
+    rng = np.random.RandomState(20)
+    grid, seeds = TS.nav_meshes(rng, 8)
+    fleet = (grid.alive, grid.edge_right, grid.edge_down, seeds)
+    grid, seeds = TS.nav_meshes(rng, 2, step=1)
+    large = (grid.alive, grid.edge_right, grid.edge_down, seeds)
+    out = {"problems": {"fleet8": check_bfs(dev, fleet),
+                        "one": check_bfs(dev, tuple(m[0] for m in fleet)),
+                        "step1": check_bfs(dev, large)}}
+    out["step"] = dependent_steps(dev)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    card = [m.to(dev) for m in fleet]
+    big = [m.to(dev) for m in large]
+
+    def launch():
+        NG._bfs_kernel(*card)
+    out.update(ms=cuda_ms(launch, 20, flush),
+               **profiled_launches(launch, 20, flush, "bfs_field_kernel"),
+               plain_ms=host_ms(lambda: NG.distance_field_reference(*card),
+                                2),
+               step1_ms=cuda_ms(lambda: NG._bfs_kernel(*big), 5, flush),
+               library_ms=None,
+               **bfs_bound(out["problems"]["fleet8"], out["step"]["op_ns"]))
+    out["max_abs_err"] = 0.0           # integer fields, compared exactly
+    del flush
+    return out
+
+
+def print_bfs(bfs: dict) -> None:
+    for key, what in (("fleet8", "a fleet's eight 77x77 meshes"),
+                      ("one", "one 77x77 mesh"),
+                      ("step1", "two 384x384 meshes of step 1")):
+        k = bfs["problems"][key]
+        print(f"[bfs] {what} {k['shape']}: {k['reached']} of {k['alive']} "
+              f"alive nodes reached, at most {k['hops']} hops; equal to the "
+              f"plain relaxation on the CPU: {k['equal']}")
+    terms = ", ".join(f"{t} {v:.5f} ms" for t, v in bfs["terms_ms"].items())
+    print(f"[bfs] eight meshes: kernel {bfs['ms']:.4f} ms, device time "
+          f"{bfs['device_ms']:.4f} ms a recorded launch ({recorded(bfs)}); "
+          f"bound {bfs['bound_ms']:.5f} ms by the {bfs['bound_term']} "
+          f"({terms}), {bfs['ms'] / bfs['bound_ms']:.1f}x the bound; plain "
+          f"relaxation on the card {bfs['plain_ms']:.2f} ms; two 384x384 "
+          f"meshes {bfs['step1_ms']:.4f} ms; library call: none")
 
 
 # ----------------------------------------------------------------------
@@ -1433,6 +1565,7 @@ def phase_full_fleet(size: int, compat: bool, sequential: dict,
     flags), with ``--seed -2`` so task 2 draws the sequential full-width
     episode's rng seed 0: that episode's outcome must come back."""
     from mass_tpu_torch.agent import cli
+    from mass_tpu_torch.nav import grid as NG
     from mass_tpu_torch.ops import detection as D
     from mass_tpu_torch.ops import splat as SP
 
@@ -1451,16 +1584,17 @@ def phase_full_fleet(size: int, compat: bool, sequential: dict,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with SplatCounter() as counter, DenseCounter() as dense, \
-            SensorTimer() as sensor:
+            SensorTimer() as sensor, BfsCounter() as bfs:
         # fleet path starts here
         SP.LAUNCHES = SP.MULTI_LAUNCHES = SP.DENSE_LAUNCHES = 0
-        D.LAUNCHES = 0
+        D.LAUNCHES = NG.BFS_LAUNCHES = 0
         t0 = time.perf_counter()
         metrics = cli.main(argv)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         counts = counter.check(SP.LAUNCHES, SP.MULTI_LAUNCHES, compat)
         counts.update(dense.check(SP.DENSE_LAUNCHES, features))
+        counts.update(bfs.check(NG.BFS_LAUNCHES))
         if learned:
             counts.update(sensor.check(D.LAUNCHES, batch=size))
     check(len(metrics) == size, f"the fleet ran {len(metrics)} episodes")
@@ -1922,15 +2056,17 @@ def phase_full_features() -> dict:
     each, beside the two semantic maps), task 2; the mapping split into
     backbone, feature update and semantic update."""
     from mass_tpu_torch.agent import cli
+    from mass_tpu_torch.nav import grid as NG
     from mass_tpu_torch.ops import splat as SP
 
     logdir = os.path.join("build", "chip_smoke", "episode_features")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with MappingSplit() as split:
+    with MappingSplit() as split, BfsCounter() as bfs:
         # main path starts here
         SP.LAUNCHES = SP.MULTI_LAUNCHES = SP.DENSE_LAUNCHES = 0
+        NG.BFS_LAUNCHES = 0
         t0 = time.perf_counter()
         metrics = cli.main(FULL_ARGS + FULL_BUDGETS + FULL_FEATURE_FLAGS
                            + ["--logdir", logdir])
@@ -1938,6 +2074,7 @@ def phase_full_features() -> dict:
         wall_s = time.perf_counter() - t0
         single, multi, dense = (SP.LAUNCHES, SP.MULTI_LAUNCHES,
                                 SP.DENSE_LAUNCHES)   # main path ends here
+        bfs_launches = NG.BFS_LAUNCHES
     check(len(metrics) == 1, "the CLI ran no episode")
     with open(os.path.join(logdir, "results", "2.json")) as f:
         results = json.load(f)
@@ -1957,7 +2094,7 @@ def phase_full_features() -> dict:
                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
                 mapping_split=split.summary(results["timing"]["mapping"]),
                 timing=results["timing"],
-                metrics=outcome(results))
+                metrics=outcome(results), **bfs.check(bfs_launches))
 
 
 def phase_small_feature_fleet(small: dict, cpu: bool = True) -> dict:
@@ -4177,22 +4314,23 @@ TRACE_EPISODE_STEPS = (100, 80)
 TRACE_SENSOR_CALLS = (100, 40)
 TRACE_FLEET_TICKS = (100, 10)
 # the port's launch counters, by the kernel each counts
-COUNTERS = ("single", "multi", "frames", "dense", "nms")
+COUNTERS = ("single", "multi", "frames", "dense", "nms", "bfs")
 
 
 def launch_counts() -> dict:
+    from mass_tpu_torch.nav import grid as NG
     from mass_tpu_torch.ops import detection as D
     from mass_tpu_torch.ops import splat as SP
 
     return dict(single=SP.LAUNCHES, multi=SP.MULTI_LAUNCHES,
                 frames=SP.FRAMES_LAUNCHES, dense=SP.DENSE_LAUNCHES,
-                nms=D.LAUNCHES)
+                nms=D.LAUNCHES, bfs=NG.BFS_LAUNCHES)
 
 
 def traced_launches(trace: dict) -> dict:
     """A trace's kernel events by the counter their launch adds to: the
     one-hot splat by its template's maps and frames flag, the dense
-    splat, NMS."""
+    splat, NMS, the BFS field."""
     out = dict.fromkeys(COUNTERS, 0)
     for e in trace["traceEvents"]:
         if e.get("ph") != "X" or e.get("cat") != "kernel":
@@ -4207,6 +4345,8 @@ def traced_launches(trace: dict) -> dict:
             key = "dense"
         elif "nms_kernel" in name:
             key = "nms"
+        elif "bfs_field_kernel" in name:
+            key = "bfs"
         else:
             continue
         out[key] += 1
@@ -4516,7 +4656,8 @@ def print_episode(tag: str, full: dict) -> None:
           f"{full['peak_memory_bytes'] / 2**30:.2f} GiB, launches: "
           f"splat_onehot {full['launches']}, splat_onehot_multi "
           f"{full['multi_launches']}, for {full['map_updates']} map updates "
-          f"({full['group_splats']} group splats)")
+          f"({full['group_splats']} group splats); bfs "
+          f"{full['bfs_launches']} for {full['bfs_fields']} fields")
     policy = full["timing"].get("search_policy")
     if policy:
         print(f"[{tag}] search_policy {policy['mean_ms']:.2f} ms per goal "
@@ -4654,6 +4795,8 @@ def main() -> int:
           f"{bb['load_and_first_call_ms']:.1f} ms; max abs diff vs the CPU "
           f"{bb['max_abs_err_cpu']:.3g} (tol {BACKBONE_TOL}); batch of two "
           f"vs one {bb['batch_of_two_max_abs_diff']:.3g}")
+    bfs = report["bfs"] = phase_bfs(dev)
+    print_bfs(bfs)
 
     for compat in (False, True):
         small = phase_small_episodes(compat, cpu=False)
@@ -4723,7 +4866,8 @@ def main() -> int:
               f"splat_onehot_multi {fleet['multi_launches']}, for "
               f"{fleet['group_splats']} group splats and "
               f"{fleet['map_updates']} episode map updates "
-              f"{fleet['episode_map_updates']}")
+              f"{fleet['episode_map_updates']}; bfs "
+              f"{fleet['bfs_launches']} for {fleet['bfs_fields']} fields")
         print(f"[{tag}] fleet_timing {json.dumps(fleet['fleet_timing'])}")
 
     goal = report["policy_goal"] = phase_policy_goal(dev)
@@ -5108,7 +5252,12 @@ def main() -> int:
         kernel_line("nms", "mass_tpu/ops/detection.py:31",
                     learned["nms_launches"] + mt["nms_launches"]
                     + dp["maskrcnn"]["nms_launches"],
-                    dict(nms["rpn_b1"], max_abs_err=nms["max_abs_err"]))]
+                    dict(nms["rpn_b1"], max_abs_err=nms["max_abs_err"])),
+        # not a TPU kernel: the counterpart of the while_loop of the BFS
+        kernel_line("bfs", "mass_tpu/nav/grid.py:226",
+                    sum(v["bfs_launches"] for v in report.values()
+                        if isinstance(v, dict) and "bfs_launches" in v),
+                    bfs)]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - start
     os.makedirs(os.path.join("build", "chip_smoke"), exist_ok=True)

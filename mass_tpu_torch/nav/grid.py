@@ -4,16 +4,19 @@
 Nodes sit every ``step`` cells of the navigation map (offset so the map
 origin's cell owns a node); an edge joins two adjacent nodes when the
 corridor between them is fully navigable; planning is breadth-first
-search as a min-plus relaxation over three boolean masks.  Map-derived
-state recomputes from the current navigable mask on refresh, while
-failed-action prunes stay sticky in ``NavGrid.pruned``; ``monotone=True``
-keeps the reference's only-ever-remove rule.  Path extraction backtracks
-the distance field on the host.
+search over three boolean masks: on the card one launch of the
+hand-written kernel ``csrc/bfs.cu`` a field (all of a batch's meshes),
+on the CPU a min-plus relaxation with host convergence checks.
+Map-derived state recomputes from the current navigable mask on refresh,
+while failed-action prunes stay sticky in ``NavGrid.pruned``;
+``monotone=True`` keeps the reference's only-ever-remove rule.  Path
+extraction backtracks the distance field on the host.
 
 A plan's parts run in ``mass.planning.*`` spans (``utils/profiling.span``):
 ``refresh`` (the navigable area and the mesh's refresh), ``snap`` (agent
 and goal cells, seeds, nearest nodes), ``bfs`` (the whole field) with a
-``bfs_check`` span around each convergence check inside it, and
+``bfs_kernel`` span around the kernel's launch inside it on the card, or
+a ``bfs_check`` span around each convergence check on the CPU, and
 ``to_host`` (:func:`plan_to_host`'s copy).
 
 Every mesh function also takes a batch of G meshes (masks ``[G, ny,
@@ -31,10 +34,13 @@ import torch
 
 from mass_tpu_torch.core import geometry as G
 from mass_tpu_torch.core.voxelmap import VoxelMap, world_to_cells
+from mass_tpu_torch.ops import splat
 from mass_tpu_torch.ops.pool import max_pool2d_same
 from mass_tpu_torch.utils.profiling import span
 
 INF = 1 << 28
+# BFS kernel launches (read by tests to show a field went through it)
+BFS_LAUNCHES = 0
 
 
 def _navigable(occupied: torch.Tensor, blocked, padding: int) -> torch.Tensor:
@@ -219,48 +225,94 @@ def refresh_nav_grid(grid: NavGrid, navigable: torch.Tensor,
                          edge_right=er, edge_down=ed)
 
 
+def distance_field_reference(alive: torch.Tensor, edge_right: torch.Tensor,
+                             edge_down: torch.Tensor,
+                             seeds: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the BFS kernel (``csrc/bfs.cu``): the JAX
+    package's min-plus relaxation, 8 hops between host convergence
+    checks, one check for the whole batch (hops past a mesh's fixpoint
+    change nothing), each check in a ``mass.planning.bfs_check`` span: a
+    field of c checks relaxed 8c + 1 hops.  An edge leaving the mesh
+    (``edge_right``'s last column, ``edge_down``'s last row) joins
+    nothing."""
+    er = edge_right & alive & torch.roll(alive, -1, dims=-1)
+    er[..., :, -1] = False
+    ed = edge_down & alive & torch.roll(alive, -1, dims=-2)
+    ed[..., -1, :] = False
+    er_l = torch.roll(er, 1, dims=-1)
+    er_l[..., :, 0] = False
+    ed_u = torch.roll(ed, 1, dims=-2)
+    ed_u[..., 0, :] = False
+    inf = torch.full_like(alive, INF, dtype=torch.int32)
+
+    def relax(dist):
+        from_left = torch.where(er_l, torch.roll(dist, 1, dims=-1) + 1, inf)
+        from_right = torch.where(er, torch.roll(dist, -1, dims=-1) + 1, inf)
+        from_up = torch.where(ed_u, torch.roll(dist, 1, dims=-2) + 1, inf)
+        from_down = torch.where(ed, torch.roll(dist, -1, dims=-2) + 1, inf)
+        best = torch.minimum(torch.minimum(from_left, from_right),
+                             torch.minimum(from_up, from_down))
+        return torch.where(alive, torch.minimum(dist, best), inf)
+
+    dist = relax(torch.where(seeds & alive, torch.zeros_like(inf), inf))
+    while True:
+        new = dist
+        for _ in range(8):
+            new = relax(new)
+        with span("mass.planning.bfs_check"):
+            changed = bool((new != dist).any())
+        if not changed:
+            return new
+        dist = new
+
+
+def _bfs_kernel(alive: torch.Tensor, edge_right: torch.Tensor,
+                edge_down: torch.Tensor,
+                seeds: torch.Tensor) -> torch.Tensor:
+    """The BFS field of CUDA masks by one launch of ``csrc/bfs.cu``
+    (counted in ``BFS_LAUNCHES``); :func:`distance_field_reference`'s
+    arguments and result.  Raises on masks that are not four bool
+    tensors of one shape on one CUDA device."""
+    global BFS_LAUNCHES
+    masks = (alive, edge_right, edge_down, seeds)
+    shape = tuple(alive.shape)
+    if any(m.dtype != torch.bool or tuple(m.shape) != shape
+           for m in masks) or alive.dim() not in (2, 3):
+        got = [(m.dtype, tuple(m.shape)) for m in masks]
+        raise ValueError(f"bfs kernel: four bool [ny, nx] or [G, ny, nx] "
+                         f"masks, got {got}")
+    if any(m.device != alive.device for m in masks) or \
+            alive.device.type != "cuda":
+        raise ValueError(f"bfs kernel: masks on one CUDA device, got "
+                         f"{[str(m.device) for m in masks]}")
+    ny, nx = shape[-2:]
+    if ny * nx >= INF:
+        raise ValueError(f"bfs kernel: a mesh of {ny} x {nx} nodes; one "
+                         f"holds fewer than {INF}")
+    meshes = shape[0] if alive.dim() == 3 else 1
+    masks = [m.contiguous() for m in masks]
+    out = torch.empty(shape, dtype=torch.int32, device=alive.device)
+    splat._raise_on(splat._library("bfs").bfs_launch(
+        *(m.data_ptr() for m in masks), meshes, ny, nx, out.data_ptr(),
+        splat._stream(alive.device)), "bfs")
+    BFS_LAUNCHES += 1
+    return out
+
+
 def distance_field_from_seeds(grid: NavGrid,
                               seeds: torch.Tensor) -> torch.Tensor:
     """BFS hop distances (int32 ``[ny, nx]``, or ``[G, ny, nx]`` for a
     batch) from a seed node set over alive nodes and intact edges;
-    ``INF`` where unreachable.  Relaxes 8 hops between host convergence
-    checks, one check for the whole batch (hops past a mesh's fixpoint
-    change nothing).  The field runs in a ``mass.planning.bfs`` span and
-    each check in a ``mass.planning.bfs_check`` span inside it: a field
-    of c checks relaxed 8c + 1 hops."""
+    ``INF`` where unreachable.  CUDA masks converge on the card in one
+    launch of ``csrc/bfs.cu`` (a ``mass.planning.bfs_kernel`` span);
+    CPU masks take :func:`distance_field_reference`.  The field runs in
+    a ``mass.planning.bfs`` span."""
     with span("mass.planning.bfs"):
-        alive = grid.alive
-        er = grid.edge_right & alive & torch.roll(alive, -1, dims=-1)
-        ed = grid.edge_down & alive & torch.roll(alive, -1, dims=-2)
-        er_l = torch.roll(er, 1, dims=-1)
-        er_l[..., :, 0] = False
-        ed_u = torch.roll(ed, 1, dims=-2)
-        ed_u[..., 0, :] = False
-        inf = torch.full_like(alive, INF, dtype=torch.int32)
-
-        def relax(dist):
-            from_left = torch.where(er_l, torch.roll(dist, 1, dims=-1) + 1,
-                                    inf)
-            from_right = torch.where(er, torch.roll(dist, -1, dims=-1) + 1,
-                                     inf)
-            from_up = torch.where(ed_u, torch.roll(dist, 1, dims=-2) + 1,
-                                  inf)
-            from_down = torch.where(ed, torch.roll(dist, -1, dims=-2) + 1,
-                                    inf)
-            best = torch.minimum(torch.minimum(from_left, from_right),
-                                 torch.minimum(from_up, from_down))
-            return torch.where(alive, torch.minimum(dist, best), inf)
-
-        dist = relax(torch.where(seeds & alive, torch.zeros_like(inf), inf))
-        while True:
-            new = dist
-            for _ in range(8):
-                new = relax(new)
-            with span("mass.planning.bfs_check"):
-                changed = bool((new != dist).any())
-            if not changed:
-                return new
-            dist = new
+        masks = (grid.alive, grid.edge_right, grid.edge_down, seeds)
+        if all(m.device.type == "cpu" for m in masks):
+            return distance_field_reference(*masks)
+        with span("mass.planning.bfs_kernel"):
+            return _bfs_kernel(*masks)
 
 
 def distance_field(grid: NavGrid, src_j: int, src_i: int) -> torch.Tensor:
@@ -355,8 +407,7 @@ def plan_batch(grids: NavGrid, occ_vms: Sequence[VoxelMap],
     (``occ_vms``, views of a fleet buffer), world agents and goals
     ``[G, >=2]`` and collision evidence ``[G, H, W]``.  A refresh
     reduces each map's ``z_start:z_stop`` slice in place, so no map is
-    copied; the BFS
-    checks convergence once per 8 hops for the whole batch.  Returns
+    copied; one BFS field covers the whole batch.  Returns
     :func:`plan`'s tuple with a leading ``[G]``, each episode's entries
     equal to its own :func:`plan`."""
     if refresh:

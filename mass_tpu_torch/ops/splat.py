@@ -56,9 +56,10 @@ import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-# every CUDA source of the port: the splat kernels' and the detector's
-# greedy NMS (ops/detection.py), built together
-LIBRARIES = ("splat_onehot", "splat_dense", "nms")
+# every CUDA source of the port: the splat kernels', the detector's
+# greedy NMS (ops/detection.py) and the planner's BFS field (nav/grid.py),
+# built together
+LIBRARIES = ("splat_onehot", "splat_dense", "nms", "bfs")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 MAX_MAPS = 4
@@ -408,11 +409,16 @@ _ENTRIES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
+    "bfs": ("bfs", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p]),
 }
 # each library's query entries (no arguments, an int back)
 _LIMITS = {"splat_onehot": ("splat_onehot_max_features",),
            "splat_dense": ("splat_dense_max_features",),
-           "nms": ("nms_max_boxes", "nms_max_counts")}
+           "nms": ("nms_max_boxes", "nms_max_counts"),
+           "bfs": ()}
 KERNELS = tuple(_ENTRIES)
 
 

@@ -173,7 +173,8 @@ class FleetMaps:
 
     def _put(self, x, dtype) -> torch.Tensor:
         """An input on the buffers' device (host arrays without a sync)."""
-        if isinstance(x, torch.Tensor) and x.device == self.device:
+        if isinstance(x, torch.Tensor) and \
+                x.device == canonical_device(self.device):
             return x.to(dtype)
         return G.to_device(torch.as_tensor(np.asarray(x), dtype=dtype),
                            self.device)

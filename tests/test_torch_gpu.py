@@ -15,6 +15,7 @@ import torch
 from mass_tpu_torch.config import MapGeometry
 from mass_tpu_torch.core import geometry as G
 from mass_tpu_torch.core.voxelmap import VoxelMap
+from mass_tpu_torch.nav import grid as NG
 from mass_tpu_torch.ops import splat as SP
 from tests import torch_streams as TS
 
@@ -727,6 +728,136 @@ def test_nms_kernel_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         D.nms(wide, torch.rand(1, TS.NMS_MAX_BOXES + 1, device=cuda), 0.5, 4)
     assert D.LAUNCHES == before
+
+
+def _random_meshes(rng, shape, seed_share=0.01):
+    """Random masks of ``shape`` (edges leaving the mesh set too):
+    (grid, seeds) on the CPU."""
+    masks = [torch.from_numpy(rng.rand(*shape) < p)
+             for p in (0.85, 0.7, 0.7, seed_share)]
+    return NG.NavGrid(*masks[:3], off_x=0, off_y=0,
+                      pruned=torch.zeros(shape, dtype=torch.bool)), masks[3]
+
+
+def _bfs_both(cuda, grid, seeds):
+    """The kernel's field of the masks on the card (one launch, checked
+    by the counter) and the plain relaxation's on the CPU."""
+    masks = (grid.alive, grid.edge_right, grid.edge_down, seeds)
+    before = NG.BFS_LAUNCHES
+    got = NG.distance_field_from_seeds(
+        grid._replace(alive=masks[0].to(cuda), edge_right=masks[1].to(cuda),
+                      edge_down=masks[2].to(cuda)), masks[3].to(cuda))
+    torch.cuda.synchronize()
+    assert NG.BFS_LAUNCHES == before + 1
+    assert got.dtype == torch.int32 and got.shape == masks[0].shape
+    return got.cpu(), NG.distance_field_reference(*masks)
+
+
+@pytest.mark.parametrize("source", ["refreshed", "random"])
+@pytest.mark.parametrize("meshes", [1, 8])
+def test_bfs_kernel_on_full_width_meshes(cuda, meshes, source):
+    """77 x 77 meshes (the agent's 384-cell maps at step 5), one or a
+    fleet's eight in one launch: the kernel's field equals the plain
+    relaxation's bit for bit."""
+    rng = np.random.RandomState(meshes + len(source))
+    if source == "refreshed":
+        grid, seeds = TS.nav_meshes(rng, meshes)
+    else:
+        grid, seeds = _random_meshes(rng, (meshes, 77, 77))
+    if meshes == 1:
+        grid = grid._replace(alive=grid.alive[0],
+                             edge_right=grid.edge_right[0],
+                             edge_down=grid.edge_down[0])
+        seeds = seeds[0]
+    assert tuple(grid.alive.shape[-2:]) == (77, 77)
+    got, want = _bfs_both(cuda, grid, seeds)
+    assert torch.equal(got, want)
+    assert bool((want < NG.INF).any()) and bool((want > 8).any())
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 77), (77, 1), (13, 77),
+                                   (3, 1, 1), (4, 2, 300)])
+def test_bfs_kernel_on_ragged_meshes(cuda, shape):
+    grid, seeds = _random_meshes(np.random.RandomState(len(shape)), shape,
+                                 seed_share=0.05)
+    seeds.view(-1)[0] = True
+    got, want = _bfs_both(cuda, grid, seeds)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["no_seed", "dead_seeds", "all_dead",
+                                  "disconnected"])
+def test_bfs_kernel_where_no_seed_reaches(cuda, case):
+    """Nodes no alive seed reaches, and dead nodes, read exactly INF."""
+    ones = torch.ones(2, 40, 33, dtype=torch.bool)
+    alive = ones.clone()
+    alive[:, :, 20] = False                      # two components
+    seeds = torch.zeros_like(ones)
+    if case == "dead_seeds":
+        seeds = ~alive
+    elif case == "all_dead":
+        alive = torch.zeros_like(ones)
+        seeds = ones.clone()
+    elif case == "disconnected":
+        seeds[:, 5, 3] = True
+    grid = NG.NavGrid(alive, ones.clone(), ones.clone(), off_x=0, off_y=0,
+                      pruned=torch.zeros_like(ones))
+    got, want = _bfs_both(cuda, grid, seeds)
+    assert torch.equal(got, want)
+    if case == "disconnected":
+        assert bool((got[:, :, 20:] == NG.INF).all())
+        assert int(got[:, :, :20].max()) == (39 - 5) + (19 - 3)
+    else:
+        assert bool((got == NG.INF).all())
+
+
+def test_bfs_kernel_on_meshes_at_step_one(cuda):
+    """384-cell maps at step 1 (147,456 nodes a mesh, 576 KB of words,
+    more than an SM's caches hold), two meshes in one launch."""
+    grid, seeds = TS.nav_meshes(np.random.RandomState(7), 2, step=1)
+    assert tuple(grid.alive.shape[-2:]) == (384, 384)
+    got, want = _bfs_both(cuda, grid, seeds)
+    assert torch.equal(got, want)
+    assert int(want[want < NG.INF].max()) > 300
+
+
+def test_bfs_kernel_field_waits_on_nothing(cuda):
+    """A fleet's field launches one kernel and never syncs with the host
+    (sync debug mode "error"), and a plan of the batch counts one
+    launch."""
+    grid, seeds = TS.nav_meshes(np.random.RandomState(11), 8)
+    grid = grid._replace(alive=grid.alive.to(cuda),
+                         edge_right=grid.edge_right.to(cuda),
+                         edge_down=grid.edge_down.to(cuda))
+    seeds = seeds.to(cuda)
+    NG.distance_field_from_seeds(grid, seeds)         # loads the library
+    torch.cuda.synchronize()
+    before = NG.BFS_LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = NG.distance_field_from_seeds(grid, seeds)
+        again = NG.distance_field_from_seeds(grid, seeds)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert NG.BFS_LAUNCHES == before + 2
+    assert torch.equal(first, again)
+
+
+def test_bfs_kernel_takes_strided_cuda_masks(cuda):
+    """Strided CUDA masks (transposed views) pass the wrapper's checks
+    and give the field of their contiguous copies in one launch; the
+    wrapper's refusal of bad masks is tested on the CPU
+    (``tests/test_torch_bfs.py``)."""
+    grid, seeds = _random_meshes(np.random.RandomState(5), (3, 40, 29))
+    masks = [m.to(cuda).transpose(-1, -2)
+             for m in (grid.alive, grid.edge_right, grid.edge_down, seeds)]
+    assert not masks[0].is_contiguous()
+    before = NG.BFS_LAUNCHES
+    got = NG._bfs_kernel(*masks).cpu()
+    assert NG.BFS_LAUNCHES == before + 1
+    want = NG.distance_field_reference(*(m.cpu().contiguous()
+                                         for m in masks))
+    assert torch.equal(got, want)
 
 
 def test_detector_on_card_equals_cpu(cuda):

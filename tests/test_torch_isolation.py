@@ -218,13 +218,15 @@ def test_kernel_sources_stand_alone():
     in seconds) and its launch and limit entry points.  The single-map,
     multi-map and frames kernels share one source and one library; the
     dense-row splat (the counterpart of an XLA scatter, not of a TPU
-    kernel) and the detector's greedy NMS (the counterpart of a
-    ``fori_loop``) have their own."""
+    kernel), the detector's greedy NMS (the counterpart of a
+    ``fori_loop``) and the planner's BFS field (the counterpart of a
+    ``while_loop``) have their own."""
     from mass_tpu_torch.ops import splat
 
     assert splat.KERNELS == ("splat_onehot", "splat_onehot_multi",
-                             "splat_onehot_frames", "splat_dense", "nms")
-    assert splat.LIBRARIES == ("splat_onehot", "splat_dense", "nms")
+                             "splat_onehot_frames", "splat_dense", "nms",
+                             "bfs")
+    assert splat.LIBRARIES == ("splat_onehot", "splat_dense", "nms", "bfs")
     assert {lib for lib, _ in splat._ENTRIES.values()} == set(
         splat.LIBRARIES)
     for gone in ("splat_onehot_multi.cu", "splat_onehot_frames.cu"):
@@ -232,7 +234,8 @@ def test_kernel_sources_stand_alone():
             REPO, "mass_tpu_torch", "csrc", gone))
     replaces = {"splat_onehot": "mass_tpu/ops/pallas_splat.py",
                 "splat_dense": "mass_tpu/ops/scatter.py",
-                "nms": "mass_tpu/ops/detection.py"}
+                "nms": "mass_tpu/ops/detection.py",
+                "bfs": "mass_tpu/nav/grid.py"}
     for name in splat.LIBRARIES:
         source, library = splat._paths(name)
         with open(source) as f:

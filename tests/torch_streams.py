@@ -522,3 +522,45 @@ def nms_sweep(threshold: float, seed: int = 0):
         out.append((boxes.astype(np.float32), scores.astype(np.float32),
                     int(rng.randint(1, n + 9))))
     return out
+
+
+# ----------------------------------------------------------------------
+# navigation meshes for the BFS field kernel (csrc/bfs.cu)
+# ----------------------------------------------------------------------
+
+def nav_rooms(rng, size: int) -> np.ndarray:
+    """A ``size``-cell square navigable map: a 3 x 3 grid of rooms whose
+    walls have one doorway each, and scattered clutter."""
+    nav = rng.rand(size, size) > 0.01
+    for k in (size // 3, 2 * size // 3):
+        for lo in range(0, size, size // 3):
+            door = lo + rng.randint(0, max(1, size // 3 - size // 12))
+            nav[k:k + 3, lo:lo + size // 3] = False
+            nav[k:k + 3, door:door + size // 12] = True
+            nav[lo:lo + size // 3, k:k + 3] = False
+            nav[door:door + size // 12, k:k + 3] = True
+    return nav
+
+
+def nav_meshes(rng, count: int, size: int = 384, step: int = 5):
+    """``count`` meshes built and refreshed from :func:`nav_rooms` maps as
+    the planner refreshes them (step 5 at 384 cells: 77 x 77 nodes, the
+    agent's full width), each seeded around a random cell, stacked:
+    (grid, seeds) on the CPU."""
+    import torch
+
+    from mass_tpu_torch.nav import grid as NG
+
+    grids, seeds = [], []
+    for _ in range(count):
+        nav = nav_rooms(rng, size)
+        off = rng.randint(0, step, 2)
+        grid = NG.build_nav_grid(torch.from_numpy(nav), int(off[0]),
+                                 int(off[1]), step=step)
+        nav &= rng.rand(size, size) > 0.005
+        grid = NG.refresh_nav_grid(grid, NG._navigable(
+            torch.from_numpy(~nav), None, 1), step=step)
+        grids.append(grid)
+        cell = torch.from_numpy(rng.randint(0, size, 2))
+        seeds.append(NG.seeds_near_cell(grid, cell, step, 2 * step))
+    return NG.stack_grids(grids), torch.stack(seeds)
