@@ -2,8 +2,13 @@
 a checkout, and under ``portbench/`` a file for each configuration (named
 in ``BENCHMARK.json``), traffic mix (``traffic/<name>.json``), cell's
 limits (``limits/<workload>.json``) and metric (``metrics/<name>.py``,
-whose ``read(run)`` returns the number or None).  A cell or a metric is
-added by adding files and entries: nothing here names one."""
+whose ``read(run)`` returns the number or None).  A configuration's keys
+say what the system builds (``system.py``): a ``sensor`` (the learned
+detector), ``dense_families`` with ``dense_rides_with`` (dense feature
+maps and the one-hot family each rides with) and the ``backbone`` that
+feeds them; without them, ground-truth classes into one-hot maps.  A
+cell or a metric is added by adding files and entries: nothing here
+names one."""
 
 from __future__ import annotations
 

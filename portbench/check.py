@@ -15,7 +15,14 @@ Numbers (each held against its limit in ``limits/<workload>.json``):
   * learned sensors, on the sampled ticks' B frames through the reference
     detector: ``score_gap``, the largest gap between the k-th best
     detection scores of a frame, and ``class_pixels``, the pixels whose
-    fused class differs from the reference's.
+    fused class differs from the reference's;
+  * dense feature families: ``feature_gap``, the largest gap between the
+    backbone's features of the first sampled ticks (``FEATURE_TICKS`` of
+    ``system.py``) and the reference backbone's (``reference/resnet.py``)
+    on the same frames, and ``feature_map_gap``, the largest gap between
+    a channel of any dense map and the reference's float64 replay, one
+    map at a time, of every dense fold of set-up and of the ticks run,
+    with the reference backbone's features.
 
 The map replay folds the class images the program's sensor produced (it
 can only follow the program's sensor there); the sensor stage itself is
@@ -24,13 +31,14 @@ held against the reference detector on the sampled ticks.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
 
 from portbench.reference import maskrcnn as RM
 from portbench.reference import planner as RP
+from portbench.reference import resnet as RR
 from portbench.reference import voxel as RV
 
 
@@ -118,17 +126,24 @@ class SparseMaps:
     def gap(self, port: torch.Tensor, slot, rows: int = 16) -> float:
         """Largest |port - reference| over a ``[V, F]`` port map (the
         reference zero where no record reached), in blocks of map rows."""
-        g = self.g
         ids, at = self._slot(slot)
-        block_voxels = rows * g.width * g.depth
-        gap = 0.0
-        for lo in range(0, g.voxels, block_voxels):
-            hi = min(lo + block_voxels, g.voxels)
-            block = port[lo:hi].to(torch.float64)
-            a, b = (int(torch.searchsorted(ids, v)) for v in (lo, hi))
-            block[ids[a:b] - lo] -= self.data[at[a:b]].to(torch.float64)
-            gap = max(gap, float(block.abs().max()))
-        return gap
+        return sparse_gap(port, ids, self.data[at], self.g, rows)
+
+
+def sparse_gap(port: torch.Tensor, ids: torch.Tensor, data: torch.Tensor,
+               g: RV.Geometry, rows: int) -> float:
+    """Largest |port - reference| over a ``[V, F]`` port map against the
+    reference's rows ``data`` at the sorted voxel ``ids`` (zero
+    elsewhere), in blocks of ``rows`` map rows."""
+    block_voxels = rows * g.width * g.depth
+    gap = 0.0
+    for lo in range(0, g.voxels, block_voxels):
+        hi = min(lo + block_voxels, g.voxels)
+        block = port[lo:hi].to(torch.float64)
+        a, b = (int(torch.searchsorted(ids, v)) for v in (lo, hi))
+        block[ids[a:b] - lo] -= data[a:b].to(torch.float64)
+        gap = max(gap, float(block.abs().max()))
+    return gap
 
 
 def sensor_numbers(config: Dict, inputs, system, device) -> Dict:
@@ -224,9 +239,109 @@ def map_and_plan_numbers(config: Dict, traffic: Dict, inputs, system,
             "meshes": refreshed, "reference_voxels": int(maps.keys.numel())}
 
 
+def dense_folds(config: Dict, traffic: Dict, system, name: str,
+                e: int) -> List[int]:
+    """The frames episode e folded into dense family ``name``, in order:
+    set-up's, then the ticks'."""
+    rides = config["dense_rides_with"][name]
+    frames = []
+    if rides == traffic["setup_family"]:
+        frames += list(range(traffic["setup_frames"][e]))
+    if rides == traffic["families"][e]:
+        frames += [system.schedule.frame(t) for t in system.log]
+    return frames
+
+
+def dense_records(config: Dict, g: RV.Geometry, rays, bins, inputs,
+                  frames, e: int, device):
+    """The 8 corner records of episode e's ``frames`` on the feature
+    camera, depth taken at the stride's pixel centres: ``(frame [R],
+    ids [R], weights [R], pixel [R])``, the pixel row-major in the
+    feature image."""
+    k = config["backbone"]["stride"]
+    depth = torch.from_numpy(np.ascontiguousarray(
+        inputs.depth[frames, e][:, k // 2::k, k // 2::k])).to(device)
+    n = len(frames)
+    pixels = torch.arange(depth[0].numel(), device=device).view(
+        depth.shape[1:]).expand(depth.shape)
+    return RV.records(rays, tuple(b[[e] * n] for b in bins), g,
+                      inputs.position[frames, e], inputs.yaw[frames, e],
+                      inputs.elevation[frames, e], depth, pixels)
+
+
+def rgb(frames: np.ndarray, device) -> torch.Tensor:
+    """uint8 RGB frames ``[..., h, w, 3]`` in 0-1, as the program takes
+    them."""
+    return torch.from_numpy(frames.astype(np.float32)
+                            / np.float32(255)).to(device)
+
+
+def replay_dense(config: Dict, g: RV.Geometry, rays, bins, inputs, frames,
+                 e: int, device, chunk: int = 32):
+    """Episode e's ``frames`` folded in order into one float64 dense map
+    of ``g.classes`` channels, with the reference backbone's features:
+    ``(voxel ids, rows)``, the map kept only at the voxels some record
+    reached."""
+    keys = [torch.empty(0, dtype=torch.int64, device=device)]
+    for lo in range(0, len(frames), chunk):
+        _, ids, _, _ = dense_records(config, g, rays, bins, inputs,
+                                     frames[lo:lo + chunk], e, device)
+        keys.append(torch.unique(ids))
+    keys = torch.unique(torch.cat(keys))
+    data = torch.zeros(keys.numel(), g.classes, dtype=torch.float64,
+                       device=device)
+    for lo in range(0, len(frames), chunk):
+        part = frames[lo:lo + chunk]
+        feats = RR.forward(inputs.backbone,
+                           rgb(inputs.rgb[part, e], device))
+        feats = feats.reshape(len(part), -1, feats.shape[-1])
+        frame, ids, w, pix = dense_records(config, g, rays, bins, inputs,
+                                           part, e, device)
+        order = torch.argsort(frame, stable=True)
+        counts = torch.bincount(frame, minlength=len(part)).tolist()
+        for k, (ids_k, w_k, pix_k) in enumerate(zip(
+                *(x[order].split(counts) for x in (ids, w, pix)))):
+            RV.fold_dense(data, torch.searchsorted(keys, ids_k), w_k,
+                          pix_k, feats[k], g)
+    return keys, data
+
+
+def feature_numbers(config: Dict, traffic: Dict, inputs, system,
+                    device) -> Dict:
+    """The sampled ticks' backbone features against the reference
+    backbone's, and every dense map against its reference replay."""
+    s = system.schedule
+    feature_gap = 0.0
+    for t in sorted(system.features):
+        ref = RR.forward(inputs.backbone, rgb(inputs.rgb[s.frame(t)], device))
+        feature_gap = max(feature_gap, float(
+            (system.features[t].to(device) - ref).abs().max()))
+    stride = config["backbone"]["stride"]
+    g = geometry(config)
+    rays = RV.camera_rays(config["camera_size"] // stride,
+                          config["vertical_fov"], device)
+    bins = RV.grid_edges(inputs.origin, g, device)
+    gap, voxels = 0.0, 0
+    for name, channels in config["dense_families"].items():
+        dense = g._replace(classes=channels)
+        for e in range(traffic["batch"]):
+            frames = dense_folds(config, traffic, system, name, e)
+            keys, data = replay_dense(config, dense, rays, bins, inputs,
+                                      frames, e, device)
+            gap = max(gap, sparse_gap(system.map(name, e), keys, data,
+                                      dense, rows=4))
+            voxels += int(keys.numel())
+            del keys, data      # freed before the next map's replay
+    return {"feature_gap": feature_gap, "feature_map_gap": gap,
+            "feature_frames": len(system.features) * traffic["batch"],
+            "reference_feature_voxels": voxels}
+
+
 def judge(config: Dict, traffic: Dict, inputs, system, device) -> Dict:
     """Every number of the cell, and the counts of what was compared."""
     out = map_and_plan_numbers(config, traffic, inputs, system, device)
     if config.get("sensor"):
         out.update(sensor_numbers(config, inputs, system, device))
+    if config.get("dense_families"):
+        out.update(feature_numbers(config, traffic, inputs, system, device))
     return out

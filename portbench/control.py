@@ -5,7 +5,9 @@ not correct.
 
   * the detector with TF32 on (the configuration states fp32, TF32 off);
   * the maps in bfloat16, sums and blend (the configuration states
-    float32);
+    float32), dense feature maps too;
+  * the stage-1 backbone with TF32 on (the configuration states fp32,
+    TF32 off);
   * the planner as the reference's, on those maps.
 
     python3 -m portbench.control --workload <name> --seconds <s> \\
@@ -34,8 +36,9 @@ from portbench import check
 from portbench.bench import Bench
 from portbench.reference import maskrcnn as RM
 from portbench.reference import planner as RP
+from portbench.reference import resnet as RR
 from portbench.reference import voxel as RV
-from portbench.system import Schedule, Spans
+from portbench.system import FEATURE_TICKS, Schedule, Spans
 
 
 class ControlSystem:
@@ -59,6 +62,16 @@ class ControlSystem:
                                             dtype=self.DTYPE, device=device)
                      for name in config["families"]
                      for e in range(self.batch)}
+        self.rides_with = config.get("dense_rides_with", {})
+        if self.rides_with:
+            stride = config["backbone"]["stride"]
+            self.dense_rays = RV.camera_rays(
+                config["camera_size"] // stride, config["vertical_fov"],
+                device)
+        for name, channels in config.get("dense_families", {}).items():
+            for e in range(self.batch):
+                self.maps[name, e] = torch.zeros(
+                    self.g.voxels, channels, dtype=self.DTYPE, device=device)
         step = config["step_size"]
         self.edges = [(self.bins[0][e].cpu().numpy(),
                        self.bins[1][e].cpu().numpy())
@@ -67,15 +80,19 @@ class ControlSystem:
                                           config["grid_resolution"], step)
                         for e in range(self.batch)]
         self.current = [None] * self.batch
+        setup = traffic["setup_family"]
         for f in range(max(traffic["setup_frames"])):
+            feats = self._features(f) if self.rides_with else None
             for e in range(self.batch):
                 if f < traffic["setup_frames"][e]:
-                    self._fold(traffic["setup_family"], e, f,
-                               inputs.classes[f, e])
+                    self._fold(setup, e, f, inputs.classes[f, e])
+                    if feats is not None:
+                        self._fold_dense(setup, e, f, feats[e])
         self.detector = (check.detector_config(config)
                          if config.get("sensor") else None)
         self.log = []
         self.classes, self.plans, self.meshes, self.detections = {}, {}, {}, {}
+        self.features = {}
 
     def _fold(self, family, e, f, classes) -> None:
         inputs = self.inputs
@@ -86,6 +103,24 @@ class ControlSystem:
             torch.from_numpy(inputs.depth[f, e:e + 1]).to(self.device),
             torch.as_tensor(np.asarray(classes)[None], device=self.device))
         RV.fold(self.maps[family, e], ids, w, cls, self.g)
+
+    def _features(self, f: int) -> torch.Tensor:
+        """Frame f's ``[B, h/4, w/4, F]`` features, TF32 on."""
+        return RR.forward(self.inputs.backbone,
+                          check.rgb(self.inputs.rgb[f], self.device),
+                          tf32=True)
+
+    def _fold_dense(self, family, e, f, feats) -> None:
+        """Episode e's frame f into the dense families riding with
+        ``family``."""
+        for name, rides in self.rides_with.items():
+            if rides != family:
+                continue
+            _, ids, w, pix = check.dense_records(
+                self.config, self.g, self.dense_rays, self.bins, self.inputs,
+                [f], e, self.device)
+            RV.fold_dense(self.maps[name, e], ids, w, pix,
+                          feats.reshape(-1, feats.shape[-1]), self.g)
 
     def tick(self, t: int) -> None:
         cfg, inputs, s = self.config, self.inputs, self.schedule
@@ -103,6 +138,14 @@ class ControlSystem:
         with self.spans("mapping"):
             for e in range(self.batch):
                 self._fold(self.traffic["families"][e], e, f, classes[e])
+        if self.rides_with:
+            with self.spans("dense"):
+                feats = self._features(f)
+                if s.checked(t) and len(self.features) < FEATURE_TICKS:
+                    self.features[t] = feats
+                for e in range(self.batch):
+                    self._fold_dense(self.traffic["families"][e], e, f,
+                                     feats[e])
         step = cfg["step_size"]
         refresh = s.refresh(t)
         with self.spans("planning"):

@@ -11,6 +11,9 @@ one-hot class:
     out_v = old_v * (1 - iw * S2_v / W_v) + iw * T_v / W_v
     W_v = sum w     S2_v = sum w^2     T_v[c] = sum of w^2 over class c
 
+A dense feature map (``fold_dense``) blends each pixel's feature row in
+place of its one-hot class: ``T_v = sum of w^2 * feature``.
+
 The binning is strict float32 in the same operation order as the
 program's (the rotation built on the host from the float32 pose, the
 products written out), so both bin every pixel alike; the sums and the
@@ -153,21 +156,44 @@ def records(rays, bins, g: Geometry, positions, yaws, elevations, depths,
             cls.repeat(8))
 
 
-def fold(data: torch.Tensor, ids, weights, classes, g: Geometry) -> None:
-    """Blend one frame's records into ``data [V, F]`` in place, in
-    ``data``'s dtype."""
+def _blend(data: torch.Tensor, ids, weights, g: Geometry, t_sum) -> None:
+    """The EMA rule over ``data [V, F]`` in place, in ``data``'s dtype;
+    ``t_sum(inverse, w2, n)`` gives the n touched voxels' ``T`` rows from
+    each record's voxel (its index among them) and squared weight."""
     voxels, inverse = torch.unique(ids, return_inverse=True)
     w = weights.to(data.dtype)
     w2 = w * w
     n = voxels.shape[0]
     w_sum = data.new_zeros(n).index_add_(0, inverse, w)
     s2_sum = data.new_zeros(n).index_add_(0, inverse, w2)
-    ok = (classes >= 0) & (classes < g.classes)
-    t_sum = data.new_zeros(n * g.classes).index_add_(
-        0, (inverse * g.classes + classes)[ok], w2[ok]).view(n, g.classes)
     keep = 1.0 - g.blend * s2_sum / w_sum
     data[voxels] = (data[voxels] * keep[:, None]
-                    + (g.blend / w_sum)[:, None] * t_sum)
+                    + (g.blend / w_sum)[:, None] * t_sum(inverse, w2, n))
+
+
+def fold(data: torch.Tensor, ids, weights, classes, g: Geometry) -> None:
+    """Blend one frame's records into ``data [V, F]`` in place, in
+    ``data``'s dtype."""
+    def t_sum(inverse, w2, n):
+        ok = (classes >= 0) & (classes < g.classes)
+        return data.new_zeros(n * g.classes).index_add_(
+            0, (inverse * g.classes + classes)[ok], w2[ok]).view(
+            n, g.classes)
+
+    _blend(data, ids, weights, g, t_sum)
+
+
+def fold_dense(data: torch.Tensor, ids, weights, pixels, features,
+               g: Geometry) -> None:
+    """Blend one frame's dense records into ``data [V, F]`` in place, in
+    ``data``'s dtype: record r carries the feature row
+    ``features[pixels[r]]`` (``[P, F]``) where ``fold`` carries a one-hot
+    class."""
+    def t_sum(inverse, w2, n):
+        return data.new_zeros(n, data.shape[1]).index_add_(
+            0, inverse, w2[:, None] * features[pixels].to(data.dtype))
+
+    _blend(data, ids, weights, g, t_sum)
 
 
 def touched_voxels(frames: torch.Tensor, ids: torch.Tensor,

@@ -42,6 +42,7 @@ import torch  # noqa: E402
 from portbench import check  # noqa: E402
 from portbench.bench import Bench  # noqa: E402
 from portbench.reference import maskrcnn as RM  # noqa: E402
+from portbench.reference import resnet as RR  # noqa: E402
 from portbench.reference import roofline  # noqa: E402
 from portbench.reference import trace as RT  # noqa: E402
 from portbench.reference import voxel as RV  # noqa: E402
@@ -80,6 +81,31 @@ def _mapping_bytes(config, traffic, inputs, schedule, ticks, device):
         total += roofline.map_update_bytes(
             RV.touched_voxels(frames, ids, g.voxels), g.classes,
             traffic["batch"] * config["camera_size"] ** 2)
+    return total
+
+
+def _dense_bytes(config, traffic, inputs, schedule, ticks, device):
+    """The least bytes of the traced ticks' dense updates, by the
+    reference's binning of their feature cameras: each (family, episode)
+    update that a tick makes, as one launch reads it."""
+    g = check.geometry(config)
+    rays = RV.camera_rays(
+        config["camera_size"] // config["backbone"]["stride"],
+        config["vertical_fov"], device)
+    bins = RV.grid_edges(inputs.origin, g, device)
+    total = 0
+    for t in ticks:
+        f = schedule.frame(t)
+        for name, channels in config["dense_families"].items():
+            rides = config["dense_rides_with"][name]
+            for e in range(traffic["batch"]):
+                if traffic["families"][e] != rides:
+                    continue
+                frames, ids, _, _ = check.dense_records(
+                    config, g, rays, bins, inputs, [f], e, device)
+                total += roofline.dense_update_bytes(
+                    RV.touched_voxels(frames, ids, g.voxels), channels,
+                    ids.numel(), ids.numel() // 8)
     return total
 
 
@@ -131,9 +157,12 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
         batch=traffic["batch"], ticks=ticks, window_s=window_s,
         setup_s=setup_s, peak_bytes=peak, spans=spans, trace=None,
         traced_ticks=0, busy_s=0.0, trace_window_s=0.0,
-        mapping_bytes=0, detector_flops=(
+        mapping_bytes=0, dense_bytes=0, detector_flops=(
             RM.flops(check.detector_config(config))
-            if config.get("sensor") else 0))
+            if config.get("sensor") else 0),
+        backbone_flops=(RR.flops(config["camera_size"],
+                                 config["camera_size"])
+                        if config.get("backbone") else 0))
     breakdown = None
     if traced:
         traced_at = time.perf_counter()
@@ -157,6 +186,10 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
         run.mapping_bytes = _mapping_bytes(
             config, traffic, inputs, system.schedule,
             range(t - count, t), device)
+        if config.get("dense_families"):
+            run.dense_bytes = _dense_bytes(
+                config, traffic, inputs, system.schedule,
+                range(t - count, t), device)
         breakdown = RT.breakdown(data, *window)
         trace_s = time.perf_counter() - traced_at
 

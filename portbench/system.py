@@ -10,12 +10,17 @@ batched plan for the episodes whose mesh refreshes this tick (a
 mission's first plan and every ``graph_update_interval`` plans after) and
 one for the rest (``nav.grid.plan_batch``, as the fleet's ``_plan_group``),
 and after each the one copy of its plans that the host backtrack reads
-(``nav.grid.plan_to_host``).  Frames arrive as host arrays, as a
-simulator hands them over; their upload is part of the tick.
+(``nav.grid.plan_to_host``).  Configurations with ``dense_families`` add,
+after the map update, one dense update (``FleetMaps.update_dense``: the B
+RGB frames through the ``backbone`` in one call, one dense splat a
+family), each dense family updated by the episodes whose phase map it
+rides with (``dense_rides_with``), as ``FleetEvaluator.tick`` pairs them.
+Frames arrive as host arrays, as a simulator hands them over; their
+upload is part of the tick.
 
 What the check reads is kept as the tick makes it, by reference: the
-class images, the sampled ticks' plans and detections, and each
-refreshed mesh.
+class images, the sampled ticks' plans and detections, the first sampled
+ticks' backbone features, and each refreshed mesh.
 """
 
 from __future__ import annotations
@@ -27,6 +32,11 @@ from typing import Dict, List
 import numpy as np
 import torch
 from torch.profiler import record_function
+
+# the sampled ticks whose backbone features the check keeps on the card,
+# the first of a run's: with a cap the card's peak does not grow with the
+# ticks a window holds (6.4 MB a full-width fleet2 tick)
+FEATURE_TICKS = 16
 
 
 class Schedule:
@@ -90,6 +100,11 @@ class PortSystem:
         self.families = traffic["families"]
         self.active = {name: np.asarray([f == name for f in self.families])
                        for name in config["families"]}
+        self.rides_with = config.get("dense_rides_with", {})
+        self.dense_active = {name: self.active[family]
+                             for name, family in self.rides_with.items()}
+        self.features: Dict[int, torch.Tensor] = {}
+        self._tick = -1
         self.fleet = FleetMaps(
             B, CameraConfig(height=config["camera_size"],
                             width=config["camera_size"],
@@ -99,7 +114,8 @@ class PortSystem:
                         map_depth=config["map_depth"],
                         grid_resolution=config["grid_resolution"],
                         interpolation_weight=config["interpolation_weight"]),
-            {name: C for name in config["families"]}, device=self.device)
+            {name: C for name in config["families"]}, device=self.device,
+            **self._dense())
         for e in range(B):
             self.fleet.reset(e, tuple(float(v) for v in inputs.origin[e]))
         self._setup_folds()
@@ -111,14 +127,37 @@ class PortSystem:
         self.plans: Dict[int, tuple] = {}
         self.meshes: Dict[int, list] = {}
         self.detections: Dict[int, tuple] = {}
-        self._tick = -1
 
     # -------------------------------------------------------- set-up
+
+    def _dense(self) -> Dict:
+        """The fleet's dense families and the backbone that feeds them,
+        loaded as the CLI's ``--backbone-checkpoint`` loads one; the first
+        ``FEATURE_TICKS`` sampled ticks' features are kept for the
+        check."""
+        if not self.config.get("dense_families"):
+            return {}
+        from mass_tpu_torch.perception import resnet
+
+        backbone = resnet.make_backbone(resnet.from_state_dict(
+            self.inputs.backbone, self.device))
+
+        def recording(rgb):
+            feats = backbone(rgb)
+            if self._tick >= 0 and self.schedule.checked(self._tick) \
+                    and len(self.features) < FEATURE_TICKS:
+                self.features[self._tick] = feats
+            return feats
+
+        return {"dense_sizes": self.config["dense_families"],
+                "backbone": recording,
+                "stride": self.config["backbone"]["stride"]}
 
     def _setup_folds(self) -> None:
         """Fold each episode's first ``setup_frames`` frames into its
         ``setup_family`` (the walkthrough map an unshuffle plans on), with
-        the frames' own classes."""
+        the frames' own classes, and into the dense families that ride
+        with it."""
         inputs, counts = self.inputs, self.traffic["setup_frames"]
         family = self.traffic["setup_family"]
         for f in range(max(counts)):
@@ -129,6 +168,16 @@ class PortSystem:
                 inputs.position[f], inputs.yaw[f], inputs.elevation[f],
                 inputs.depth[f][..., None], {family: inputs.classes[f]},
                 active=active)
+            if self.rides_with:
+                self.fleet.update_dense(
+                    inputs.position[f], inputs.yaw[f], inputs.elevation[f],
+                    inputs.depth[f][..., None], self._rgb(f),
+                    active={name: active[with_]
+                            for name, with_ in self.rides_with.items()})
+
+    def _rgb(self, f: int) -> np.ndarray:
+        """Frame f's ``[B, h, w, 3]`` RGB in 0-1, as the sensor takes it."""
+        return self.inputs.rgb[f].astype(np.float32) / np.float32(255)
 
     def _first_grid(self, e: int):
         """The controller's first mesh (``reset_navigation_grid``): nodes
@@ -187,8 +236,7 @@ class PortSystem:
         self._tick = t
         if self.sensor is not None:
             with self.spans("sensor"):
-                rgb = inputs.rgb[f].astype(np.float32) / np.float32(255)
-                classes = self.sensor(rgb)[..., 0]
+                classes = self.sensor(self._rgb(f))[..., 0]
             self.classes[t] = classes
         else:
             classes = inputs.classes[f]
@@ -198,6 +246,14 @@ class PortSystem:
                 inputs.depth[f][..., None],
                 {name: classes for name in self.config["families"]},
                 active=self.active)
+        if self.rides_with:
+            # outside the mapping span: mapping_roofline divides one-hot
+            # bytes by one-hot launches
+            with self.spans("dense"):
+                self.fleet.update_dense(
+                    inputs.position[f], inputs.yaw[f], inputs.elevation[f],
+                    inputs.depth[f][..., None], self._rgb(f),
+                    active=self.dense_active)
         refresh = s.refresh(t)
         with self.spans("planning"):
             host = self._plan(inputs.position[f], s.goals(t), refresh)

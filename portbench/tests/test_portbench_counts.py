@@ -63,6 +63,13 @@ def test_map_update_bytes_by_hand():
     assert roofline.map_update_bytes(10, 54, 100) == 10 * 54 * 4 * 2 + 800
 
 
+def test_dense_update_bytes_by_hand():
+    # 10 voxel rows of 256 float32 channels read and written, 80 records'
+    # int32 id, float32 weight and int32 pixel, 10 pixels' feature rows
+    assert roofline.dense_update_bytes(10, 256, 80, 10) \
+        == 10 * 256 * 4 * 2 + 80 * 12 + 10 * 256 * 4
+
+
 @pytest.mark.parametrize("depth, voxels", [(1.0, 8), (1.2, 8), (9.0, 0)])
 def test_one_pixel_touches_its_eight_corner_voxels(depth, voxels):
     """A ray along +x from the origin of a 1 m grid: at a cell's centre

@@ -54,3 +54,18 @@ def test_the_benchmark_names_a_file_for_every_entry():
         for traced in (False, True):
             for m in bench.metrics(cell["name"], traced):
                 assert callable(bench.reader(m["name"]))
+    # every configuration file holds what the system reads of it, and
+    # every reader under metrics/ is an entry's
+    for entry in bench.spec["configs"]:
+        config = bench.config(entry["name"])
+        dense = config.get("dense_families") or {}
+        assert set(config.get("dense_rides_with", {})) == set(dense)
+        assert set(config.get("dense_rides_with", {}).values()) \
+            <= set(config["families"])
+        if dense:
+            assert config["camera_size"] % config["backbone"]["stride"] == 0
+    names = {m["name"] for kind in ("end_to_end", "per_layer")
+             for m in bench.spec[kind]}
+    readers = {f[:-3] for f in os.listdir(os.path.join(here, "metrics"))
+               if f.endswith(".py")}
+    assert readers == names

@@ -28,7 +28,8 @@ def _card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("workload", ["semantic-384.fleet8",
-                                      "learned-384.fleet8"])
+                                      "learned-384.fleet8",
+                                      "features-384.fleet2"])
 def test_tiny_cells_on_the_card(tmp_path, workload):
     _card()
     bench = Bench(tiny_root(str(tmp_path)))
@@ -46,7 +47,9 @@ def test_tiny_cells_on_the_card(tmp_path, workload):
     ("semantic-384.fleet8", "answer_altered"),
     ("semantic-384.fleet8", "state_unchanged"),
     ("semantic-384.fleet8", "half_batch_left_out"),
-    ("learned-384.fleet8", "class_altered")])
+    ("learned-384.fleet8", "class_altered"),
+    ("features-384.fleet2", "dense_voxel_altered"),
+    ("features-384.fleet2", "backbone_weight_perturbed")])
 def test_a_fault_at_the_cells_own_size_is_not_correct(workload, fault,
                                                       monkeypatch):
     _card()

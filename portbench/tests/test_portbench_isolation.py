@@ -55,8 +55,8 @@ def test_the_reference_loads_nothing_of_the_port():
     names = _top_level_after(
         "import portbench.check, portbench.control, portbench.bench\n"
         "import portbench.traffic.generator\n"
-        "from portbench.reference import maskrcnn, planner, roofline, "
-        "trace, voxel")
+        "from portbench.reference import maskrcnn, planner, resnet, "
+        "roofline, spans, trace, voxel")
     assert not names & {"mass_tpu_torch", *run.FORBIDDEN}
 
 

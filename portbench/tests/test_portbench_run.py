@@ -14,6 +14,7 @@ from portbench.tests import faults
 from portbench.tests.tiny import tiny_root
 
 SEMANTIC, LEARNED = "semantic-384.fleet8", "learned-384.fleet8"
+FEATURES = "features-384.fleet2"
 
 
 @pytest.fixture(scope="module")
@@ -32,7 +33,7 @@ def test_without_a_card_the_run_exits_nonzero_and_prints_nothing(capsys):
 
 
 @pytest.mark.parametrize("workload, traced", [(SEMANTIC, 0), (SEMANTIC, 1),
-                                              (LEARNED, 1)])
+                                              (LEARNED, 1), (FEATURES, 1)])
 def test_a_tiny_run_prints_a_well_formed_correct_result(bench, workload,
                                                         traced):
     result, checks = run.run_cell(bench, workload, 2 ** 31 + 99, 0.5,
@@ -54,6 +55,11 @@ def test_a_tiny_run_prints_a_well_formed_correct_result(bench, workload,
             <= set(line["metrics"])
     if workload == LEARNED:
         assert counts["frames"] > 0 and "score_gap" in checks
+    if workload == FEATURES:
+        assert counts["feature_frames"] > 0
+        assert counts["reference_feature_voxels"] > 0
+        assert {"feature_gap", "feature_map_gap"} <= set(checks)
+        assert "mfu" in line["metrics"]
 
 
 @pytest.mark.parametrize("fault", ["state_unchanged", "half_batch_left_out",
@@ -71,6 +77,26 @@ def test_a_class_altered_where_the_sensor_produces_it_is_not_correct(
     result, checks = run.run_cell(bench, LEARNED, 22, 0.3, False, "cpu")
     assert result["correct"] is False
     assert checks["class_pixels"]["value"] > checks["class_pixels"]["limit"]
+
+
+@pytest.mark.parametrize("fault", ["dense_voxel_altered",
+                                   "backbone_weight_perturbed"])
+def test_a_broken_dense_path_is_not_correct(bench, fault, monkeypatch):
+    faults.plant(fault, monkeypatch)
+    result, checks = run.run_cell(bench, FEATURES, 24, 0.3, False, "cpu")
+    assert result["correct"] is False
+    assert checks["feature_map_gap"]["value"] \
+        > checks["feature_map_gap"]["limit"]
+    if fault == "backbone_weight_perturbed":
+        assert checks["feature_gap"]["value"] > checks["feature_gap"]["limit"]
+
+
+def test_the_dense_control_is_not_correct(bench):
+    result, checks = run.run_cell(bench, FEATURES, 25, 0.3, False, "cpu",
+                                  system_class=ControlSystem)
+    assert result["correct"] is False
+    assert checks["feature_map_gap"]["value"] \
+        > checks["feature_map_gap"]["limit"]
 
 
 def test_the_control_is_not_correct(bench):

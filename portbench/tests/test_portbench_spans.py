@@ -12,9 +12,8 @@ from portbench.bench import Bench
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-NAMES = ("planning.bfs_checks", "planning.wait_ms", "sensor.idle_ms",
-         "mapping.idle_ms", "planning.idle_ms", "transfer.idle_ms",
-         "unspanned.idle_ms")
+NAMES = ("planning.wait_ms", "sensor.idle_ms", "mapping.idle_ms",
+         "planning.idle_ms", "transfer.idle_ms", "unspanned.idle_ms")
 
 
 def _x(cat, name, ts, end):
@@ -43,7 +42,6 @@ SPANS = [
     _span("mass.planning.bfs_check", 295, 305)]    # past the window's end
 # ms a tick: idle inside each union, and host time for the waits
 WANT = {
-    "planning.bfs_checks": 1.5,            # 3 checks start in the window
     "planning.wait_ms": 0.025,             # 220-240, 245-270, 295-300
     "sensor.idle_ms": 0.020,               # 120-150, 160-170
     "mapping.idle_ms": 0.010,              # 175-195
@@ -89,8 +87,8 @@ def test_no_span_and_no_trace_read_nothing(readers, name):
 def test_every_reader_is_declared_for_its_cells():
     bench = Bench(ROOT)
     cells = {m["name"]: m["workloads"] for m in bench.spec["per_layer"]}
-    learned = ["learned-384.fleet8", "learned-384.fleet2"]
+    learned = ["learned-384.fleet8"]
     for name in NAMES:
         assert cells[name] == (learned if name == "sensor.idle_ms" else
-                               learned[:1] + ["semantic-384.fleet8"]
-                               + learned[1:])
+                               learned + ["semantic-384.fleet8",
+                                          "features-384.fleet2"])

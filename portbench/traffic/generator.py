@@ -26,7 +26,9 @@
   * the ticks whose outputs the check samples;
   * detector weights: a detectron2-layout Mask R-CNN R50-FPN state dict
     of random weights on the card, output layers tempered so that the
-    heads score detections of moderate confidence.
+    heads score detections of moderate confidence;
+  * backbone weights: a torchvision-layout stage-1 ResNet-50 state dict
+    of random weights on the card (configurations with a ``backbone``).
 
 World frame: (x, z, up) of THOR's (x, y-up, z); the map's camera sits at
 ``camera_height`` metres; yaw = pi/2 - rotation, elevation = -horizon.
@@ -73,6 +75,7 @@ class Inputs(NamedTuple):
     goals: np.ndarray        # [T, B, 2] float32 world (x, y): the mission's
     calls: np.ndarray        # [T, B] int32: the mission's plans before this
     checked: np.ndarray      # [max_ticks] bool: ticks the check samples
+    backbone: Optional[Dict[str, torch.Tensor]]
     weights: Optional[Dict[str, torch.Tensor]]
 
 
@@ -331,8 +334,13 @@ def generate(traffic: Dict, config: Dict, seed: int, device,
         weights = detector_weights(config["num_classes"],
                                    int(_streams(seed, 3).integers(2 ** 62)),
                                    device)
+    backbone = None
+    if config.get("backbone"):
+        backbone = backbone_weights(int(_streams(seed, 5).integers(2 ** 62)),
+                                    device)
     return Inputs(rgb, depth, cls, position, yaw, elevation,
-                  position[0].copy(), goals, calls, checked, weights)
+                  position[0].copy(), goals, calls, checked, backbone,
+                  weights)
 
 
 def _layout(num_classes: int):
@@ -394,11 +402,9 @@ def _layout(num_classes: int):
     return out
 
 
-def detector_weights(num_classes: int, seed: int,
-                     device) -> Dict[str, torch.Tensor]:
-    """Random detectron2-layout weights, drawn on ``device`` by one
+def _draw(layout, seed: int, device) -> Dict[str, torch.Tensor]:
+    """A state dict of ``layout``'s tensors, drawn on ``device`` by one
     generator in two calls (all normal draws, all uniform draws)."""
-    layout = _layout(num_classes)
     gen = torch.Generator(device=device).manual_seed(seed)
     counts = {kind: sum(math.prod(shape) for _, shape, d, _ in layout
                         if d == kind) for kind in ("normal", "uniform")}
@@ -413,10 +419,46 @@ def detector_weights(num_classes: int, seed: int,
         taken[kind] += n
         sd[key] = (draw * scale if kind == "normal"
                    else scale[0] + draw * (scale[1] - scale[0]))
+    return sd
+
+
+def detector_weights(num_classes: int, seed: int,
+                     device) -> Dict[str, torch.Tensor]:
+    """Random detectron2-layout weights, output layers tempered."""
+    sd = _draw(_layout(num_classes), seed, device)
     for key, scale in HEAD_SCALES.items():
         w = sd[f"{key}.weight"]
         if key in CENTRED:
             w = w - w.mean(1, keepdim=True)
         sd[f"{key}.weight"] = w * scale
         sd[f"{key}.bias"] = torch.zeros_like(sd[f"{key}.bias"])
+    return sd
+
+
+def backbone_weights(seed: int, device) -> Dict[str, torch.Tensor]:
+    """Random weights of torchvision's resnet50 stem and ``layer1`` (the
+    stage-1 feature extractor), batch norm's step counters included."""
+    layout = []
+
+    def conv(key, bn, cout, cin, k):
+        layout.append((f"{key}.weight", (cout, cin, k, k), "normal",
+                       math.sqrt(2.0 / (cin * k * k))))
+        layout.append((f"{bn}.weight", (cout,), "uniform", (0.9, 1.1)))
+        layout.append((f"{bn}.bias", (cout,), "normal", 0.01))
+        layout.append((f"{bn}.running_mean", (cout,), "normal", 0.01))
+        layout.append((f"{bn}.running_var", (cout,), "uniform", (0.5, 1.5)))
+
+    conv("conv1", "bn1", 64, 3, 7)
+    for b in range(3):
+        pre = f"layer1.{b}"
+        conv(f"{pre}.conv1", f"{pre}.bn1", 64, 64 if b == 0 else 256, 1)
+        conv(f"{pre}.conv2", f"{pre}.bn2", 64, 64, 3)
+        conv(f"{pre}.conv3", f"{pre}.bn3", 256, 64, 1)
+        if b == 0:
+            conv(f"{pre}.downsample.0", f"{pre}.downsample.1", 256, 64, 1)
+    sd = _draw(layout, seed, device)
+    for key, *_ in layout:
+        if key.endswith(".running_var"):
+            sd[key[:-len("running_var")] + "num_batches_tracked"] = \
+                torch.zeros((), dtype=torch.int64, device=device)
     return sd
